@@ -15,21 +15,44 @@ result line):
    group 32, budget 1024) and at one GQA shape (4 kv heads × 4 query heads),
    with per-row lengths that include one row shorter than the budget; then
    the kernel, its plain version and one library call timed in turns with
-   the L2 cache flushed before every launch.
+   the L2 cache flushed before every launch.  The paged kernels K3 and K4
+   run on a pool built by scattering the slab's blocks (bs 32) into a random
+   permutation of pool blocks, with spare blocks and one table entry inside
+   a row's length pointed at the null block 0 (non-zero data): K3 must equal
+   K1 on the gathered slab bit for bit (idx, τ, m), K4 must equal K2 bit for
+   bit, and each must agree with its own plain version.
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
    fifth prompt into a freed slot and 8 ``decode(active=...)`` steps.  Every
-   kernel must have launched 14 × (decode steps) times (16 layers − 2 skip
-   layers).  The same engine built with ``pipeline='reference'`` (no custom
-   kernel) gives identical prefill logits.  The first decode step is run
-   with the kernels, with their plain versions (each layer's kernel inputs
-   compared on the way), and with two planted faults: its logits must lie
-   near the plain run's and the reference pipeline's, and each fault's
-   must not (``first_step_checks``).
-4. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
-   bound and launch count, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   slab kernel must have launched 14 × (decode steps) times (16 layers − 2
+   skip layers), the paged ones never.  The same engine built with
+   ``pipeline='reference'`` (no custom kernel) gives identical prefill
+   logits.  The first decode step is run with the kernels, with their plain
+   versions (each layer's kernel inputs compared on the way), and with two
+   planted faults: its logits must lie near the plain run's and the
+   reference pipeline's, and each fault's must not (``first_step_checks``).
+4. Paged vs slab (``paged_vs_slab``): the same weights, four prompts
+   (7900/6000/4000/1500) inserted one by one into the slab engine and into
+   ``Engine.build(layout="paged")`` (bs 32, default pool), then 32 greedy
+   decode steps (the paged engine calling ``advance_slot`` for every slot
+   first).  Tokens and the first step's logits must be equal (max |Δ| 0);
+   each run launches only its own layout's kernels, 14 per step.
+5. Serving a stream (``serve_stream``): ``ContinuousScheduler`` with chunk
+   2048 over a paged engine (8 slots × 8192, bs 32, a tight pool of 621
+   blocks) and 12 requests: P (a 4096-token family prefix + 250 tokens),
+   two exact repeats of P (full-prompt replay, shared partial tail block,
+   copy-on-write), four distinct prompts (7000/5000/3000/1500) and five
+   family-prefix prompts.  Every request must finish, the audit be clean
+   with no block in use, prefix hits, replays and CoW copies be > 0, the
+   repeats generate P's tokens, a budget downshift or a preemption occur,
+   and K3/K4 launch 14 × the scheduler's decode steps.  The first decode
+   step at each budget served (1024 and, after a downshift, 512; 8 slots)
+   also runs K3 and K4's plain versions on the engine's own tensors, held
+   to the tolerances of phase 2.
+6. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+   bound and launch count (K3/K4: the phase 5 run), the card line, and as
+   the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -48,6 +71,8 @@ F32_FLOPS = 67e12
 
 # main-path shapes (olmo-1b, Engine.build(n_slots=4, capacity=8192) defaults)
 SLOTS, CAPACITY, GROUP, BUDGET, SINK, RECENT = 4, 8192, 32, 1024, 4, 64
+BLOCK_SIZE = 32
+DEVICE = "cuda"
 N_LAYERS, SKIP = 16, 2
 PROMPTS = (7900, 6000, 4000, 1500)
 FIFTH_PROMPT = 3000
@@ -130,9 +155,9 @@ def make_inputs(torch, B, Hkv, rep, D, S, seed):
     K = torch.from_numpy((rng.standard_normal((B, S, Hkv, D)) * ch).astype(np.float32))
     V = torch.from_numpy(rng.standard_normal((B, S, Hkv, D)).astype(np.float32))
     q = torch.from_numpy(rng.standard_normal((B, Hkv, rep, D)).astype(np.float32))
-    K, V, q = (t.to("cuda", torch.bfloat16) for t in (K, V, q))
+    K, V, q = (t.to(DEVICE, torch.bfloat16) for t in (K, V, q))
     qk = quantize(K, GROUP)
-    lengths = torch.tensor([S, 5003, 2100, 700][:B], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([S, 5003, 2100, 700][:B], dtype=torch.int32, device=DEVICE)
     return q, K, V, qk, lengths
 
 
@@ -230,6 +255,168 @@ def check_kernels(torch, timer, shapes):
         ))
         del q, K, V, qk, lengths, s, kv
         torch.cuda.empty_cache()
+    return finish_rows(rows)
+
+
+def paged_inputs(torch, q, K, V, qk, lengths, bs, spare, seed):
+    """The slab's blocks scattered into a random permutation of pool blocks
+    (with ``spare`` unused blocks), and one table entry of row 1 inside its
+    length pointed at the null block 0, which holds non-zero data.  Returns
+    the pools, the table and the logical slabs the table gathers (what K1
+    and K2 see)."""
+    import numpy as np
+
+    from repro_torch.core.quantize import QuantizedKeys
+    from repro_torch.kvcache.paged import gather_block_rows
+
+    B, S = K.shape[:2]
+    nb = S // bs
+    N = 1 + B * nb + spare
+    rng = np.random.default_rng(seed)
+    perm = 1 + rng.permutation(N - 1)[: B * nb]
+    table = torch.from_numpy(perm.reshape(B, nb).astype(np.int32)).to(q.device)
+    hole = int(lengths[1]) // bs // 2  # a block well inside row 1's length
+    table[1, hole] = 0
+
+    def to_pool(a, fill):
+        pb = a.shape[1] // nb
+        pool = torch.empty((N, pb, *a.shape[2:]), dtype=a.dtype, device=a.device)
+        pool[0] = fill(pool[0])
+        ids = torch.from_numpy(perm.astype(np.int64)).to(a.device)
+        pool[ids] = a.reshape(B * nb, pb, *a.shape[2:])
+        pool[torch.from_numpy(np.setdiff1d(np.arange(1, N), perm)).to(a.device)] = 0
+        return pool
+
+    noise = lambda t: torch.randn(t.shape, device=t.device).to(t.dtype)
+    pools = dict(
+        k=to_pool(K, noise), v=to_pool(V, noise),
+        codes=to_pool(qk.codes, lambda t: torch.randint_like(t, 1, 256)),
+        scale=to_pool(qk.scale, lambda t: noise(t).abs() + 0.5),
+        zero=to_pool(qk.zero, noise),
+    )
+    g = lambda a: gather_block_rows(a, table)
+    slab_qk = QuantizedKeys(g(pools["codes"]), g(pools["scale"]), g(pools["zero"]), qk.group)
+    return pools, table, g(pools["k"]), g(pools["v"]), slab_qk
+
+
+def check_paged_kernels(torch, timer, shapes):
+    """K3 and K4 on a permuted pool with a null-block hole: each against its
+    plain version, and bitwise against K1 / K2 on the gathered slab."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import sparse_attention as sa
+
+    rows = {"fier_retrieve_paged": [], "fier_attend_selected_paged": []}
+    for (B, Hkv, rep, D, S, reduce) in shapes:
+        q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=rep + 10)
+        pools, table, Ks, Vs, sqk = paged_inputs(
+            torch, q, K, V, qk, lengths, BLOCK_SIZE, spare=64, seed=rep
+        )
+        del K, V, qk
+        sel = dict(group=GROUP, group_reduce=reduce, sink=SINK, recent=RECENT)
+        pargs = (q, pools["codes"], pools["scale"], pools["zero"], table, lengths, BUDGET)
+        kargs = (q, pools["codes"], pools["scale"], pools["zero"], lengths, BUDGET)
+        ksel = dict(sel, block_table=table)
+
+        # ---- K3: bitwise K1 on the gathered slab, and its plain version
+        idx3, tau3, m3 = fr.fier_retrieve(*kargs, **ksel)
+        idx1, tau1, m1 = fr.fier_retrieve(
+            q, sqk.codes, sqk.scale, sqk.zero, lengths, BUDGET, **sel
+        )
+        idx_p, tau_p, m_p = fr.fier_retrieve_paged_plain(*pargs, **sel)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx3, idx1) and torch.equal(tau3, tau1) and torch.equal(m3, m1)):
+            raise AssertionError(f"K3 differs from K1 on the gathered slab at "
+                                 f"{(B, Hkv, rep, D, S, reduce)}")
+        # K1 on the same slab passed the plain-version check in phase 2's
+        # first half; K3 = K1 bitwise, so the same near-τ band applies here
+        s = fr.retrieval_scores(q, sqk.codes, sqk.scale, sqk.zero, group=GROUP)
+        kv, _ = fr.masked_keys(s, lengths, SINK, RECENT, reduce)
+        amax = (sqk.scale.float().abs() + sqk.zero.float().abs()).amax()
+        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        from repro_torch.kernels.check import selection_agrees
+
+        ok, ndiff = selection_agrees(
+            idx3.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1),
+            tau3.reshape(-1), tau_p.reshape(-1), m3.reshape(-1), m_p.reshape(-1),
+            kv.reshape(B * Hkv, S), eps,
+        )
+        tau_err = float(torch.where(tau3 == tau_p, torch.zeros_like(tau3),
+                                    (tau3 - tau_p).abs()).max())
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version: {ndiff} indices")
+        log(f"  K3 B={B} Hkv={Hkv} rep={rep} {reduce}: idx, tau, m bitwise equal to K1 on "
+            f"the gathered slab; vs plain: {ndiff} near-tau swaps, tau err {tau_err:.3g}")
+        kv_rows = kv.reshape(B * Hkv, S)
+        t = in_turns(
+            timer,
+            lambda: fr.fier_retrieve_paged_plain(*pargs, **sel),
+            lambda: fr.fier_retrieve(*kargs, **ksel),
+            lambda: torch.topk(kv_rows, BUDGET, dim=-1),
+        )
+        nbytes = sum(a.numel() * a.element_size() for a in (q, sqk.codes, sqk.scale, sqk.zero))
+        nbytes += table.numel() * 4 + lengths.numel() * 4
+        nbytes += idx3.numel() * 4 + tau3.numel() * 4 + m3.numel() * 4
+        rows["fier_retrieve_paged"].append(dict(
+            shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"],
+            library_ms=t["library"], bytes=nbytes, flops=2 * B * Hkv * rep * S * D,
+            max_abs_err=tau_err,
+        ))
+
+        # ---- K4: bitwise K2 on the gathered slab, and its plain version
+        out4 = sa.fier_attend_selected(
+            q, pools["k"], pools["v"], idx3, lengths, block_table=table
+        )
+        out2 = sa.fier_attend_selected(q, Ks, Vs, idx3, lengths)
+        out_p = sa.fier_attend_selected_paged_plain(
+            q, pools["k"], pools["v"], table, idx3, lengths
+        )
+        torch.cuda.synchronize()
+        if not torch.equal(out4, out2):
+            raise AssertionError(f"K4 differs from K2 on the gathered slab: max "
+                                 f"{float((out4 - out2).abs().max()):.3g}")
+        err = float((out4 - out_p).abs().max())
+        scale = float(out_p.abs().max())
+        if not (err <= K2_REL_TOL * scale and torch.isfinite(out4).all()):
+            raise AssertionError(f"K4 disagrees with its plain version: {err:.3g} > "
+                                 f"{K2_REL_TOL} · {scale:.3g}")
+        log(f"  K4 B={B} Hkv={Hkv} rep={rep}: bitwise equal to K2 on the gathered slab; "
+            f"vs plain max |err| {err:.3g} (<= {K2_REL_TOL * scale:.3g})")
+        valid = idx3 < lengths[:, None, None]
+        mask = valid[:, :, None, :].expand(B, Hkv, rep, BUDGET)
+        kflat = pools["k"].reshape(-1, Hkv, D)
+        vflat = pools["v"].reshape(-1, Hkv, D)
+        heads = torch.arange(Hkv, device=q.device)[None, :, None]
+
+        def library():
+            prow = table.long().gather(1, (idx3 // BLOCK_SIZE).long().reshape(B, -1))
+            prow = prow.reshape(idx3.shape) * BLOCK_SIZE + (idx3 % BLOCK_SIZE)
+            ks, vs = kflat[prow, heads], vflat[prow, heads]  # [B, Hkv, budget, D]
+            return F.scaled_dot_product_attention(q, ks, vs, attn_mask=mask)
+
+        t = in_turns(
+            timer,
+            lambda: sa.fier_attend_selected_paged_plain(
+                q, pools["k"], pools["v"], table, idx3, lengths),
+            lambda: sa.fier_attend_selected(
+                q, pools["k"], pools["v"], idx3, lengths, block_table=table),
+            library,
+        )
+        n_valid = int(valid.sum())
+        nbytes = 2 * n_valid * D * 2 + idx3.numel() * 4 + q.numel() * 2
+        nbytes += lengths.numel() * 4 + table.numel() * 4 + out4.numel() * 4
+        rows["fier_attend_selected_paged"].append(dict(
+            shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"],
+            library_ms=t["library"], bytes=nbytes, flops=4 * n_valid * rep * D,
+            max_abs_err=err,
+        ))
+        del q, pools, Ks, Vs, sqk, s, kv
+        torch.cuda.empty_cache()
+    return finish_rows(rows)
+
+
+def finish_rows(rows):
     for name, rs in rows.items():
         for r in rs:
             r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S, r["flops"] / F32_FLOPS)
@@ -323,11 +510,8 @@ def main_path(torch):
     peak = torch.cuda.max_memory_allocated()
     profile_decode(torch, eng, params, tok, cache, active)
     steps = (MAX_NEW - 1) + EXTRA_STEPS
-    expect = (N_LAYERS - SKIP) * steps
-    for name, n in counts.items():
-        if n != expect:
-            raise AssertionError(f"{name} launched {n} times, expected {expect}")
-    log(f"  launches {counts} == {N_LAYERS - SKIP} x {steps} decode steps")
+    check_launches(counts, SLAB_KERNELS, (N_LAYERS - SKIP) * steps)
+    log(f"  launches {counts}: {N_LAYERS - SKIP} x {steps} decode steps")
 
     # ---- outputs are right by the repo's own means
     lens = cache["length"].tolist()
@@ -351,7 +535,239 @@ def main_path(torch):
     log(f"  decode(active) steps: median {med:.2f} ms/step "
         f"({3 / (med / 1e3):.1f} tokens/s over 3 active slots); "
         f"peak memory {peak / 2**30:.2f} GiB")
-    return counts, engine_errs
+    del cache
+    return counts, engine_errs, params, eng
+
+
+SLAB_KERNELS = ("fier_retrieve", "fier_attend_selected")
+PAGED_KERNELS = ("fier_retrieve_paged", "fier_attend_selected_paged")
+
+
+def check_launches(counts, path_kernels, expect):
+    """Each kernel of the path launched ``expect`` times, every other 0."""
+    for name, n in counts.items():
+        want = expect if name in path_kernels else 0
+        if n != want:
+            raise AssertionError(f"{name} launched {n} times, expected {want}")
+
+
+# ------------------------------------------------------------ phase 4
+
+def sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def paged_vs_slab(torch, cfg, params, slab, prompts=PROMPTS, steps=MAX_NEW):
+    """The same four prompts inserted one by one into the slab engine and
+    into a paged one (bs 32, default pool), then ``steps`` greedy decode
+    steps, the paged engine calling ``advance_slot`` for every slot before
+    each step.  Tokens and the first step's logits must be equal; each
+    engine must have run only its own layout's kernels, 14 per step."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine
+
+    rng = np.random.default_rng(4)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).to(DEVICE) for n in prompts]
+    n_fier = cfg.n_layers - slab.bundle.policy.skip_layers
+
+    def drive(eng, kernels):
+        cache = eng.new_cache()
+        reset_launch_counts()
+        tok = torch.zeros(len(prompts), dtype=torch.int32, device=DEVICE)
+        for slot, t in enumerate(toks):
+            lg, cache = eng.insert(params, cache, t, t.shape[1], slot)
+            tok[slot] = torch.argmax(lg, -1)[0]
+        out, first, ms = [tok.clone()], None, []
+        for _ in range(steps):
+            sync(torch)
+            t0 = time.perf_counter()
+            if eng.paged:
+                for slot in range(len(prompts)):
+                    ok, cache = eng.advance_slot(cache, slot)
+                    if not ok:
+                        raise AssertionError("the default pool ran dry")
+            tok, lg, cache = eng.decode(params, tok, cache)
+            sync(torch)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if first is None:
+                first = lg.clone()
+            out.append(tok.clone())
+        counts = launch_counts()
+        check_launches(counts, kernels, n_fier * steps)
+        if eng.paged:
+            eng.audit()
+        if DEVICE == "cuda":
+            log(f"  {'paged' if eng.paged else 'slab'} engine:")
+            profile_decode(torch, eng, params, tok, cache, None)
+        del cache
+        return torch.stack(out, 1), first, median(ms), counts
+
+    toks_s, lg_s, ms_s, _ = drive(slab, SLAB_KERNELS)
+    paged = Engine.build(cfg, n_slots=len(prompts), capacity=slab.capacity,
+                         layout="paged", device=DEVICE)
+    pol = paged.bundle.policy
+    if (pol.layout, pol.pipeline, pol.budget, pol.block_size) != (
+            "paged", "one_pass", slab.bundle.policy.budget, BLOCK_SIZE):
+        raise AssertionError(f"the paged engine's policy is {pol}")
+    toks_p, lg_p, ms_p, counts = drive(paged, PAGED_KERNELS)
+    gap = float((lg_p - lg_s).abs().max())
+    agree = int((toks_p == toks_s).sum())
+    log(f"  first decode step, paged vs slab: max |Δlogit| {gap:.6g} (expected 0)")
+    log(f"  greedy tokens equal to the slab engine's: {agree}/{toks_s.numel()}")
+    log(f"  decode ms/step (median of {steps}): slab {ms_s:.2f}, paged {ms_p:.2f} "
+        f"(advance_slot included); launches {counts}")
+    if gap != 0.0 or not torch.equal(toks_p, toks_s):
+        raise AssertionError("the paged engine differs from the slab engine")
+    return counts
+
+
+# ------------------------------------------------------------ phase 5
+
+def stream_requests(vocab, family=4096, own=(250, 256), distinct=(7000, 5000, 3000, 1500)):
+    """The phase 5 trace, in submission order: P (the family prefix plus
+    ``own[0]`` tokens, a partial last block), two exact repeats of P, four
+    distinct prompts, five family-prefix prompts of ``own[1]`` tokens each."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(5)
+    toks = lambda n: rng.integers(1, vocab, size=n).tolist()
+    fam = toks(family)
+    P = fam + toks(own[0])
+    specs = [(P, 32), (P, 16), (P, 16)]
+    specs += [(toks(n), 64) for n in distinct]
+    specs += [(fam + toks(own[1]), 32) for _ in range(5)]
+    return [Request(rid=i, tokens=list(t), max_new=m) for i, (t, m) in enumerate(specs)]
+
+
+def serve_stream(torch, cfg, params, *, n_slots=8, capacity=CAPACITY, pool_blocks=621,
+                 chunk_tokens=2048, requests=None):
+    """``ContinuousScheduler`` over a paged engine with a tight pool: every
+    request must finish, the audit must be clean with no block in use, the
+    prefix cache, the full-prompt replay and copy-on-write must all have
+    fired, the repeats of P must have generated P's tokens, pressure must
+    have shown as a budget downshift or a preemption, and the paged kernels
+    must have launched 14 × the decode steps.  The first decode step at each
+    budget the engine serves (the full one and every downshifted rung) runs
+    K3 and K4 beside their plain versions on the engine's own tensors
+    (``checked_kernels``; the served tokens stay the kernels')."""
+    import dataclasses
+
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.obs import Observability
+    from repro_torch.obs.tracing import PID_REQUEST
+    from repro_torch.serving import ContinuousScheduler, Engine, serving_policy
+
+    reqs = requests if requests is not None else stream_requests(cfg.vocab)
+    eng = Engine.build(
+        cfg, n_slots=n_slots, capacity=capacity, obs=Observability(), device=DEVICE,
+        policy=dataclasses.replace(serving_policy(layout="paged"), pool_blocks=pool_blocks),
+    )
+    if eng.block_size != BLOCK_SIZE:
+        raise AssertionError(f"the paged engine's block size is {eng.block_size}")
+    sched = ContinuousScheduler(eng, params, chunk_tokens=chunk_tokens)
+    dec_ms, checked_at = [], []
+    errs = new_errs()
+    checked = checked_kernels(torch, errs, keep_plain=False)
+    decode = eng.decode
+
+    def timed_decode(*a, **k):
+        check = eng.current_budget not in checked_at
+        if check:
+            checked_at.append(eng.current_budget)
+            ops.fier_retrieve, ops.fier_attend_selected = checked
+        try:
+            sync(torch)
+            t0 = time.perf_counter()
+            out = decode(*a, **k)
+            sync(torch)
+        finally:
+            ops.fier_retrieve, ops.fier_attend_selected = fr.fier_retrieve, sa.fier_attend_selected
+        if not check:  # a checked step also runs the plain versions: not timed
+            dec_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    eng.decode = timed_decode
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sched.start()
+    reset_launch_counts()
+    wall0 = time.monotonic()
+    for r in reqs:
+        sched.submit(r)
+    while sched.busy:
+        if not sched.step():
+            raise AssertionError("the scheduler stalled")
+    sync(torch)
+    wall = time.monotonic() - wall0
+    counts = launch_counts()
+    n_fier = cfg.n_layers - eng.bundle.policy.skip_layers
+    check_launches(counts, PAGED_KERNELS, n_fier * sched.steps)
+
+    eng.audit()
+    ps = eng.pool_stats()
+    status = {oc.status for oc in sched.outcomes.values()}
+    n_tok = sum(len(r.out) for r in reqs)
+    first = {}
+    for e in eng.obs.tracer.events:
+        if e.pid == PID_REQUEST and e.name == "token" and e.tid not in first:
+            first[e.tid] = e.wall_ts - wall0
+    ttft = sorted(first.values())
+    pct = lambda q: ttft[min(len(ttft) - 1, int(q * (len(ttft) - 1) + 0.5))]
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    stats = dict(
+        requests=len(reqs), decode_steps=sched.steps, prefill_chunks=sched.prefill_chunks,
+        preemptions=sched.preemptions, prefill_aborts=sched.prefill_aborts,
+        budget_downshifts=eng.downshifts, budget_restores=eng.restores,
+        blocks_shed=eng.blocks_shed, prefix_block_hits=ps["pool_prefix_block_hits"],
+        prefix_replays=eng.prefix_hits, cow_copies=ps["pool_cow_copies"],
+        peak_blocks=ps["pool_peak_in_use"], blocks_in_use_at_end=ps["pool_blocks_in_use"],
+        tokens=n_tok, wall_s=round(wall, 3), tokens_per_s=round(n_tok / wall, 2),
+        decode_ms_median=round(median(dec_ms), 2), wall_ttft_p50_s=round(pct(0.5), 3),
+        wall_ttft_p99_s=round(pct(0.99), 3), peak_gib=round(peak / 2**30, 2),
+    )
+    log(f"  pool {pool_blocks} blocks ({pool_blocks - 1} usable × {BLOCK_SIZE} tokens), "
+        f"{n_slots} slots × {capacity}: {json.dumps(stats)}")
+    log(f"  launches {counts}: {n_fier} x {sched.steps} decode steps")
+    log(f"  decode steps held against the plain versions at budgets {checked_at}, "
+        f"{n_slots} slots:")
+    log_errs(errs, "K3", "K4")
+    reps = [r.out == reqs[0].out[: len(r.out)] for r in reqs[1:3]]
+    log(f"  the repeats of P generated P's tokens: {reps}")
+    checks = {
+        "every request finished": status == {"finished"} and len(sched.outcomes) == len(reqs),
+        "no block in use at the end": ps["pool_blocks_in_use"] == 0,
+        "prefix block hits > 0": ps["pool_prefix_block_hits"] > 0,
+        "prefix replays > 0": eng.prefix_hits > 0,
+        "copy-on-write copies > 0": ps["pool_cow_copies"] > 0,
+        "the repeats of P generated P's tokens": all(reps),
+        "a budget downshift or a preemption": eng.downshifts + sched.preemptions > 0,
+        "the full budget's first decode step held against the plain versions":
+            eng.base_budget in checked_at and errs["calls"] == n_fier * len(checked_at),
+        "every downshifted budget's first decode step held against the plain versions":
+            eng.downshifts == 0 or min(checked_at) < eng.base_budget,
+        "every request got max_new tokens in range": all(
+            len(r.out) == r.max_new and all(0 <= t < cfg.vocab for t in r.out) for r in reqs
+        ),
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"phase 5 failed: {bad}")
+    del eng, sched
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return counts, stats, errs
 
 
 def clone_cache(torch, cache):
@@ -373,6 +789,77 @@ def clone_cache(torch, cache):
     return copy(cache)
 
 
+def new_errs():
+    return {"k1_tau": 0.0, "k1_swaps": 0, "k2": 0.0, "k2_rel": 0.0, "calls": 0}
+
+
+def checked_kernels(torch, errs, *, keep_plain):
+    """Stand-ins for ``ops.fier_retrieve`` / ``ops.fier_attend_selected``
+    that run the kernel and its plain version on the same (the engine's
+    own) tensors, either layout: K1/K3 must give the same index set up to
+    near-τ ties, K2/K4 must lie within K2_REL_TOL of max|out|.  They return
+    the plain result when ``keep_plain`` (it goes on down the stack), else
+    the kernel's, so the served path is the one it would have been.  The
+    kernel launch is the path's own; the plain version launches nothing."""
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.kernels.check import selection_agrees
+    from repro_torch.kvcache.paged import gather_block_rows
+
+    def retrieve(q, codes, scale, zero, lengths, budget, *, block_table=None, **sel):
+        got = fr.fier_retrieve(q, codes, scale, zero, lengths, budget,
+                               block_table=block_table, **sel)
+        if block_table is not None:
+            want = fr.fier_retrieve_paged_plain(
+                q, codes, scale, zero, block_table, lengths, budget, **sel)
+            codes, scale, zero = (gather_block_rows(a, block_table) for a in (codes, scale, zero))
+        else:
+            want = fr.fier_retrieve_plain(q, codes, scale, zero, lengths, budget, **sel)
+        B, Hkv, rep, D = q.shape
+        s = fr.retrieval_scores(q, codes, scale, zero, group=sel["group"])
+        kv, _ = fr.masked_keys(s, lengths, sel["sink"], sel["recent"], sel["group_reduce"])
+        amax = (scale.float().abs() + zero.float().abs()).amax()
+        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        ok, ndiff = selection_agrees(
+            *(x.reshape(B * Hkv, -1) for x in (got[0], want[0])),
+            *(x.reshape(-1) for x in (got[1], want[1], got[2], want[2])),
+            kv.reshape(B * Hkv, -1), eps,
+        )
+        name = "K3" if block_table is not None else "K1"
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version on the engine's "
+                                 f"tensors: {ndiff} indices, eps {eps:.3g}")
+        d_tau = torch.where(got[1] == want[1], 0.0, (got[1] - want[1]).abs()).max()
+        errs["k1_tau"] = max(errs["k1_tau"], float(d_tau))
+        errs["k1_swaps"] += ndiff
+        errs["calls"] += 1
+        return want if keep_plain else got
+
+    def attend(q, K, V, idx, lengths=None, *, block_table=None):
+        got = sa.fier_attend_selected(q, K, V, idx, lengths, block_table=block_table)
+        if block_table is not None:
+            want = sa.fier_attend_selected_paged_plain(q, K, V, block_table, idx, lengths)
+        else:
+            want = sa.fier_attend_selected_plain(q, K, V, idx, lengths)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        if not rel <= K2_REL_TOL:
+            name = "K4" if block_table is not None else "K2"
+            raise AssertionError(f"{name} disagrees with its plain version on the engine's "
+                                 f"tensors: {err:.3g} ({rel:.3g} of max|out|)")
+        errs["k2"], errs["k2_rel"] = max(errs["k2"], err), max(errs["k2_rel"], rel)
+        return want if keep_plain else got
+
+    return retrieve, attend
+
+
+def log_errs(errs, retrieval, attention):
+    log(f"  per layer on the engine's tensors ({errs['calls']} calls): {retrieval} index "
+        f"sets agree ({errs['k1_swaps']} near-tau swaps), max tau err {errs['k1_tau']:.3g}; "
+        f"{attention} max |err| {errs['k2']:.3g} ({errs['k2_rel']:.3g} of max|out|)")
+
+
+
 def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
     """The first decode step after prefill, five ways, each from a copy of
     the same prefill cache:
@@ -392,7 +879,6 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
     from repro_torch.kernels import fused_retrieval as fr
     from repro_torch.kernels import ops
     from repro_torch.kernels import sparse_attention as sa
-    from repro_torch.kernels.check import selection_agrees
 
     def step(retrieve=fr.fier_retrieve, attend=sa.fier_attend_selected):
         ops.fier_retrieve, ops.fier_attend_selected = retrieve, attend
@@ -403,42 +889,11 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
             ops.fier_retrieve, ops.fier_attend_selected = fr.fier_retrieve, sa.fier_attend_selected
         return lg[:, :vocab]
 
-    errs = {"k1_tau": 0.0, "k1_swaps": 0, "k2": 0.0, "k2_rel": 0.0}
+    errs = new_errs()
+    checked_retrieve, checked_attend = checked_kernels(torch, errs, keep_plain=True)
 
-    def checked_retrieve(q, codes, scale, zero, lengths, budget, **sel):
-        got = fr.fier_retrieve(q, codes, scale, zero, lengths, budget, **sel)
-        want = fr.fier_retrieve_plain(q, codes, scale, zero, lengths, budget, **sel)
-        B, Hkv, rep, D = q.shape
-        s = fr.retrieval_scores(q, codes, scale, zero, group=sel["group"])
-        kv, _ = fr.masked_keys(s, lengths, sel["sink"], sel["recent"], sel["group_reduce"])
-        amax = (scale.float().abs() + zero.float().abs()).amax()
-        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
-        ok, ndiff = selection_agrees(
-            *(x.reshape(B * Hkv, -1) for x in (got[0], want[0])),
-            *(x.reshape(-1) for x in (got[1], want[1], got[2], want[2])),
-            kv.reshape(B * Hkv, -1), eps,
-        )
-        if not ok:
-            raise AssertionError(f"K1 disagrees with its plain version on the engine's "
-                                 f"tensors: {ndiff} indices, eps {eps:.3g}")
-        d_tau = torch.where(got[1] == want[1], 0.0, (got[1] - want[1]).abs()).max()
-        errs["k1_tau"] = max(errs["k1_tau"], float(d_tau))
-        errs["k1_swaps"] += ndiff
-        return want
-
-    def checked_attend(q, K, V, idx, lengths=None):
-        got = sa.fier_attend_selected(q, K, V, idx, lengths)
-        want = sa.fier_attend_selected_plain(q, K, V, idx, lengths)
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        if not rel <= K2_REL_TOL:
-            raise AssertionError(f"K2 disagrees with its plain version on the engine's "
-                                 f"tensors: {err:.3g} ({rel:.3g} of max|out|)")
-        errs["k2"], errs["k2_rel"] = max(errs["k2"], err), max(errs["k2_rel"], rel)
-        return want
-
-    def shifted_attend(q, K, V, idx, lengths=None):
-        return sa.fier_attend_selected(q, K, V, (idx + 1) % K.shape[1], lengths)
+    def shifted_attend(q, K, V, idx, lengths=None, **k):
+        return sa.fier_attend_selected(q, K, V, (idx + 1) % K.shape[1], lengths, **k)
 
     n_calls = [0]
 
@@ -460,9 +915,7 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
     gap = lambda a, b: float((a - b).abs().max())
     top1 = lambda a, b: int((a.argmax(-1) == b.argmax(-1)).sum())
     d_plain, d_ref = gap(lg1, lg1_plain), gap(lg1, ref)
-    log(f"  per layer on the engine's tensors: K1 index sets agree ({errs['k1_swaps']} "
-        f"near-tau swaps), max tau err {errs['k1_tau']:.3g}; K2 max |err| "
-        f"{errs['k2']:.3g} ({errs['k2_rel']:.3g} of max|out|)")
+    log_errs(errs, "K1", "K2")
     log(f"  first decode step (max |logit| {s1:.4g}): max |Δlogit| vs plain versions "
         f"{d_plain:.4g} (top-1 {top1(lg1, lg1_plain)}/{SLOTS}), vs reference pipeline "
         f"{d_ref:.4g} (top-1 {top1(lg1, ref)}/{SLOTS})")
@@ -486,17 +939,25 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
 
 
 def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
-    """Device busy share of decode steps and the kernels that fill it
-    (torch.profiler; the profiler's own overhead slows the host side, so
-    the busy share is a lower bound on an unprofiled step's).  Only kernel
-    rows are summed: an operator row repeats its kernels' time."""
+    """Device busy share of decode steps, their kernel launches and the
+    kernels that fill them (torch.profiler; the profiler's own overhead
+    slows the host side, so the busy share is a lower bound on an
+    unprofiled step's).  Only kernel rows are summed: an operator row
+    repeats its kernels' time.  A paged engine's step includes
+    ``advance_slot`` for every active slot, as the scheduler runs it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    slots = [s for s in range(eng.n_slots) if active is None or bool(active[s])]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
+            if eng.paged:
+                for slot in slots:
+                    ok, cache = eng.advance_slot(cache, slot)
+                    if not ok:
+                        raise AssertionError("the pool ran dry while profiling")
             tok, _, cache = eng.decode(params, tok, cache, active=active)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
@@ -509,9 +970,11 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
         log("  profiled decode steps: the profiler reported no device kernels")
         return
     busy_us = sum(dev(e) for e in events)
+    n_kernels = sum(e.count for e in events)
     log(f"  profiled {steps} decode steps: wall {wall_us / steps / 1e3:.2f} ms/step, "
         f"device busy {busy_us / steps / 1e3:.3f} ms/step "
-        f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle)")
+        f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle), "
+        f"{n_kernels // steps} kernel launches/step")
     for e in sorted(events, key=dev, reverse=True)[:10]:
         log(f"    {dev(e) / steps / 1e3:8.3f} ms/step  {e.count // steps:5d} calls/step  "
             f"{e.key[:90]}")
@@ -550,38 +1013,59 @@ def main() -> int:
 
     log("[kernels] each kernel against its plain version")
     timer = Timer(torch)
-    rows = check_kernels(torch, timer, [
+    shapes = [
         (SLOTS, 16, 1, 128, CAPACITY, "max"),   # olmo-1b main path (MHA)
         (SLOTS, 4, 4, 128, CAPACITY, "sum"),    # GQA
-    ])
+    ]
+    rows = check_kernels(torch, timer, shapes)
+    rows.update(check_paged_kernels(torch, timer, shapes))
     del timer
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv:  # a quick build-and-check call; no result line
         return 0
 
     log("[main path] olmo-1b at full width, 4 slots, capacity 8192")
-    counts, engine_errs = main_path(torch)
+    counts, engine_errs, params, slab = main_path(torch)
+    cfg = slab.bundle.cfg
 
+    log("[paged vs slab] the same prompts through a paged engine, bs 32, default pool")
+    counts_p4 = paged_vs_slab(torch, cfg, params, slab)
+    del slab
+    torch.cuda.empty_cache()
+
+    log("[serving] ContinuousScheduler, chunk 2048, 8 slots x 8192, pool 621 blocks")
+    counts_p5, stream, errs_p5 = serve_stream(torch, cfg, params)
+    counts.update({k: counts_p5[k] for k in PAGED_KERNELS})
+
+    csrc = "src/repro_torch/kernels/csrc/"
     sources = {
-        "fier_retrieve": ("src/repro_torch/kernels/csrc/fier_retrieve.cu",
-                          "src/repro/kernels/fused_retrieval.py:284"),
-        "fier_attend_selected": ("src/repro_torch/kernels/csrc/fier_attend.cu",
+        "fier_retrieve": (csrc + "fier_retrieve.cu", "src/repro/kernels/fused_retrieval.py:284"),
+        "fier_attend_selected": (csrc + "fier_attend.cu",
                                  "src/repro/kernels/sparse_attention.py:228"),
+        "fier_retrieve_paged": (csrc + "fier_retrieve.cu",
+                                "src/repro/kernels/fused_retrieval.py:435"),
+        "fier_attend_selected_paged": (csrc + "fier_attend.cu",
+                                       "src/repro/kernels/sparse_attention.py:358"),
+    }
+    engine_err = {
+        "fier_retrieve": engine_errs["k1_tau"], "fier_attend_selected": engine_errs["k2"],
+        "fier_retrieve_paged": errs_p5["k1_tau"], "fier_attend_selected_paged": errs_p5["k2"],
     }
     kernels = []
     for name, rs in rows.items():
         r = rs[0]  # the main path's shape
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": counts[name],
-            "max_abs_err": max(
-                [x["max_abs_err"] for x in rs]
-                + [engine_errs["k1_tau" if name == "fier_retrieve" else "k2"]]
-            ),
+            "max_abs_err": max([x["max_abs_err"] for x in rs] + [engine_err.get(name, 0.0)]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "check": "pass",
             "gqa_ms": rs[1]["ms"], "gqa_bound_ms": rs[1]["bound_ms"],
-        })
+        }
+        if name in PAGED_KERNELS:
+            # launches above: the serving run (phase 5); the paged-vs-slab run too
+            row["launches_paged_vs_slab"] = counts_p4[name]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

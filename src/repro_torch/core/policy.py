@@ -1,9 +1,10 @@
 """Decode-attention backend registry: ``CacheView`` + ``DecodePlan``.
 
-Port of ``repro.core.policy`` for the slab layout.  The registry holds the
-``full`` and ``fier`` backends; ``fier`` runs the ``one_pass`` pipeline
-(the CUDA retrieval kernel chained into the CUDA select-and-attend kernel)
-or the ``reference`` pipeline (plain PyTorch oracles)::
+Port of ``repro.core.policy`` for the slab and paged layouts.  The registry
+holds the ``full`` and ``fier`` backends; ``fier`` runs the ``one_pass``
+pipeline (the CUDA retrieval kernel chained into the CUDA select-and-attend
+kernel; on a paged cache their block-table variants) or the ``reference``
+pipeline (plain PyTorch oracles over the logical, table-gathered cache)::
 
     plan = DecodePlan.build(cfg, capacity=capacity)
     meta = build_metadata(K, cfg)                 # after prefill
@@ -45,6 +46,10 @@ class PolicyConfig:
     skip_layers: int = 2       # full attention on the first N layers
     pipeline: str = "reference"  # reference | two_pass | one_pass
     layout: str = "slab"       # slab | paged
+    block_size: int = 32       # tokens per cache block (paged layout); a
+                               # multiple of 8 and of `group`
+    pool_blocks: int = 0       # physical blocks in the pool (paged layout);
+                               # 0 → worst-case default n_slots·capacity/bs+1
 
     def __post_init__(self):
         if self.kind in _NOT_PORTED_KINDS:
@@ -67,18 +72,21 @@ class CacheView:
     """Everything one decode-attention call reads.
 
     ``layout='slab'``: ``k``/``v`` are per-slot capacity slabs
-    [B, S, Hkv, D]; ``meta`` is the policy side-car (``QuantizedKeys`` for
-    fier, None for full); ``length`` [B] int32 masks unwritten positions
-    (None = all valid)."""
+    [B, S, Hkv, D] and ``block_table`` is None.  ``layout='paged'``:
+    ``k``/``v`` are the shared block pool [N, bs, Hkv, D] and
+    ``block_table`` [B, n_btab] maps logical blocks to pool rows.
+    ``meta`` is the policy side-car (``QuantizedKeys`` for fier, None for
+    full) in the matching layout; ``length`` [B] int32 masks unwritten
+    positions (None = all valid)."""
 
     __slots__ = ("k", "v", "meta", "block_table", "length", "layout")
 
     def __init__(self, k, v, meta=None, block_table=None, length=None,
                  *, layout: str = "slab"):
-        if layout == "paged":
-            raise _not_ported("the paged CacheView", "ROADMAP Queue 1 item 6")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; choose from {LAYOUTS}")
+        if layout == "paged" and block_table is None:
+            raise ValueError("paged CacheView requires a block_table")
         self.k = k
         self.v = v
         self.meta = meta
@@ -90,15 +98,34 @@ class CacheView:
     def slab(cls, k, v, meta=None, length=None) -> "CacheView":
         return cls(k, v, meta, None, length, layout="slab")
 
+    @classmethod
+    def paged(cls, k, v, meta, block_table, length=None) -> "CacheView":
+        return cls(k, v, meta, block_table, length, layout="paged")
+
     def logical(self):
-        """(K, V, meta) as logical per-request slabs."""
-        return self.k, self.v, self.meta
+        """(K, V, meta) as logical per-request slabs — gathered through the
+        block table for the paged layout (the plain path; the paged kernels
+        walk the table in-kernel instead).  Absent leaves pass through as
+        None."""
+        if self.layout == "slab":
+            return self.k, self.v, self.meta
+        from repro_torch.kvcache.paged import gather_block_rows
+
+        def g(a):
+            return None if a is None else gather_block_rows(a, self.block_table)
+
+        meta = None
+        if self.meta is not None:
+            m = self.meta
+            meta = quantize.QuantizedKeys(g(m.codes), g(m.scale), g(m.zero), m.group)
+        return g(self.k), g(self.v), meta
 
     def __repr__(self):
         sh = lambda a: None if a is None else tuple(a.shape)
         return (
             f"CacheView(layout={self.layout!r}, k={sh(self.k)}, "
-            f"meta={type(self.meta).__name__ if self.meta is not None else None})"
+            f"meta={type(self.meta).__name__ if self.meta is not None else None}, "
+            f"block_table={sh(self.block_table)})"
         )
 
 
@@ -172,8 +199,6 @@ class DecodePlan:
     ) -> "DecodePlan":
         layout = layout if layout is not None else policy.layout
         pipeline = pipeline if pipeline is not None else policy.pipeline
-        if layout == "paged":
-            raise _not_ported("layout='paged'", "ROADMAP Queue 1 item 6")
         if pipeline == "two_pass":
             raise _not_ported(
                 "pipeline='two_pass' (kernels K6/K7)", "ROADMAP Queue 1 item 7"
@@ -192,6 +217,12 @@ class DecodePlan:
             raise ValueError(
                 f"sink/recent must be >= 0, got ({policy.sink}, {policy.recent})"
             )
+        if layout == "paged":
+            from repro_torch.kvcache.paged import check_block_size
+
+            check_block_size(
+                policy.block_size, policy.group if policy.kind == "fier" else 0
+            )
         plan = cls(policy, layout, pipeline)
         if capacity is not None:
             plan.validate_capacity(capacity)
@@ -205,6 +236,11 @@ class DecodePlan:
                 f"policy budget {pol.budget} exceeds cache capacity "
                 f"{capacity}: the selection kernels require budget <= S "
                 f"(clamp the budget or grow the cache)"
+            )
+        if self.layout == "paged" and capacity % pol.block_size:
+            raise ValueError(
+                f"capacity {capacity} not divisible by block_size "
+                f"{pol.block_size}"
             )
         return self
 
@@ -254,14 +290,17 @@ def _fier_decode(q, view, plan):
 
 register_backend(AttentionBackend(
     name="full",
-    supports=frozenset({("slab", "reference")}),
+    supports=frozenset({("slab", "reference"), ("paged", "reference")}),
     build_metadata=lambda K, cfg: None,
     decode=lambda q, view, plan: _dense_decode(q, view),
 ))
 
 register_backend(AttentionBackend(
     name="fier",
-    supports=frozenset({("slab", "reference"), ("slab", "one_pass")}),
+    supports=frozenset({
+        ("slab", "reference"), ("slab", "one_pass"),
+        ("paged", "reference"), ("paged", "one_pass"),
+    }),
     build_metadata=_fier_build_metadata,
     decode=_fier_decode,
 ))

@@ -1,9 +1,12 @@
-// K2 fier_attend_selected: fused select-and-attend decode attention for
-// Hopper (sm_90a).
+// K2 fier_attend_selected and K4 fier_attend_selected_paged: fused
+// select-and-attend decode attention for Hopper (sm_90a), over a slab cache
+// (K2) or a paged block pool (K4).
 //
-// Replaces the TPU kernel
+// K2 replaces the TPU kernel
 // repro/kernels/sparse_attention.py::fused_sparse_attention_hm (pallas_call at
-// :228, body _fused_kernel :133, online softmax _softmax_accumulate :39).
+// :228, body _fused_kernel :133, online softmax _softmax_accumulate :39).  K4
+// replaces paged_fused_sparse_attention_hm (pallas_call at :358, body
+// _paged_fused_kernel :262).
 //
 // What bounds it on the card: bytes.  Per (batch, kv-head) it reads the
 // `budget` selected K rows and V rows (2 x budget x D x 2 bytes) straight from
@@ -26,6 +29,14 @@
 //     rescaling exp(m_j - M), and the output is out / max(den, 1e-30), f32.
 // With one tile (budget <= 64) the arithmetic is the reference's single-block
 // online softmax.
+//
+// K4 differs only where a tile stages its rows (template flag kPaged): the
+// logical index t becomes the pool row table[b, t / bs] * bs + t % bs of the
+// K/V pools [N, bs, Hkv, D] (K2: b * S + t of the slabs); a masked row's
+// table entry is never read.  Tiles, the masked rows never loaded and
+// attend_combine are shared, so on the same logical contents K4's output is
+// K2's bit for bit.  It reads K2's bytes plus one table entry per selected
+// row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,15 +60,19 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& w, float (&out)[8])
   }
 }
 
+// kPaged = false (K2): K/V [B, S, Hkv, D], table unused.  kPaged = true
+// (K4): K/V [N, bs, Hkv, D], table [B, n_btab] with S = n_btab * bs.
+template <bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 attend_partial(const float* __restrict__ q,              // [B, Hkv, rep, D]
-               const __nv_bfloat16* __restrict__ K,      // [B, S, Hkv, D]
-               const __nv_bfloat16* __restrict__ V,      // [B, S, Hkv, D]
+               const __nv_bfloat16* __restrict__ K,
+               const __nv_bfloat16* __restrict__ V,
+               const int* __restrict__ table,            // [B, n_btab] (K4)
                const int* __restrict__ idx,              // [B, Hkv, budget]
                const int* __restrict__ lengths,          // [B]
                float* __restrict__ part_o,               // [B*Hkv, n_tiles, rep, D]
                float* __restrict__ part_md,              // [B*Hkv, n_tiles, rep, 2]
-               int S, int Hkv, int rep, int budget, float scale) {
+               int S, int Hkv, int rep, int budget, float scale, int bs) {
   constexpr int D = kD;
   constexpr int LPR = kLPR;
   constexpr int kGroups = kThreads / LPR;  // rows in flight per block
@@ -65,7 +80,7 @@ attend_partial(const float* __restrict__ q,              // [B, Hkv, rep, D]
   float* q_s = smem;                  // [rep][D]
   float* p_s = q_s + rep * D;         // [rep][kTile] scores, then probabilities
   float* o_s = p_s + rep * kTile;     // [kGroups][rep][D]
-  __shared__ int rows_s[kTile];
+  __shared__ int rows_s[kTile];  // seq row of K/V (units of Hkv*D elements)
   __shared__ int valid_s[kTile];
   __shared__ float md_s[kMaxRep][2];
 
@@ -84,14 +99,19 @@ attend_partial(const float* __restrict__ q,              // [B, Hkv, rep, D]
   for (int i = tid; i < rep * D; i += kThreads) q_s[i] = q[(size_t)bh * rep * D + i];
   for (int t = tid; t < nrows; t += kThreads) {
     const int r = idx[(size_t)bh * budget + t0 + t];
-    rows_s[t] = r;
-    valid_s[t] = (r < length) && (r >= 0) && (r < S);
+    const bool valid = (r < length) && (r >= 0) && (r < S);
+    if constexpr (kPaged) {
+      rows_s[t] = valid ? table[(size_t)b * (S / bs) + r / bs] * bs + r % bs : 0;
+    } else {
+      rows_s[t] = b * S + r;
+    }
+    valid_s[t] = valid;
   }
   __syncthreads();
 
   const size_t row_elems = (size_t)Hkv * D;
-  const __nv_bfloat16* Kbh = K + (size_t)b * S * row_elems + (size_t)h * D + sl * 8;
-  const __nv_bfloat16* Vbh = V + (size_t)b * S * row_elems + (size_t)h * D + sl * 8;
+  const __nv_bfloat16* Kbh = K + (size_t)h * D + sl * 8;
+  const __nv_bfloat16* Vbh = V + (size_t)h * D + sl * 8;
 
   // ---- scores s = (q . k) * scale, masked --------------------------------
   for (int base = 0; base < nrows; base += kGroups) {  // uniform trip count
@@ -201,24 +221,27 @@ __global__ void attend_combine(const float* __restrict__ part_o,   // [BH, n_til
   }
 }
 
-cudaError_t launch(const void* q, const void* K, const void* V, const void* idx,
-                   const void* lengths, void* part_o, void* part_md, void* out, int B,
-                   int S, int Hkv, int rep, int budget, float scale, cudaStream_t stream) {
+template <bool kPaged>
+cudaError_t launch(const void* q, const void* K, const void* V, const void* table,
+                   const void* idx, const void* lengths, void* part_o, void* part_md,
+                   void* out, int B, int S, int Hkv, int rep, int budget, float scale, int bs,
+                   cudaStream_t stream) {
   constexpr int D = kD;
   constexpr int kGroups = kThreads / kLPR;
   const int n_tiles = (budget + kTile - 1) / kTile;
   const size_t smem = sizeof(float) * ((size_t)rep * D + (size_t)rep * kTile +
                                        (size_t)kGroups * rep * D);
-  auto kernel = attend_partial;
+  auto kernel = attend_partial<kPaged>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * Hkv, n_tiles);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(K),
-      static_cast<const __nv_bfloat16*>(V), static_cast<const int*>(idx),
-      static_cast<const int*>(lengths), static_cast<float*>(part_o),
-      static_cast<float*>(part_md), S, Hkv, rep, budget, scale);
+      static_cast<const __nv_bfloat16*>(V), static_cast<const int*>(table),
+      static_cast<const int*>(idx), static_cast<const int*>(lengths),
+      static_cast<float*>(part_o), static_cast<float*>(part_md), S, Hkv, rep, budget, scale,
+      bs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = rep * D < 1024 ? rep * D : 1024;
@@ -230,12 +253,19 @@ cudaError_t launch(const void* q, const void* K, const void* V, const void* idx,
 
 }  // namespace
 
+// table == nullptr: K2, K/V are the slabs [B, S, Hkv, D].  Otherwise K4:
+// K/V are block pools [N, bs, Hkv, D] walked through table [B, S / bs].
 extern "C" int fier_attend_launch(const void* q, const void* K, const void* V,
-                                  const void* idx, const void* lengths, void* part_o,
-                                  void* part_md, void* out, int B, int S, int Hkv, int rep,
-                                  int D, int budget, float scale, void* stream) {
+                                  const void* table, const void* idx, const void* lengths,
+                                  void* part_o, void* part_md, void* out, int B, int S, int bs,
+                                  int Hkv, int rep, int D, int budget, float scale,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rep < 1 || rep > kMaxRep || D != kD) return (int)cudaErrorInvalidValue;
-  return (int)launch(q, K, V, idx, lengths, part_o, part_md, out, B, S, Hkv, rep, budget,
-                     scale, st);
+  if (table == nullptr)
+    return (int)launch<false>(q, K, V, nullptr, idx, lengths, part_o, part_md, out, B, S, Hkv,
+                              rep, budget, scale, 1, st);
+  if (bs < 1 || S % bs) return (int)cudaErrorInvalidValue;
+  return (int)launch<true>(q, K, V, table, idx, lengths, part_o, part_md, out, B, S, Hkv, rep,
+                           budget, scale, bs, st);
 }

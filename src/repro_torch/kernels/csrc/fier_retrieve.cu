@@ -1,8 +1,10 @@
-// K1 fier_retrieve: one-pass FIER retrieval for Hopper (sm_90a).
+// K1 fier_retrieve and K3 fier_retrieve_paged: one-pass FIER retrieval for
+// Hopper (sm_90a), over a slab cache (K1) or a paged block pool (K3).
 //
-// Replaces the TPU kernel repro/kernels/fused_retrieval.py::fused_retrieve_hm
+// K1 replaces the TPU kernel repro/kernels/fused_retrieval.py::fused_retrieve_hm
 // (pallas_call at :284, body _kernel :168, _threshold_select :70,
-// _masked_block_keys :147).
+// _masked_block_keys :147).  K3 replaces paged_fused_retrieve_hm (pallas_call
+// at :435, body _paged_kernel :320).
 //
 // What bounds it on the card: bytes.  Per (batch, kv-head) row it must read
 // the packed sign codes (S/8 x D bytes) and the bf16 group scale/zero
@@ -37,6 +39,21 @@
 // by the wrapper; a variant that re-scores per sweep is a later kernel.
 // Only 64 blocks run at the serving shape (B x Hkv), fewer than the 132 SMs:
 // splitting a row across a cluster is later work.
+//
+// K3 is the same kernel body with another address policy (the template
+// flag kPaged): the side-car lives in a pool [N, bs/8 | bs/g, Hkv, D] and
+// row b's block table [n_btab] is staged in shared memory once per block,
+// after the keys.  Byte-row i (tokens 8i..8i+7) is read from pool block
+// table[8i / bs], row (8i % bs) / 8, and group grp from block
+// table[grp*g / bs], row (grp*g % bs) / g: the translation is per cache
+// block, so any bs that check_block_size admits works, and at bs = 32 a
+// warp's 32-token chunk is exactly one cache block.  Scoring, the radix
+// passes and the compaction are shared, so on the same logical contents K3
+// returns K1's idx, tau and m bit for bit.  Unallocated entries (and the
+// holes shed_middle_blocks leaves) point at the null block 0, which is
+// scored like any other block and masked only by length, as the plain
+// version's gather does.  K3 reads K1's bytes plus the table (1 KiB per
+// row at capacity 8192).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,20 +116,26 @@ __device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
   return v[0];
 }
 
+// kPaged = false (K1): codes [B, S/8, Hkv, D], scale/zero [B, S/g, Hkv, D],
+// table unused.  kPaged = true (K3): codes [N, bs/8, Hkv, D], scale/zero
+// [N, bs/g, Hkv, D], table [B, n_btab] with S = n_btab * bs.
+template <bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
-                     const uint8_t* __restrict__ codes,        // [B, S/8, Hkv, D]
-                     const __nv_bfloat16* __restrict__ scale,  // [B, S/g, Hkv, D]
-                     const __nv_bfloat16* __restrict__ zero,   // [B, S/g, Hkv, D]
+                     const uint8_t* __restrict__ codes,
+                     const __nv_bfloat16* __restrict__ scale,
+                     const __nv_bfloat16* __restrict__ zero,
+                     const int* __restrict__ table,            // [B, n_btab] (K3)
                      const int* __restrict__ lengths,          // [B]
                      int* __restrict__ idx_out,                // [B, Hkv, budget]
                      float* __restrict__ tau_out,              // [B, Hkv]
                      int* __restrict__ m_out,                  // [B, Hkv]
                      int S, int Hkv, int rep, int group, int budget,
-                     int reduce_sum, int sink, int recent) {
+                     int reduce_sum, int sink, int recent, int bs) {
   constexpr int D = kD;
   constexpr int DPL = kDPL;
-  extern __shared__ uint32_t keys[];  // [S]
+  extern __shared__ uint32_t keys[];  // [S], then (K3) the table row [n_btab]
+  int* table_s = reinterpret_cast<int*>(keys + S);
   __shared__ float q_s[kMaxRep * kD];
   __shared__ int hist[kRadix];
   __shared__ int warp_pre[kWarps + 1];
@@ -129,14 +152,36 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
 
   for (int i = tid; i < rep * D; i += kThreads)
     q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);
+  if constexpr (kPaged) {
+    const int n_btab = S / bs;
+    for (int i = tid; i < n_btab; i += kThreads) table_s[i] = table[(size_t)b * n_btab + i];
+  }
   __syncthreads();
+
+  // The seq row (in units of Hkv*D elements) of byte-row i and of group grp.
+  auto code_row = [&](int i) -> size_t {
+    if constexpr (kPaged) {
+      const int t = i * 8;
+      return (size_t)table_s[t / bs] * (bs >> 3) + ((t % bs) >> 3);
+    } else {
+      return (size_t)b * S8 + i;
+    }
+  };
+  auto group_row = [&](int grp) -> size_t {
+    if constexpr (kPaged) {
+      const int t = grp * group;
+      return (size_t)table_s[t / bs] * (bs / group) + (t % bs) / group;
+    } else {
+      return (size_t)b * (S / group) + grp;
+    }
+  };
 
   // ---- score every token once; keys to shared memory -----------------
   const size_t row_stride = (size_t)Hkv * D;  // elements between seq rows
-  const uint8_t* codes_bh = codes + (size_t)b * S8 * row_stride + (size_t)h * D + lane * DPL;
-  const size_t sz_off = (size_t)b * (S / group) * row_stride + (size_t)h * D + lane * DPL;
-  const __nv_bfloat16* scale_bh = scale + sz_off;
-  const __nv_bfloat16* zero_bh = zero + sz_off;
+  const size_t lane_off = (size_t)h * D + lane * DPL;
+  const uint8_t* codes_h = codes + lane_off;
+  const __nv_bfloat16* scale_h = scale + lane_off;
+  const __nv_bfloat16* zero_h = zero + lane_off;
 
   const int n_chunks = (S + 31) / 32;
   for (int c = warp; c < n_chunks; c += kWarps) {
@@ -147,10 +192,11 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
       const int i = c * 4 + j;  // byte-row: tokens 8i .. 8i+7
       if (i < S8) {
         const int grp = (i * 8) / group;
-        word[j] = load_code_bytes(codes_bh + (size_t)i * row_stride);
+        word[j] = load_code_bytes(codes_h + code_row(i) * row_stride);
+        const size_t gr = group_row(grp) * row_stride;
         float sc[DPL], zr[DPL];
-        load_bf16x4(scale_bh + (size_t)grp * row_stride, sc);
-        load_bf16x4(zero_bh + (size_t)grp * row_stride, zr);
+        load_bf16x4(scale_h + gr, sc);
+        load_bf16x4(zero_h + gr, zr);
 #pragma unroll
         for (int k = 0; k < DPL; ++k) {
           hi[j][k] = round_bf16(zr[k] + sc[k]);  // bf16(+1 * s + z)
@@ -301,32 +347,41 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
   }
 }
 
+template <bool kPaged>
 cudaError_t launch(const void* q, const void* codes, const void* scale, const void* zero,
-                   const void* lengths, void* idx, void* tau, void* m, int B, int S,
-                   int Hkv, int rep, int group, int budget, int reduce_sum, int sink,
-                   int recent, cudaStream_t stream) {
-  const size_t smem = (size_t)S * sizeof(uint32_t);
-  auto kernel = fier_retrieve_kernel;
+                   const void* table, const void* lengths, void* idx, void* tau, void* m,
+                   int B, int S, int Hkv, int rep, int group, int budget, int reduce_sum,
+                   int sink, int recent, int bs, cudaStream_t stream) {
+  const size_t smem = (size_t)S * sizeof(uint32_t) + (kPaged ? (size_t)(S / bs) * sizeof(int) : 0);
+  auto kernel = fier_retrieve_kernel<kPaged>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<B * Hkv, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(codes),
       static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(zero),
-      static_cast<const int*>(lengths), static_cast<int*>(idx), static_cast<float*>(tau),
-      static_cast<int*>(m), S, Hkv, rep, group, budget, reduce_sum, sink, recent);
+      static_cast<const int*>(table), static_cast<const int*>(lengths),
+      static_cast<int*>(idx), static_cast<float*>(tau), static_cast<int*>(m), S, Hkv, rep,
+      group, budget, reduce_sum, sink, recent, bs);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// table == nullptr: K1, the side-car is the slab [B, S/8 | S/g, Hkv, D].
+// Otherwise K3: the side-car is a block pool [N, bs/8 | bs/g, Hkv, D] walked
+// through table [B, S / bs].
 extern "C" int fier_retrieve_launch(const void* q, const void* codes, const void* scale,
-                                    const void* zero, const void* lengths, void* idx,
-                                    void* tau, void* m, int B, int S, int Hkv, int rep,
-                                    int D, int group, int budget, int reduce_sum, int sink,
-                                    int recent, void* stream) {
+                                    const void* zero, const void* table, const void* lengths,
+                                    void* idx, void* tau, void* m, int B, int S, int bs,
+                                    int Hkv, int rep, int D, int group, int budget,
+                                    int reduce_sum, int sink, int recent, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rep < 1 || rep > kMaxRep || D != kD) return (int)cudaErrorInvalidValue;
-  return (int)launch(q, codes, scale, zero, lengths, idx, tau, m, B, S, Hkv, rep, group,
-                     budget, reduce_sum, sink, recent, st);
+  if (table == nullptr)
+    return (int)launch<false>(q, codes, scale, zero, nullptr, lengths, idx, tau, m, B, S, Hkv,
+                              rep, group, budget, reduce_sum, sink, recent, 8, st);
+  if (bs < 8 || bs % 8 || bs % group || S % bs) return (int)cudaErrorInvalidValue;
+  return (int)launch<true>(q, codes, scale, zero, table, lengths, idx, tau, m, B, S, Hkv, rep,
+                           group, budget, reduce_sum, sink, recent, bs, st);
 }

@@ -16,13 +16,15 @@ from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.quantize import QuantizedKeys
 
 
-def _check_capacity(capacity: int, group: int) -> None:
+def _check_capacity(capacity: int, group: int, *, what: str = "capacity") -> None:
+    """FIER side-car layout constraints: 8 tokens/byte and ``group`` tokens
+    per (scale, zero) cell (``group`` 0 checks the byte packing only)."""
     if capacity <= 0:
-        raise ValueError(f"capacity must be positive, got {capacity}")
+        raise ValueError(f"{what} must be positive, got {capacity}")
     if capacity % 8:
-        raise ValueError(f"capacity {capacity} not divisible by 8 (bit packing)")
-    if capacity % group:
-        raise ValueError(f"capacity {capacity} not divisible by group {group}")
+        raise ValueError(f"{what} {capacity} not divisible by 8 (bit packing)")
+    if group and capacity % group:
+        raise ValueError(f"{what} {capacity} not divisible by group {group}")
 
 
 def init_layer_cache(

@@ -1,9 +1,10 @@
-"""GQA attention block: projections and the slab decode step.
+"""GQA attention block: projections and the decode step.
 
 Port of ``repro.models.attention`` (``init_attention``, ``qkv_proj``, the
-slab single-device branch of ``decode_self_attention``).  The decode step
-appends the new token's K/V and refreshes its side-car group in place,
-then dispatches attention through ``repro_torch.core.policy``.
+single-device slab and paged branches of ``decode_self_attention``).  The
+decode step appends the new token's K/V and refreshes its side-car group in
+place (through the block table on a paged cache), then dispatches attention
+through ``repro_torch.core.policy``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import policy as core_policy
 from repro_torch.core.policy import CacheView, DecodePlan
 from repro_torch.kvcache import cache as kvcache
+from repro_torch.kvcache import paged as kvpaged
 
 from .layers import apply_rope, init_linear
 
@@ -63,22 +65,36 @@ def decode_self_attention(
     length: torch.Tensor,
     cfg: ModelConfig,
     plan: DecodePlan,
+    *,
+    block_table: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One-token decode self-attention on a slab cache.
+    """One-token decode self-attention.
 
     x: [B, 1, d]; layer_cache: {k, v[, meta]} of one layer (views into the
     stacked cache, updated in place); length: [B] current lengths (the new
-    token is written at ``length``).  Returns out [B, 1, d].
+    token is written at ``length``).  ``block_table`` [B, n_btab] switches
+    the layer to the paged cache: layer_cache holds the block-pool slabs
+    [N, bs, Hkv, D] (+ paged side-car) shared by all requests, the append
+    and the metadata refresh write through the table, and attention
+    dispatches through a paged ``CacheView``.  Returns out [B, 1, d].
     """
     B = x.shape[0]
     q, k_new, v_new = qkv_proj(p, x, cfg, positions=length[:, None])
     qh = q.reshape(B, cfg.n_heads, cfg.d_head)
-    k_slab, v_slab = kvcache.append_kv(
-        layer_cache["k"], layer_cache["v"], k_new, v_new, length
-    )
     meta = layer_cache.get("meta")
-    if meta is not None:
-        meta = kvcache.append_token_metadata(meta, k_slab, length, plan.policy)
-    view = CacheView.slab(k_slab, v_slab, meta, length + 1)
+    if block_table is not None:
+        k, v = kvpaged.paged_append_kv(
+            layer_cache["k"], layer_cache["v"], k_new, v_new, block_table, length
+        )
+        if meta is not None:
+            meta = kvpaged.paged_append_token_metadata(
+                meta, k, block_table, length, plan.policy
+            )
+        view = CacheView.paged(k, v, meta, block_table, length + 1)
+    else:
+        k, v = kvcache.append_kv(layer_cache["k"], layer_cache["v"], k_new, v_new, length)
+        if meta is not None:
+            meta = kvcache.append_token_metadata(meta, k, length, plan.policy)
+        view = CacheView.slab(k, v, meta, length + 1)
     out = core_policy.decode_attention(qh, view, plan)
     return out.reshape(B, 1, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)

@@ -4,9 +4,13 @@
 * Layer params are stacked along a leading L axis; depth is a Python loop.
 * Prefill runs blocked flash attention over the prompt, zero-pads each
   layer's K/V to ``capacity`` and quantizes the whole padded slab of every
-  layer past ``skip_layers`` into the FIER side-car.
+  layer past ``skip_layers`` into the FIER side-car.  It always returns a
+  slab cache; a paged engine scatters it into its block pool.
+* Chunked prefill (``prefill_chunk``) runs one chunk of one slot's prompt
+  against the batched cache of either layout.
 * Decode splits the stack at ``skip``: the front layers attend densely
   (the paper's skip layers), the rest through the policy's ``DecodePlan``.
+  On a paged cache the block table rides in ``cache["block_table"]``.
 * The vocab is padded to a multiple of 256; padded columns get −1e30.
 """
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.kvcache import cache as kvcache
+from repro_torch.kvcache import paged as kvpaged
 
 from . import attention as attn
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
@@ -30,7 +35,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class ModelBundle:
     cfg: ModelConfig
     init: Callable               # (generator | seed) -> params
-    prefill: Callable            # (params, batch, capacity) -> (logits [B,Vp], cache)
+    prefill: Callable            # (params, batch, capacity) -> (logits [B,Vp], slab cache)
     decode_step: Callable        # (params, token [B], cache) -> (logits, cache)
     init_cache: Callable         # (B, capacity, length) -> cache
     param_count: Callable
@@ -38,6 +43,8 @@ class ModelBundle:
     device: torch.device
     policy: PolicyConfig | None = None
     plan: DecodePlan | None = None
+    prefill_chunk: Callable | None = None  # (params, batch, cache, *, final)
+                                           # -> (logits | None, cache)
 
 
 def tree_map(fn, tree):
@@ -65,7 +72,11 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
     device = torch.device(device)
     pol = pol or PolicyConfig(kind="full")
     plan = DecodePlan.build(pol)
-    plan_full = DecodePlan.build(PolicyConfig(kind="full", skip_layers=0))
+    plan_full = DecodePlan.build(PolicyConfig(
+        kind="full", skip_layers=0, layout=pol.layout, block_size=pol.block_size,
+        pool_blocks=pol.pool_blocks,
+    ))
+    paged = pol.layout == "paged"
     Vp = padded_vocab(cfg)
     cdt = _DTYPES[cfg.compute_dtype]
     pdt = _DTYPES[cfg.param_dtype]
@@ -112,14 +123,14 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
 
     # ------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
-        """Returns (last-token logits [B, Vp] f32, filled cache)."""
+        """Returns (last-token logits [B, Vp] f32, filled slab cache)."""
         toks = batch["tokens"]
         lengths = batch["lengths"].to(torch.int32)
         h = params["embed"][toks].to(cdt)  # [B, S, d]
         B, S, _ = h.shape
         cap = capacity if capacity is not None else S
         valid = kvcache.valid_mask(S, lengths)
-        cache = init_cache(B, cap, 0)
+        cache = _slab_cache(B, cap, 0)
         cache["length"] = lengths.clone()
         for l in range(L):
             lp = _layer_params(params["layers"], l)
@@ -148,7 +159,27 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
         return _masked_logits(last, _head(params), cfg.vocab, Vp), cache
 
     def init_cache(B: int, capacity: int, length: int = 0) -> dict:
+        """The batched decode cache of the policy's layout.  Paged: one
+        block pool shared by every request (a physical block id indexes the
+        same row of every layer's pool) and the per-request [B, capacity/bs]
+        block table, all zeros (the null block) to start with."""
         plan.validate_capacity(capacity)
+        if not paged:
+            return _slab_cache(B, capacity, length)
+        bs = pol.block_size
+        n_btab = capacity // bs
+        n_blocks = pol.pool_blocks or (B * n_btab + 1)
+        pool = lambda n, p: kvpaged.init_paged_pool(
+            n, n_blocks, bs, cfg.n_kv_heads, cfg.d_head, p, device=device
+        )
+        return {
+            "front": pool(skip, None),
+            "rest": pool(L - skip, pol if pol.kind != "full" else None),
+            "length": torch.full((B,), length, dtype=torch.int32, device=device),
+            "block_table": torch.zeros((B, n_btab), dtype=torch.int32, device=device),
+        }
+
+    def _slab_cache(B: int, capacity: int, length: int = 0) -> dict:
         return {
             "front": kvcache.init_layer_cache(
                 skip, B, capacity, cfg.n_kv_heads, cfg.d_head, None, device=device
@@ -160,11 +191,93 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
             "length": torch.full((B,), length, dtype=torch.int32, device=device),
         }
 
+    # ------------------------------------------------------ chunked prefill
+    def prefill_chunk(params, batch, cache, *, final: bool):
+        """One prompt chunk for a single slot of the *batched* cache
+        (port of ``repro/models/transformer.py:254-376``), in place.
+
+        batch = {tokens [1, n], start, slot, total, table_row? [n_btab]}:
+        the chunk covers logical positions [start, start+n) of a prompt of
+        ``total`` tokens.  Its K/V are written through the layout's
+        addressing (slab row / block table), then each layer attends over
+        the logical prefix with ``q_offset=start`` — masked keys add exact
+        zeros, so the hidden states equal a monolithic prefill's.
+
+        Only the final chunk produces logits: it zeroes the slab/tail-block
+        rows past ``total`` (as monolithic prefill's zero padding), rebuilds
+        the side-car over the full logical key row, and publishes
+        ``length[slot] = total`` and (paged) the table row.  Non-final
+        chunks return (None, cache) and leave ``length`` untouched."""
+        toks = batch["tokens"]
+        start, slot, total = int(batch["start"]), int(batch["slot"]), int(batch["total"])
+        table_row = batch.get("table_row")
+        h = params["embed"][toks].to(cdt)  # [1, n, d]
+        n = h.shape[1]
+        dev = h.device
+        positions = (start + torch.arange(n, dtype=torch.int32, device=dev))[None]
+        if paged:
+            bs = pol.block_size
+            nb = table_row.shape[0]
+            ids = table_row.to(torch.int64)
+            phys = ids[positions[0].to(torch.int64) // bs]
+            offs = positions[0].to(torch.int64) % bs
+        for l in range(L):
+            lp = _layer_params(params["layers"], l)
+            stack, i = (cache["front"], l) if l < skip else (cache["rest"], l - skip)
+            kp, vp = stack["k"][i], stack["v"][i]
+            xn = apply_norm(h, lp["norm1"], cfg.norm)
+            q, k, v = attn.qkv_proj(lp["attn"], xn, cfg, positions=positions)
+            kc, vc = k.to(kp.dtype), v.to(vp.dtype)
+            if paged:
+                kp[phys, offs] = kc[0]
+                vp[phys, offs] = vc[0]
+                Kl = kvpaged.gather_block_rows(kp, table_row[None])
+                Vl = kvpaged.gather_block_rows(vp, table_row[None])
+            else:
+                kp[slot, start:start + n] = kc[0]
+                vp[slot, start:start + n] = vc[0]
+                Kl, Vl = kp[slot:slot + 1], vp[slot:slot + 1]
+            cap = Kl.shape[1]
+            pos = torch.arange(cap, dtype=torch.int32, device=dev)
+            o = flash_attention(
+                q, Kl, Vl, causal=True, q_offset=start, bias_mask=(pos < start + n)[None]
+            )
+            h = _ffn_block(
+                lp, h, o.reshape(1, n, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"].to(h.dtype)
+            )
+            if not final:
+                continue
+            rmask = (pos < total)[None, :, None, None]
+            Kz = torch.where(rmask, Kl, torch.zeros_like(Kl))
+            Vz = torch.where(rmask, Vl, torch.zeros_like(Vl))
+            if paged:
+                # every table entry, the null ones too (they cover rows past
+                # `total`, so the null block receives zeros)
+                put = lambda pool, val: pool.index_put_(
+                    (ids,), val[0].reshape(nb, pool.shape[1], *val.shape[2:]).to(pool.dtype)
+                )
+            else:
+                put = lambda pool, val: pool[slot].copy_(val[0])
+            put(kp, Kz)
+            put(vp, Vz)
+            if "meta" in stack:
+                meta, mv = stack["meta"], build_metadata(Kz, pol)
+                for name in ("codes", "scale", "zero"):
+                    put(getattr(meta, name)[i], getattr(mv, name))
+        if not final:
+            return None, cache
+        cache["length"][slot] = total
+        if paged:
+            cache["block_table"][slot] = table_row
+        last = apply_norm(h[:, n - 1], params["final_norm"], cfg.norm)
+        return _masked_logits(last, _head(params), cfg.vocab, Vp), cache
+
     # -------------------------------------------------------------- decode
     def decode_step(params, token, cache):
         """One token per sequence; the cache is updated in place and
         returned with ``length + 1``."""
         length = cache["length"]
+        block_table = cache.get("block_table") if paged else None
         h = params["embed"][token][:, None, :].to(cdt)
         for l in range(L):
             lp = _layer_params(params["layers"], l)
@@ -174,7 +287,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
                 lc, layer_plan = _layer_cache(cache["rest"], l - skip), plan
             o = attn.decode_self_attention(
                 lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), lc, length, cfg,
-                layer_plan,
+                layer_plan, block_table=block_table,
             )
             h = _ffn_block(lp, h, o)
         h = apply_norm(h, params["final_norm"], cfg.norm)[:, 0]
@@ -192,6 +305,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
         device=device,
         policy=pol,
         plan=plan,
+        prefill_chunk=prefill_chunk,
     )
 
 

@@ -59,8 +59,11 @@ def test_modes_not_ported_raise():
     from repro_torch.core.policy import DecodePlan, PolicyConfig
     from repro_torch.serving import Engine, serving_policy
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        DecodePlan.build(PolicyConfig(kind="fier", layout="paged"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        DecodePlan.build(PolicyConfig(kind="fier", layout="paged"), shard=object())
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Engine.build(reduced_config("olmo-1b"), n_slots=1, capacity=64, layout="paged",
+                     offload_blocks=4, device="cpu")
     with pytest.raises(NotImplementedError, match="two_pass"):
         DecodePlan.build(PolicyConfig(kind="fier", pipeline="two_pass"))
     with pytest.raises(NotImplementedError, match="quest"):
