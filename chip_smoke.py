@@ -12,15 +12,24 @@ result line):
    ``nvcc`` per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (olmo-1b: 4 slots, 16 kv heads, d_head 128, capacity 8192,
-   group 32, budget 1024) and at one GQA shape (4 kv heads × 4 query heads),
-   with per-row lengths that include one row shorter than the budget; then
-   the kernel, its plain version and one library call timed in turns with
-   the L2 cache flushed before every launch.  The paged kernels K3 and K4
+   group 32, budget 1024) and at a GQA shape (4 kv heads × 4 query heads,
+   with the group sum and with the group max), with per-row lengths that
+   include one row shorter than the budget; then the kernel, its plain
+   version and one library call (where one computes the same function)
+   timed in turns with the L2 cache flushed before every launch.  The paged kernels K3 and K4
    run on a pool built by scattering the slab's blocks (bs 32) into a random
    permutation of pool blocks, with spare blocks and one table entry inside
    a row's length pointed at the null block 0 (non-zero data): K3 must equal
    K1 on the gathered slab bit for bit (idx, τ, m), K4 must equal K2 bit for
-   bit, and each must agree with its own plain version.
+   bit, and each must agree with its own plain version.  K5 must equal its
+   plain version bit for bit (the bytes where it differs from
+   ``build_metadata``'s side-car are printed, on bf16 and on f32 keys), K6
+   lie within the f32 summation-order bound of its plain version, K7 give
+   its plain version's τ and m exactly, and K8 lie within 1e-4·max|out| of
+   its plain version and equal K2 bit for bit on ``gather_kv`` of K2's
+   selection; ``ops.fier_decode_two_pass`` must give
+   ``ops.fier_decode_one_pass``'s idx, τ, m and output bit for bit under
+   the group max, and the same index set up to near-τ ties under the sum.
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
@@ -50,9 +59,24 @@ result line):
    step at each budget served (1024 and, after a downshift, 512; 8 slots)
    also runs K3 and K4's plain versions on the engine's own tensors, held
    to the tolerances of phase 2.
-6. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
-   bound and launch count (K3/K4: the phase 5 run), the card line, and as
-   the last line ``{"ok": true, "device": {...}}``.
+6. The two_pass pipeline at full width (``two_pass_path``): phase 3's
+   weights and prompts through ``Engine.build(policy=serving_policy(
+   pipeline="two_pass"))``.  The first decode step runs the pipeline's
+   kernels beside K1, K8 and ``fier_decode_reference(use_kernels=True)`` on
+   the engine's own tensors and must give phase 3's one_pass logits
+   exactly; the unfused building blocks (``ops.pack_quantize``, K5, on a
+   FIER layer's key slab, bitwise its plain version, and
+   ``ops.fier_attention_decode``, K6 → sort → gather → K8, on every FIER
+   layer's tensors of that step) run counted; ``generate`` of 32 greedy
+   tokens must give phase 3's tokens (128/128) with K6 = K7 = K2 = 14 ×
+   decode steps and no other kernel; ``count_score_bytes`` of one layer
+   must read 0 for one_pass (slab and paged) and at least 2·4·Hq·S·B for
+   two_pass.  two_pass and one_pass decode steps are then timed in turns and
+   profiled (information, no gate).
+7. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+   bound and launch count (K1/K2: phase 3; K3/K4: phase 5; K6/K7: phase 6's
+   generate; K5/K8: phase 6's building blocks), the card line, and as the
+   last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -135,12 +159,14 @@ class Timer:
 
 def in_turns(timer, plain, kernel, library):
     """plain, kernel, library, library, kernel, plain: mean of the two
-    medians of each."""
+    medians of each.  ``library`` None: no single call computes the
+    function, its time is None."""
     t = {"plain": [], "kernel": [], "library": []}
     for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
         fn = {"plain": plain, "kernel": kernel, "library": library}[name]
-        t[name].append(timer(fn))
-    return {k: sum(v) / len(v) for k, v in t.items()}
+        if fn is not None:
+            t[name].append(timer(fn))
+    return {k: (sum(v) / len(v) if v else None) for k, v in t.items()}
 
 
 # ------------------------------------------------------------ phase 2
@@ -179,7 +205,7 @@ def check_kernels(torch, timer, shapes):
         idx_p, tau_p, m_p = fr.fier_retrieve_plain(*args, **sel)
         torch.cuda.synchronize()
         s = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
-        kv, _ = fr.masked_keys(s, lengths, SINK, RECENT, reduce)
+        kv = fr.masked_kv(s, lengths, SINK, RECENT, reduce)
         # both sum the same exact f32 products (bf16 q × bf16 a) in other
         # orders: |Δscore| <= D·2^-23 · rep · max Σ_d |q_d|·|a_td|
         amax = (qk.scale.float().abs() + qk.zero.float().abs()).amax()
@@ -332,7 +358,7 @@ def check_paged_kernels(torch, timer, shapes):
         # K1 on the same slab passed the plain-version check in phase 2's
         # first half; K3 = K1 bitwise, so the same near-τ band applies here
         s = fr.retrieval_scores(q, sqk.codes, sqk.scale, sqk.zero, group=GROUP)
-        kv, _ = fr.masked_keys(s, lengths, SINK, RECENT, reduce)
+        kv = fr.masked_kv(s, lengths, SINK, RECENT, reduce)
         amax = (sqk.scale.float().abs() + sqk.zero.float().abs()).amax()
         eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
         from repro_torch.kernels.check import selection_agrees
@@ -416,6 +442,164 @@ def check_paged_kernels(torch, timer, shapes):
     return finish_rows(rows)
 
 
+def byte_diff(torch, a, b) -> int:
+    """Bytes in which two tensors of one shape and dtype differ."""
+    as_bytes = lambda t: t.contiguous().view(torch.uint8)
+    return int((as_bytes(a) != as_bytes(b)).sum())
+
+
+def check_unfused_kernels(torch, timer, shapes):
+    """K5–K8 against their plain versions, K8 bitwise against K2 on the same
+    selection, and ``ops.fier_decode_two_pass`` against
+    ``ops.fier_decode_one_pass``: idx, τ, m and output bit for bit under
+    ``max``, the index set within ε of τ under ``sum`` (the group sum runs
+    in torch's order there, in K1's inside K1)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import retrieval
+    from repro_torch.core.policy import CacheView
+    from repro_torch.core.quantize import quantize
+    from repro_torch.kernels import fier_score as fs
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pack_quantize as pq
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.kernels import topk_select as tk
+    from repro_torch.kernels.check import selection_agrees
+
+    rows = {"pack_quantize": [], "fier_score": [], "topk_threshold": [], "sparse_attention": []}
+    for (B, Hkv, rep, D, S, reduce) in shapes:
+        q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=rep + 20)
+        shape = (B, Hkv, rep, D, S)
+        sel = dict(group_reduce=reduce, sink=SINK, recent=RECENT)
+
+        # ---- K5: bitwise its plain version; bytes off build_metadata's side-car
+        got = pq.fier_pack_quantize(K, GROUP)
+        want = pq.fier_pack_quantize_plain(K, GROUP)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("codes", "scale", "zero"), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K5 {name} differs from its plain version at {shape}: "
+                                     f"{byte_diff(torch, a, b)} bytes")
+        side = (qk.codes, qk.scale, qk.zero)  # quantize(K), what build_metadata returns
+        off_bf16 = [byte_diff(torch, a, b) for a, b in zip(got, side)]
+        Kf = K.float()
+        qf = quantize(Kf, GROUP)
+        off_f32 = [byte_diff(torch, a, b) for a, b in
+                   zip(pq.fier_pack_quantize(Kf, GROUP), (qf.codes, qf.scale, qf.zero))]
+        del Kf, qf
+        log(f"  K5 {shape}: codes/scale/zero bitwise equal to its plain version; bytes "
+            f"differing from build_metadata's side-car (codes, scale, zero): bf16 keys "
+            f"{off_bf16}, f32 keys {off_f32}")
+        t = in_turns(timer, lambda: pq.fier_pack_quantize_plain(K, GROUP),
+                     lambda: pq.fier_pack_quantize(K, GROUP), None)
+        nbytes = K.numel() * 2 + sum(a.numel() * a.element_size() for a in got)
+        rows["pack_quantize"].append(dict(
+            shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+            bytes=nbytes, flops=0, max_abs_err=0.0, bytes_off_side_car_bf16=sum(off_bf16),
+            bytes_off_side_car_f32=sum(off_f32),
+        ))
+
+        # ---- K6: within the f32 summation-order bound of its plain version
+        args = (q, qk.codes, qk.scale, qk.zero)
+        s_k = fs.fier_score_scan(*args, group=GROUP)
+        s_p = fs.retrieval_scores(*args, group=GROUP)
+        torch.cuda.synchronize()
+        amax = (qk.scale.float().abs() + qk.zero.float().abs()).amax()
+        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        err = float((s_k - s_p).abs().max())
+        if not (err <= eps and torch.isfinite(s_k).all()):
+            raise AssertionError(f"K6 disagrees with its plain version at {shape}: "
+                                 f"{err:.3g} > {eps:.3g}")
+        log(f"  K6 {shape}: max |Δscore| {err:.3g} (<= {eps:.3g})")
+        t = in_turns(timer, lambda: fs.retrieval_scores(*args, group=GROUP),
+                     lambda: fs.fier_score_scan(*args, group=GROUP), None)
+        nbytes = sum(a.numel() * a.element_size() for a in args) + s_k.numel() * 4
+        rows["fier_score"].append(dict(
+            shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+            bytes=nbytes, flops=2 * B * Hkv * rep * S * D, max_abs_err=err,
+        ))
+
+        # ---- K7: tau and m exactly its plain version's
+        masked = fr.masked_kv(s_k, lengths, SINK, RECENT, reduce).reshape(B * Hkv, S)
+        tau_k, m_k = tk.fier_topk_threshold(masked, BUDGET)
+        tau_p, m_p = tk.fier_topk_threshold_plain(masked, BUDGET)
+        torch.cuda.synchronize()
+        if not (torch.equal(tau_k, tau_p) and torch.equal(m_k, m_p)):
+            raise AssertionError(f"K7 differs from its plain version at {shape}")
+        log(f"  K7 {shape} {reduce}: tau and m equal to its plain version")
+        t = in_turns(timer, lambda: tk.fier_topk_threshold_plain(masked, BUDGET),
+                     lambda: tk.fier_topk_threshold(masked, BUDGET),
+                     lambda: torch.topk(masked, BUDGET, dim=-1).values[:, -1])
+        rows["topk_threshold"].append(dict(
+            shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+            bytes=masked.numel() * 4 + tau_k.numel() * 4 + m_k.numel() * 4, flops=0,
+            max_abs_err=0.0,
+        ))
+
+        # ---- the two pipelines on one slab view
+        view = CacheView.slab(K, V, qk, lengths)
+        q3 = q.reshape(B, Hkv * rep, D)
+        idx1, tau1, m1 = ops.retrieve(q3, view, BUDGET, return_stats=True, **sel)
+        idx2 = tk.compact_indices(masked, tau_k, m_k, BUDGET).reshape(B, Hkv, BUDGET)
+        one = ops.fier_decode_one_pass(q3, view, BUDGET, **sel)
+        two = ops.fier_decode_two_pass(q3, view, BUDGET, **sel)
+        torch.cuda.synchronize()
+        if reduce == "max":
+            same = (torch.equal(idx1, idx2) and torch.equal(tau1.reshape(-1), tau_k)
+                    and torch.equal(m1.reshape(-1), m_k) and torch.equal(one, two))
+            if not same:
+                raise AssertionError(f"two_pass differs from one_pass at {shape} (max)")
+            log(f"  two_pass vs one_pass {shape} max: idx, tau, m and output bit for bit")
+        else:
+            ok, ndiff = selection_agrees(
+                idx1.reshape(B * Hkv, -1), idx2.reshape(B * Hkv, -1), tau1.reshape(-1), tau_k,
+                m1.reshape(-1), m_k, masked, eps,
+            )
+            if not ok:
+                raise AssertionError(f"two_pass selects other tokens than one_pass at {shape}: "
+                                     f"{ndiff} indices outside eps {eps:.3g}")
+            log(f"  two_pass vs one_pass {shape} sum: index sets agree ({ndiff} near-tau "
+                f"swaps, eps {eps:.3g}); outputs equal {torch.equal(one, two)}")
+
+        # ---- K8: its plain version, and K2 bit for bit on the same selection
+        ks, vs = retrieval.gather_kv(K, V, idx1)
+        mask = (idx1 < lengths[:, None, None]).to(torch.int8)
+        out8 = sa.fier_attend_gathered(q, ks, vs, mask)
+        out2 = sa.fier_attend_selected(q, K, V, idx1, lengths)
+        out_p = sa.fier_attend_gathered_plain(q, ks, vs, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(out8, out2):
+            raise AssertionError(f"K8 differs from K2 on the same selection at {shape}: max "
+                                 f"{float((out8 - out2).abs().max()):.3g}")
+        err = float((out8 - out_p).abs().max())
+        scale = float(out_p.abs().max())
+        if not (err <= K2_REL_TOL * scale and torch.isfinite(out8).all()):
+            raise AssertionError(f"K8 disagrees with its plain version at {shape}: "
+                                 f"{err:.3g} > {K2_REL_TOL} · {scale:.3g}")
+        log(f"  K8 {shape}: bitwise equal to K2 on gather_kv of its selection; vs plain "
+            f"max |err| {err:.3g} (<= {K2_REL_TOL * scale:.3g})")
+        amask = mask.bool()[:, :, None, :].expand(B, Hkv, rep, BUDGET)
+
+        def library():
+            ks_, vs_ = retrieval.gather_kv(K, V, idx1)
+            return F.scaled_dot_product_attention(
+                q, ks_.transpose(1, 2), vs_.transpose(1, 2), attn_mask=amask
+            )
+
+        t = in_turns(timer, lambda: sa.fier_attend_gathered_plain(q, ks, vs, mask),
+                     lambda: sa.fier_attend_gathered(q, ks, vs, mask), library)
+        n_valid = int(mask.sum())
+        nbytes = 2 * n_valid * D * 2 + mask.numel() + q.numel() * 2 + out8.numel() * 4
+        rows["sparse_attention"].append(dict(
+            shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+            bytes=nbytes, flops=4 * n_valid * rep * D, max_abs_err=err,
+        ))
+        del q, K, V, qk, lengths, got, want, s_k, s_p, masked, ks, vs, view
+        torch.cuda.empty_cache()
+    return finish_rows(rows)
+
+
 def finish_rows(rows):
     for name, rs in rows.items():
         for r in rs:
@@ -424,8 +608,9 @@ def finish_rows(rows):
                 "bytes" if r["bytes"] / HBM_BYTES_PER_S >= r["flops"] / F32_FLOPS
                 else "operations"
             )
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
             log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"library {lib}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}: {r['bytes']} B, {r['flops']} flop)")
     return rows
 
@@ -478,7 +663,7 @@ def main_path(torch):
     if not torch.equal(lg_prefill, lg_ref):
         raise AssertionError("prefill logits differ between one_pass and reference engines")
     log("  prefill logits identical to the reference pipeline")
-    engine_errs = first_step_checks(
+    engine_errs, lg1 = first_step_checks(
         torch, eng, params, tok0.to(torch.int32), cache, lg1_ref, cfg.vocab
     )
     del cache
@@ -536,7 +721,8 @@ def main_path(torch):
         f"({3 / (med / 1e3):.1f} tokens/s over 3 active slots); "
         f"peak memory {peak / 2**30:.2f} GiB")
     del cache
-    return counts, engine_errs, params, eng
+    p3 = dict(prompts=prompts, lengths=lengths, toks=toks, lg1=lg1)
+    return counts, engine_errs, params, eng, p3
 
 
 SLAB_KERNELS = ("fier_retrieve", "fier_attend_selected")
@@ -817,7 +1003,7 @@ def checked_kernels(torch, errs, *, keep_plain):
             want = fr.fier_retrieve_plain(q, codes, scale, zero, lengths, budget, **sel)
         B, Hkv, rep, D = q.shape
         s = fr.retrieval_scores(q, codes, scale, zero, group=sel["group"])
-        kv, _ = fr.masked_keys(s, lengths, sel["sink"], sel["recent"], sel["group_reduce"])
+        kv = fr.masked_kv(s, lengths, sel["sink"], sel["recent"], sel["group_reduce"])
         amax = (scale.float().abs() + zero.float().abs()).amax()
         eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
         ok, ndiff = selection_agrees(
@@ -875,7 +1061,8 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
     The kernel step must lie within PLAIN_LOGIT_REL_TOL of the plain step
     and REF_LOGIT_REL_TOL of the reference pipeline, and each planted fault
     beyond both, so the gates are shown to see a wrong kernel.  Returns the
-    largest K1 τ error and K2 error of the per-layer comparisons."""
+    largest K1 τ error and K2 error of the per-layer comparisons, and the
+    kernel step's logits."""
     from repro_torch.kernels import fused_retrieval as fr
     from repro_torch.kernels import ops
     from repro_torch.kernels import sparse_attention as sa
@@ -935,7 +1122,7 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
                 and gap(lg, ref) > REF_LOGIT_REL_TOL * s1):
             raise AssertionError(f"the first-step gates do not see the planted fault "
                                  f"({name}): {gap(lg, lg1_plain):.4g}, {gap(lg, ref):.4g}")
-    return errs
+    return errs, lg1
 
 
 def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
@@ -980,6 +1167,232 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
             f"{e.key[:90]}")
 
 
+# ------------------------------------------------------------ phase 6
+
+TWO_PASS_KERNELS = ("fier_score", "topk_threshold", "fier_attend_selected")
+UNFUSED_KERNELS = ("pack_quantize", "fier_score", "sparse_attention")
+
+
+def two_pass_checks(torch, errs, calls):
+    """A stand-in for ``ops.fier_decode_two_pass`` that runs the pipeline
+    step by step (K6 → group reduction → K7 + ``compact_indices`` → K2, the
+    pipeline's own launches) and, on the engine's own tensors, checks:
+    its selection against K1's (idx, τ, m bitwise under ``max``); K8 on
+    ``gather_kv`` of that selection against K2 (bitwise) and against K8's
+    plain version; the selection of ``fier_decode_reference(use_kernels=True)``
+    (``select_topk`` over K6's scores) against K1's, up to scores within ε
+    of τ, and that pipeline's output finite.  Each call's (q, view) is kept
+    in ``calls`` for the building-block run.  K1 and K8 launched here are
+    comparison launches."""
+    from repro_torch.core import retrieval
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.kernels import topk_select as tk
+
+    def checked(q, view, budget, *, group_reduce, sink, recent):
+        B, Hq, D = q.shape
+        Hkv = view.k.shape[2]
+        sel = dict(sink=sink, recent=recent)
+        scores = ops.fier_score(q, view.meta)
+        kv = retrieval.reduce_over_query_group(scores, Hkv, group_reduce)
+        masked = retrieval.masked_scores(kv, view.length, **sel).reshape(B * Hkv, -1)
+        tau, m = tk.fier_topk_threshold(masked, budget)
+        idx = tk.compact_indices(masked, tau, m, budget).reshape(B, Hkv, budget)
+        out = ops.attend_selected(q, view, idx)
+        calls.append((q, view))
+
+        idx1, tau1, m1 = ops.retrieve(q, view, budget, group_reduce=group_reduce,
+                                      return_stats=True, **sel)
+        if group_reduce == "max" and not (torch.equal(idx, idx1) and torch.equal(
+                tau, tau1.reshape(-1)) and torch.equal(m, m1.reshape(-1))):
+            raise AssertionError("two_pass selects other tokens than K1 on the engine's tensors")
+        q4 = q.reshape(B, Hkv, Hq // Hkv, D)
+        ks, vs = retrieval.gather_kv(view.k, view.v, idx)
+        mask = (idx < view.length[:, None, None]).to(torch.int8)
+        out8 = sa.fier_attend_gathered(q4, ks, vs, mask)
+        out2 = sa.fier_attend_selected(q4, view.k, view.v, idx, view.length)
+        out_p = sa.fier_attend_gathered_plain(q4, ks, vs, mask)
+        if not torch.equal(out8, out2):
+            raise AssertionError("K8 differs from K2 on the engine's tensors")
+        err = float((out8 - out_p).abs().max())
+        rel = err / float(out_p.abs().max())
+        if not rel <= K2_REL_TOL:
+            raise AssertionError(f"K8 disagrees with its plain version on the engine's "
+                                 f"tensors: {err:.3g} ({rel:.3g} of max|out|)")
+        errs["k8"], errs["k8_rel"] = max(errs["k8"], err), max(errs["k8_rel"], rel)
+
+        ref_idx = retrieval.select_topk(kv, budget, view.length, **sel)
+        amax = (view.meta.scale.float().abs() + view.meta.zero.float().abs()).amax()
+        eps = float(D * 2.0**-23 * (Hq // Hkv) * q.float().abs().sum(-1).amax() * amax)
+        marks = lambda i: torch.zeros_like(masked, dtype=torch.bool).scatter_(
+            1, i.reshape(B * Hkv, -1).long(), True)
+        near = ((masked - tau[:, None]).abs() <= eps) | (masked == tau[:, None])
+        n_ref = int((marks(ref_idx) ^ marks(idx1)).sum())
+        if not bool((~(marks(ref_idx) ^ marks(idx1)) | near).all()):
+            raise AssertionError("the reference pipeline with use_kernels selects other "
+                                 "tokens than K1 on the engine's tensors")
+        ref_out = retrieval.fier_decode_reference(
+            q, view.k, view.v, view.meta, budget, view.length, group_reduce=group_reduce,
+            use_kernels=True, **sel,
+        )
+        if not torch.isfinite(ref_out).all():
+            raise AssertionError("non-finite output of fier_decode_reference(use_kernels=True)")
+        errs["ref_swaps"] += n_ref
+        errs["ref_gap"] = max(errs["ref_gap"], float((ref_out.float() - out.float()).abs().max()))
+        errs["calls"] += 1
+        return out
+
+    return checked
+
+
+def two_pass_path(torch, cfg, params, p3, one):
+    """Phase 6: the ``two_pass`` pipeline at full width on the phase 3
+    weights and prompts.  The first decode step (from a copy of the prefill
+    cache) runs ``two_pass_checks`` and must give phase 3's one_pass logits
+    exactly; the unfused building blocks (``ops.pack_quantize`` on the first
+    FIER layer's key slab, ``ops.fier_attention_decode`` on every FIER
+    layer's tensors of that step) then run counted, K5 held bitwise to its
+    plain version; ``generate`` of 32 greedy tokens must give phase 3's
+    tokens with K6 = K7 = K2 = 14 × decode steps and nothing else;
+    ``count_score_bytes`` of one layer must read 0 for one_pass (slab and
+    paged) and at least 2·4·Hq·S·B for two_pass.  Then two_pass and one_pass
+    decode steps are timed in turns and profiled (information only)."""
+    import dataclasses
+
+    from repro_torch.core.policy import CacheView, DecodePlan, decode_attention
+    from repro_torch.core.quantize import QuantizedKeys
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import pack_quantize as pq
+    from repro_torch.obs.flopcount import count_score_bytes
+    from repro_torch.serving import Engine, serving_policy
+
+    eng = Engine.build(cfg, n_slots=SLOTS, capacity=CAPACITY, device=DEVICE,
+                       policy=serving_policy(budget=BUDGET, pipeline="two_pass"))
+    pol = eng.bundle.policy
+    if (pol.pipeline, pol.layout, pol.budget) != ("two_pass", "slab", BUDGET):
+        raise AssertionError(f"the two_pass engine's policy is {pol}")
+    prompts, lengths = p3["prompts"], p3["lengths"]
+    lg0, cache = eng.prefill_batch(params, {"tokens": prompts, "lengths": lengths})
+    tok0 = torch.argmax(lg0, -1).to(torch.int32)
+
+    # ---- the first decode step, checked on the engine's own tensors
+    errs = {"k8": 0.0, "k8_rel": 0.0, "ref_swaps": 0, "ref_gap": 0.0, "calls": 0}
+    calls = []
+    real = ops.fier_decode_two_pass
+    ops.fier_decode_two_pass = two_pass_checks(torch, errs, calls)
+    try:
+        step_cache = clone_cache(torch, cache)
+        _, lg1, _ = eng.decode(params, tok0, step_cache)
+        sync(torch)
+    finally:
+        ops.fier_decode_two_pass = real
+    n_fier = cfg.n_layers - pol.skip_layers
+    if errs["calls"] != n_fier:
+        raise AssertionError(f"the checked step ran {errs['calls']} FIER layers, not {n_fier}")
+    gap = float((lg1[:, : cfg.vocab] - p3["lg1"]).abs().max())
+    log(f"  first decode step: max |Δlogit| vs phase 3's one_pass step {gap:.6g} (expected 0)")
+    log(f"  per layer on the engine's tensors ({errs['calls']} calls): K6+K7 selection = K1's "
+        f"(idx, tau, m bitwise); K8 = K2 bitwise, vs plain max |err| {errs['k8']:.3g} "
+        f"({errs['k8_rel']:.3g} of max|out|); reference+use_kernels index sets vs K1: "
+        f"{errs['ref_swaps']} near-tau swaps, output max |Δ| vs two_pass {errs['ref_gap']:.3g}")
+    if gap != 0.0:
+        raise AssertionError("the two_pass first step differs from the one_pass step")
+
+    # ---- the unfused building blocks, counted, on that step's tensors
+    reset_launch_counts()
+    q0, view0 = calls[0]
+    codes, scale, zero = pq.fier_pack_quantize(view0.k, GROUP)
+    outs = [ops.fier_attention_decode(q, v.k, v.v, v.meta, BUDGET, v.length)
+            for q, v in calls]
+    sync(torch)
+    counts_bb = launch_counts()
+    want = {"pack_quantize": 1, "fier_score": n_fier, "sparse_attention": n_fier}
+    for name, n in counts_bb.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"building blocks: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    plain = pq.fier_pack_quantize_plain(view0.k, GROUP)
+    side = (view0.meta.codes, view0.meta.scale, view0.meta.zero)
+    if not all(torch.equal(a, b) for a, b in zip((codes, scale, zero), plain)):
+        raise AssertionError("K5 differs from its plain version on the engine's key slab")
+    off = [byte_diff(torch, a, b) for a, b in zip((codes, scale, zero), side)]
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("non-finite fier_attention_decode output")
+    log(f"  building blocks on the step's tensors: launches {counts_bb}; K5 bitwise equal to "
+        f"its plain version on the first FIER layer's key slab, bytes differing from the "
+        f"engine's side-car (codes, scale, zero) {off}")
+    del calls, outs, codes, scale, zero, plain, step_cache
+
+    # ---- the counted run
+    reset_launch_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    toks, cache2 = eng.generate(params, prompts, lengths, MAX_NEW, return_cache=True)
+    sync(torch)
+    t_gen = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(counts, TWO_PASS_KERNELS, n_fier * (MAX_NEW - 1))
+    agree = int((toks == p3["toks"]).sum())
+    log(f"  launches {counts}: {n_fier} x {MAX_NEW - 1} decode steps")
+    log(f"  greedy tokens equal to phase 3's one_pass tokens: {agree}/{toks.numel()}; "
+        f"generate {MAX_NEW} tokens {t_gen:.3f} s")
+    if agree != toks.numel():
+        raise AssertionError("two_pass tokens differ from one_pass tokens")
+
+    # ---- score bytes of one FIER layer at the main-path shape
+    rest = cache2["rest"]
+    meta = rest["meta"].layer(0)
+    length = cache2["length"]
+    B, S, Hkv, D = rest["k"][0].shape
+    Hq = cfg.n_heads
+    q = torch.randn((B, Hq, D), device=DEVICE).to(torch.bfloat16)
+    slab = CacheView.slab(rest["k"][0], rest["v"][0], meta, length)
+    nb = S // BLOCK_SIZE
+    pool = lambda a: a.reshape(B * nb, a.shape[1] // nb, Hkv, D)
+    table = torch.arange(B * nb, dtype=torch.int32, device=DEVICE).reshape(B, nb)
+    paged = CacheView.paged(pool(slab.k), pool(slab.v), QuantizedKeys(
+        pool(meta.codes), pool(meta.scale), pool(meta.zero), GROUP), table, length)
+    sb = {}
+    for name, view, pipeline in (("one_pass", slab, "one_pass"), ("one_pass_paged", paged, "one_pass"),
+                                 ("two_pass", slab, "two_pass"), ("reference", slab, "reference")):
+        plan = DecodePlan.build(dataclasses.replace(pol, pipeline=pipeline, layout=view.layout))
+        sb[name] = count_score_bytes(lambda q: decode_attention(q, view, plan), S, q)
+    floor = 2 * 4 * Hq * S * B
+    log(f"  score bytes of one layer (B={B}, Hq={Hq}, S={S}): {sb}; two_pass floor "
+        f"2·4·Hq·S·B = {floor}")
+    if not (sb["one_pass"] == 0 and sb["one_pass_paged"] == 0 and sb["two_pass"] >= floor
+            and sb["reference"] > 0):
+        raise AssertionError(f"the score-byte contract fails: {sb}")
+    del slab, paged, meta, rest
+
+    # ---- two_pass vs one_pass decode steps in turns (unprofiled), and profiles
+    _, cache1 = one.prefill_batch(params, {"tokens": prompts, "lengths": lengths})
+    tok1 = tok2 = toks[:, -1].clone()
+    ms = {"one_pass": [], "two_pass": []}
+    for i in range(2 * EXTRA_STEPS):
+        for name in (("one_pass", "two_pass") if i % 2 == 0 else ("two_pass", "one_pass")):
+            sync(torch)
+            t0 = time.perf_counter()
+            if name == "one_pass":
+                tok1, _, cache1 = one.decode(params, tok1, cache1)
+            else:
+                tok2, _, cache2 = eng.decode(params, tok2, cache2)
+            sync(torch)
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+    med = {k: median(v) for k, v in ms.items()}
+    log(f"  decode ms/step in turns (median of {2 * EXTRA_STEPS} each, 4 slots): two_pass "
+        f"{med['two_pass']:.2f}, one_pass {med['one_pass']:.2f}")
+    if DEVICE == "cuda":
+        log("  two_pass engine:")
+        profile_decode(torch, eng, params, tok2, cache2, None)
+        log("  one_pass engine:")
+        profile_decode(torch, one, params, tok1, cache1, None)
+    del cache, cache1, cache2, eng
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return counts, counts_bb, errs, dict(step_ms=med, score_bytes=sb)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1016,26 +1429,35 @@ def main() -> int:
     shapes = [
         (SLOTS, 16, 1, 128, CAPACITY, "max"),   # olmo-1b main path (MHA)
         (SLOTS, 4, 4, 128, CAPACITY, "sum"),    # GQA
+        (SLOTS, 4, 4, 128, CAPACITY, "max"),    # GQA, max
     ]
     rows = check_kernels(torch, timer, shapes)
     rows.update(check_paged_kernels(torch, timer, shapes))
+    log("[kernels] K5-K8 and two_pass vs one_pass")
+    rows.update(check_unfused_kernels(torch, timer, shapes))
     del timer
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv:  # a quick build-and-check call; no result line
         return 0
 
     log("[main path] olmo-1b at full width, 4 slots, capacity 8192")
-    counts, engine_errs, params, slab = main_path(torch)
+    counts, engine_errs, params, slab, p3 = main_path(torch)
     cfg = slab.bundle.cfg
 
     log("[paged vs slab] the same prompts through a paged engine, bs 32, default pool")
     counts_p4 = paged_vs_slab(torch, cfg, params, slab)
-    del slab
     torch.cuda.empty_cache()
 
     log("[serving] ContinuousScheduler, chunk 2048, 8 slots x 8192, pool 621 blocks")
     counts_p5, stream, errs_p5 = serve_stream(torch, cfg, params)
     counts.update({k: counts_p5[k] for k in PAGED_KERNELS})
+
+    log("[two_pass] the two_pass pipeline at full width, the unfused building blocks")
+    counts_p6, counts_bb, errs_p6, p6 = two_pass_path(torch, cfg, params, p3, slab)
+    del slab
+    torch.cuda.empty_cache()
+    counts.update({k: counts_p6[k] for k in ("fier_score", "topk_threshold")})
+    counts.update({k: counts_bb[k] for k in ("pack_quantize", "sparse_attention")})
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
@@ -1046,10 +1468,22 @@ def main() -> int:
                                 "src/repro/kernels/fused_retrieval.py:435"),
         "fier_attend_selected_paged": (csrc + "fier_attend.cu",
                                        "src/repro/kernels/sparse_attention.py:358"),
+        "pack_quantize": (csrc + "fier_pack.cu", "src/repro/kernels/pack_quantize.py:52"),
+        "fier_score": (csrc + "fier_score.cu", "src/repro/kernels/fier_score.py:110"),
+        "topk_threshold": (csrc + "fier_topk.cu", "src/repro/kernels/topk_select.py:101"),
+        "sparse_attention": (csrc + "fier_attend.cu", "src/repro/kernels/sparse_attention.py:106"),
+    }
+    # where each count comes from: the run that drove the kernel's path
+    launch_runs = {
+        "fier_retrieve": "phase 3", "fier_attend_selected": "phase 3",
+        "fier_retrieve_paged": "phase 5", "fier_attend_selected_paged": "phase 5",
+        "fier_score": "phase 6 two_pass generate", "topk_threshold": "phase 6 two_pass generate",
+        "pack_quantize": "phase 6 building blocks", "sparse_attention": "phase 6 building blocks",
     }
     engine_err = {
         "fier_retrieve": engine_errs["k1_tau"], "fier_attend_selected": engine_errs["k2"],
         "fier_retrieve_paged": errs_p5["k1_tau"], "fier_attend_selected_paged": errs_p5["k2"],
+        "sparse_attention": errs_p6["k8"],
     }
     kernels = []
     for name, rs in rows.items():
@@ -1061,10 +1495,18 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "check": "pass",
             "gqa_ms": rs[1]["ms"], "gqa_bound_ms": rs[1]["bound_ms"],
+            "launches_run": launch_runs[name],
         }
         if name in PAGED_KERNELS:
             # launches above: the serving run (phase 5); the paged-vs-slab run too
             row["launches_paged_vs_slab"] = counts_p4[name]
+        if name == "fier_attend_selected":
+            row["launches_two_pass"] = counts_p6[name]
+        if name == "pack_quantize":
+            row["bytes_off_side_car_bf16"] = r["bytes_off_side_car_bf16"]
+            row["bytes_off_side_car_f32"] = r["bytes_off_side_car_f32"]
+        if r["library_ms"] is None:
+            row["library_note"] = "no single PyTorch call computes this function"
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, padded_vocab
 
 
@@ -27,10 +28,11 @@ def _convert(tree, device):
     return _tensor(tree, device)
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cpu") -> dict:
+def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
     """The dense-transformer parameter tree (embed, stacked layers,
-    final_norm[, lm_head]) as torch tensors on ``device``."""
-    params = _convert(tree, device)
+    final_norm[, lm_head]) as torch tensors on ``device`` (the card unless
+    ``device='cpu'``)."""
+    params = _convert(tree, resolve_device(device))
     Vp = padded_vocab(cfg)
     if tuple(params["embed"].shape) != (Vp, cfg.d_model):
         raise ValueError(

@@ -3,8 +3,11 @@
 Port of ``repro.core.policy`` for the slab and paged layouts.  The registry
 holds the ``full`` and ``fier`` backends; ``fier`` runs the ``one_pass``
 pipeline (the CUDA retrieval kernel chained into the CUDA select-and-attend
-kernel; on a paged cache their block-table variants) or the ``reference``
-pipeline (plain PyTorch oracles over the logical, table-gathered cache)::
+kernel; on a paged cache their block-table variants), the slab-only
+``two_pass`` pipeline (the CUDA score scan and threshold search, then the
+select-and-attend kernel) or the ``reference`` pipeline (plain PyTorch
+oracles over the logical, table-gathered cache; ``use_kernels`` scores with
+the CUDA score scan)::
 
     plan = DecodePlan.build(cfg, capacity=capacity)
     meta = build_metadata(K, cfg)                 # after prefill
@@ -26,7 +29,7 @@ PIPELINES = ("reference", "two_pass", "one_pass")
 LAYOUTS = ("slab", "paged")
 
 # kinds the JAX package registers that this slice does not port yet
-_NOT_PORTED_KINDS = {"quest": "ROADMAP Queue 1 item 7", "slm": "ROADMAP Queue 1 item 7"}
+_NOT_PORTED_KINDS = {"quest": "ROADMAP Queue 1 item 7b", "slm": "ROADMAP Queue 1 item 7b"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -44,6 +47,8 @@ class PolicyConfig:
     sink: int = 0              # forced sink tokens (0 = paper-faithful)
     recent: int = 0            # forced recent window (0 = paper-faithful)
     skip_layers: int = 2       # full attention on the first N layers
+    use_kernels: bool = False  # reference pipeline only: score with the CUDA
+                               # score scan (K6) instead of the plain oracle
     pipeline: str = "reference"  # reference | two_pass | one_pass
     layout: str = "slab"       # slab | paged
     block_size: int = 32       # tokens per cache block (paged layout); a
@@ -199,10 +204,6 @@ class DecodePlan:
     ) -> "DecodePlan":
         layout = layout if layout is not None else policy.layout
         pipeline = pipeline if pipeline is not None else policy.pipeline
-        if pipeline == "two_pass":
-            raise _not_ported(
-                "pipeline='two_pass' (kernels K6/K7)", "ROADMAP Queue 1 item 7"
-            )
         if shard is not None:
             raise _not_ported("mesh-sharded decode", "ROADMAP Queue 1 item 10")
         backend = get_backend(policy.kind)
@@ -280,12 +281,16 @@ def _fier_build_metadata(K, cfg):
 def _fier_decode(q, view, plan):
     cfg = plan.policy
     sel = dict(group_reduce=cfg.group_reduce, sink=cfg.sink, recent=cfg.recent)
-    if plan.pipeline == "one_pass":
+    if plan.pipeline in ("one_pass", "two_pass"):
         from repro_torch.kernels import ops as kops
 
-        return kops.fier_decode_one_pass(q, view, cfg.budget, **sel)
+        if plan.pipeline == "one_pass":
+            return kops.fier_decode_one_pass(q, view, cfg.budget, **sel)
+        return kops.fier_decode_two_pass(q, view, cfg.budget, **sel)
     K, V, meta = view.logical()
-    return retrieval.fier_decode_reference(q, K, V, meta, cfg.budget, view.length, **sel)
+    return retrieval.fier_decode_reference(
+        q, K, V, meta, cfg.budget, view.length, use_kernels=cfg.use_kernels, **sel
+    )
 
 
 register_backend(AttentionBackend(
@@ -298,7 +303,7 @@ register_backend(AttentionBackend(
 register_backend(AttentionBackend(
     name="fier",
     supports=frozenset({
-        ("slab", "reference"), ("slab", "one_pass"),
+        ("slab", "reference"), ("slab", "two_pass"), ("slab", "one_pass"),
         ("paged", "reference"), ("paged", "one_pass"),
     }),
     build_metadata=_fier_build_metadata,

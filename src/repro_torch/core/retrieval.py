@@ -184,14 +184,17 @@ def fier_decode_reference(
 ) -> torch.Tensor:
     """The reference FIER decode step: score → ``select_topk`` →
     ``gather_kv`` → ``sparse_attention``, every intermediate materialised.
-    It runs no custom kernel."""
-    if use_kernels:
-        raise NotImplementedError(
-            "use_kernels=True needs the score-scan kernel K6 "
-            "(ROADMAP Queue 1 item 7)"
-        )
+    It runs no custom kernel unless ``use_kernels=True``, which scores with
+    the score-scan kernel K6 (``kernels.ops.fier_score``, the
+    ``score_block`` expression) instead of ``approx_scores``; selection and
+    attention stay plain."""
     Hkv = K.shape[2]
-    scores = approx_scores(q, qk)
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+
+        scores = kops.fier_score(q, qk)
+    else:
+        scores = approx_scores(q, qk)
     kv_scores = reduce_over_query_group(scores, Hkv, group_reduce)
     idx = select_topk(kv_scores, budget, length, sink=sink, recent=recent)
     Ksel, Vsel = gather_kv(K, V, idx)

@@ -3,8 +3,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (pointers as ``void*``,
 the stream last) and compiles on its own into
-``kernels/build/lib<name>-<hash>.so``; the hash covers the source and the
-flags, so an edited kernel rebuilds and a stale library is never loaded.
+``kernels/build/lib<name>-<hash>.so``; the hash covers the source, every
+shared header ``csrc/*.cuh`` and the flags, so an edited kernel or header
+rebuilds and a stale library is never loaded.
 ``build()`` starts one ``nvcc`` per missing library, all at once, and
 waits for them together.  There is no fallback: a missing ``nvcc`` or a
 failed compile raises.
@@ -25,7 +26,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
-SOURCES = ("fier_retrieve", "fier_attend")
+SOURCES = ("fier_retrieve", "fier_attend", "fier_score", "fier_topk", "fier_pack")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -38,8 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,6 +1,7 @@
 // K2 fier_attend_selected and K4 fier_attend_selected_paged: fused
 // select-and-attend decode attention for Hopper (sm_90a), over a slab cache
-// (K2) or a paged block pool (K4).
+// (K2) or a paged block pool (K4); and K8 fier_attend_gathered, the same
+// attention over rows gathered beforehand.
 //
 // K2 replaces the TPU kernel
 // repro/kernels/sparse_attention.py::fused_sparse_attention_hm (pallas_call at
@@ -30,13 +31,25 @@
 // With one tile (budget <= 64) the arithmetic is the reference's single-block
 // online softmax.
 //
-// K4 differs only where a tile stages its rows (template flag kPaged): the
+// K4 differs only where a tile stages its rows (address policy kPaged): the
 // logical index t becomes the pool row table[b, t / bs] * bs + t % bs of the
 // K/V pools [N, bs, Hkv, D] (K2: b * S + t of the slabs); a masked row's
 // table entry is never read.  Tiles, the masked rows never loaded and
 // attend_combine are shared, so on the same logical contents K4's output is
 // K2's bit for bit.  It reads K2's bytes plus one table entry per selected
 // row.
+//
+// K8 replaces the TPU kernel sparse_attention_hm (pallas_call at :106, body
+// _kernel :64): the unfused attend over pre-gathered K'/V' with an int8
+// validity mask.  It is a third address policy (kGathered): row t of (b, h)
+// of k_sel / v_sel [B, budget, Hkv, D] (what gather_kv returns) is read at
+// the element offset b * sb + t * st + h * sh given by the tensors' strides
+// (channels contiguous), so neither the seq-major layout nor gather_kv's
+// transposed head-major view needs a copy, and a slot is valid where
+// mask[b, h, t] != 0.  Tiles and attend_combine are K2's, so
+// K8(gather_kv(K, V, idx), idx < length) equals K2(K, V, idx, length) bit
+// for bit.  It reads the valid gathered rows (K2's bytes) plus one mask
+// byte per slot.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +64,11 @@ constexpr int kD = 128;         // d_head: the only one a model of the port has
 constexpr int kLPR = kD / 8;    // lanes per row (each lane holds 8 channels = 16 bytes)
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// Where a tile finds its rows (template argument of attend_partial).
+constexpr int kSlab = 0;      // K2: K/V [B, S, Hkv, D], rows idx[t]
+constexpr int kPaged = 1;     // K4: K/V [N, bs, Hkv, D] through table [B, n_btab]
+constexpr int kGathered = 2;  // K8: K/V [B, budget, Hkv, D], row t, validity mask[t]
+
 __device__ __forceinline__ void bf16x8_to_float(const uint4& w, float (&out)[8]) {
   const uint32_t v[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -60,19 +78,24 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& w, float (&out)[8])
   }
 }
 
-// kPaged = false (K2): K/V [B, S, Hkv, D], table unused.  kPaged = true
-// (K4): K/V [N, bs, Hkv, D], table [B, n_btab] with S = n_btab * bs.
-template <bool kPaged>
+// kAddr = kSlab (K2): K/V [B, S, Hkv, D], table and mask unused.
+// kAddr = kPaged (K4): K/V [N, bs, Hkv, D], table [B, n_btab] with
+// S = n_btab * bs.  kAddr = kGathered (K8): K/V [B, budget, Hkv, D] with
+// element strides (sb, st, sh) (S = budget), mask [B, Hkv, budget]; table,
+// idx and lengths unused.
+template <int kAddr>
 __global__ void __launch_bounds__(kThreads)
 attend_partial(const float* __restrict__ q,              // [B, Hkv, rep, D]
                const __nv_bfloat16* __restrict__ K,
                const __nv_bfloat16* __restrict__ V,
                const int* __restrict__ table,            // [B, n_btab] (K4)
-               const int* __restrict__ idx,              // [B, Hkv, budget]
-               const int* __restrict__ lengths,          // [B]
+               const int* __restrict__ idx,              // [B, Hkv, budget] (K2, K4)
+               const int* __restrict__ lengths,          // [B] (K2, K4)
+               const int8_t* __restrict__ mask,          // [B, Hkv, budget] (K8)
                float* __restrict__ part_o,               // [B*Hkv, n_tiles, rep, D]
                float* __restrict__ part_md,              // [B*Hkv, n_tiles, rep, 2]
-               int S, int Hkv, int rep, int budget, float scale, int bs) {
+               int S, int Hkv, int rep, int budget, float scale, int bs,
+               long long sb, long long st, long long sh) {
   constexpr int D = kD;
   constexpr int LPR = kLPR;
   constexpr int kGroups = kThreads / LPR;  // rows in flight per block
@@ -94,24 +117,37 @@ attend_partial(const float* __restrict__ q,              // [B, Hkv, rep, D]
   const int sl = tid % LPR;    // lane within the row: channels 8*sl .. 8*sl+7
   const int t0 = tile * kTile;
   const int nrows = min(kTile, budget - t0);
-  const int length = lengths[b];
 
   for (int i = tid; i < rep * D; i += kThreads) q_s[i] = q[(size_t)bh * rep * D + i];
   for (int t = tid; t < nrows; t += kThreads) {
-    const int r = idx[(size_t)bh * budget + t0 + t];
-    const bool valid = (r < length) && (r >= 0) && (r < S);
-    if constexpr (kPaged) {
-      rows_s[t] = valid ? table[(size_t)b * (S / bs) + r / bs] * bs + r % bs : 0;
+    bool valid;
+    if constexpr (kAddr == kGathered) {
+      valid = mask[(size_t)bh * budget + t0 + t] != 0;
+      rows_s[t] = t0 + t;
     } else {
-      rows_s[t] = b * S + r;
+      const int r = idx[(size_t)bh * budget + t0 + t];
+      valid = (r < lengths[b]) && (r >= 0) && (r < S);
+      if constexpr (kAddr == kPaged) {
+        rows_s[t] = valid ? table[(size_t)b * (S / bs) + r / bs] * bs + r % bs : 0;
+      } else {
+        rows_s[t] = b * S + r;
+      }
     }
     valid_s[t] = valid;
   }
   __syncthreads();
 
-  const size_t row_elems = (size_t)Hkv * D;
-  const __nv_bfloat16* Kbh = K + (size_t)h * D + sl * 8;
-  const __nv_bfloat16* Vbh = V + (size_t)h * D + sl * 8;
+  // rows_s[t] counts rows of row_elems elements from (b, h)'s head offset
+  size_t head_off, row_elems;
+  if constexpr (kAddr == kGathered) {
+    head_off = (size_t)(b * sb + h * sh);
+    row_elems = (size_t)st;
+  } else {
+    head_off = (size_t)h * D;
+    row_elems = (size_t)Hkv * D;
+  }
+  const __nv_bfloat16* Kbh = K + head_off + sl * 8;
+  const __nv_bfloat16* Vbh = V + head_off + sl * 8;
 
   // ---- scores s = (q . k) * scale, masked --------------------------------
   for (int base = 0; base < nrows; base += kGroups) {  // uniform trip count
@@ -221,17 +257,18 @@ __global__ void attend_combine(const float* __restrict__ part_o,   // [BH, n_til
   }
 }
 
-template <bool kPaged>
+template <int kAddr>
 cudaError_t launch(const void* q, const void* K, const void* V, const void* table,
-                   const void* idx, const void* lengths, void* part_o, void* part_md,
-                   void* out, int B, int S, int Hkv, int rep, int budget, float scale, int bs,
+                   const void* idx, const void* lengths, const void* mask, void* part_o,
+                   void* part_md, void* out, int B, int S, int Hkv, int rep, int budget,
+                   float scale, int bs, long long sb, long long st, long long sh,
                    cudaStream_t stream) {
   constexpr int D = kD;
   constexpr int kGroups = kThreads / kLPR;
   const int n_tiles = (budget + kTile - 1) / kTile;
   const size_t smem = sizeof(float) * ((size_t)rep * D + (size_t)rep * kTile +
                                        (size_t)kGroups * rep * D);
-  auto kernel = attend_partial<kPaged>;
+  auto kernel = attend_partial<kAddr>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -240,8 +277,8 @@ cudaError_t launch(const void* q, const void* K, const void* V, const void* tabl
       static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(K),
       static_cast<const __nv_bfloat16*>(V), static_cast<const int*>(table),
       static_cast<const int*>(idx), static_cast<const int*>(lengths),
-      static_cast<float*>(part_o), static_cast<float*>(part_md), S, Hkv, rep, budget, scale,
-      bs);
+      static_cast<const int8_t*>(mask), static_cast<float*>(part_o),
+      static_cast<float*>(part_md), S, Hkv, rep, budget, scale, bs, sb, st, sh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = rep * D < 1024 ? rep * D : 1024;
@@ -263,9 +300,24 @@ extern "C" int fier_attend_launch(const void* q, const void* K, const void* V,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rep < 1 || rep > kMaxRep || D != kD) return (int)cudaErrorInvalidValue;
   if (table == nullptr)
-    return (int)launch<false>(q, K, V, nullptr, idx, lengths, part_o, part_md, out, B, S, Hkv,
-                              rep, budget, scale, 1, st);
+    return (int)launch<kSlab>(q, K, V, nullptr, idx, lengths, nullptr, part_o, part_md, out, B,
+                              S, Hkv, rep, budget, scale, 1, 0, 0, 0, st);
   if (bs < 1 || S % bs) return (int)cudaErrorInvalidValue;
-  return (int)launch<true>(q, K, V, table, idx, lengths, part_o, part_md, out, B, S, Hkv, rep,
-                           budget, scale, bs, st);
+  return (int)launch<kPaged>(q, K, V, table, idx, lengths, nullptr, part_o, part_md, out, B, S,
+                             Hkv, rep, budget, scale, bs, 0, 0, 0, st);
+}
+
+// K8: k_sel/v_sel [B, budget, Hkv, D] gathered rows with element strides
+// (sb, st, sh) and contiguous channels (both tensors alike; each a multiple
+// of 8, for the 16-byte loads), mask int8 [B, Hkv, budget].
+extern "C" int fier_attend_gathered_launch(const void* q, const void* k_sel, const void* v_sel,
+                                           const void* mask, void* part_o, void* part_md,
+                                           void* out, int B, int budget, int Hkv, int rep, int D,
+                                           long long sb, long long st, long long sh, float scale,
+                                           void* stream) {
+  if (rep < 1 || rep > kMaxRep || D != kD || sb % 8 || st % 8 || sh % 8)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<kGathered>(q, k_sel, v_sel, nullptr, nullptr, nullptr, mask, part_o,
+                                part_md, out, B, budget, Hkv, rep, budget, scale, 1, sb, st, sh,
+                                static_cast<cudaStream_t>(stream));
 }

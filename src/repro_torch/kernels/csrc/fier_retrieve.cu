@@ -35,6 +35,10 @@
 //   * Compaction by block-wide prefix sums: { key > tau } in ascending
 //     position at [0, m), then the first (budget - m) ties at [m, budget) —
 //     the reference's order.
+// The scoring warp (load_chunk, score_chunk) and the radix search
+// (radix_select) live in fier_common.cuh: K6 writes the scores of the same
+// device function and K7 runs the same search over them, so the two-pass
+// pipeline selects what this kernel selects.
 // Rows longer than the shared memory allows (about 56k tokens) are refused
 // by the wrapper; a variant that re-scores per sweep is a later kernel.
 // Only 64 blocks run at the serving shape (B x Hkv), fewer than the 132 SMs:
@@ -59,62 +63,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fier_common.cuh"
+
 namespace {
+
+using namespace fier;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRadix = 256;
-constexpr int kMaxRep = 8;
-constexpr int kD = 128;          // d_head: the only one a model of the port has
-constexpr int kDPL = kD / 32;    // channels per lane
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t sortable_key(float s) {
-  uint32_t u = (s == 0.0f) ? 0u : __float_as_uint(s);  // -0.0 -> +0.0
-  return (u >> 31) == 0 ? (u | 0x80000000u) : ~u;
-}
-
-__device__ __forceinline__ float unsortable(uint32_t key) {
-  uint32_t u = (key >> 31) == 1 ? (key ^ 0x80000000u) : ~key;
-  return __uint_as_float(u);
-}
-
-// The kDPL = 4 code bytes of one byte-row owned by a lane, as one word.
-__device__ __forceinline__ uint32_t load_code_bytes(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// kDPL = 4 bf16 values as f32.
-__device__ __forceinline__ void load_bf16x4(const __nv_bfloat16* p, float (&out)[kDPL]) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  out[0] = bf16_bits_to_float(w.x & 0xFFFFu);
-  out[1] = bf16_bits_to_float(w.x >> 16);
-  out[2] = bf16_bits_to_float(w.y & 0xFFFFu);
-  out[3] = bf16_bits_to_float(w.y >> 16);
-}
-
-// 32 partial sums per lane -> lane l holds the warp-wide sum of entry l.
-__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) {
-    const bool upper = (lane & o) != 0;
-#pragma unroll
-    for (int i = 0; i < o; ++i) {
-      const float send = upper ? v[i] : v[i + o];
-      const float keep = upper ? v[i + o] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, o);
-    }
-  }
-  return v[0];
-}
 
 // kPaged = false (K1): codes [B, S/8, Hkv, D], scale/zero [B, S/g, Hkv, D],
 // table unused.  kPaged = true (K3): codes [N, bs/8, Hkv, D], scale/zero
@@ -185,47 +141,11 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
 
   const int n_chunks = (S + 31) / 32;
   for (int c = warp; c < n_chunks; c += kWarps) {
-    float hi[4][DPL], lo[4][DPL];
-    uint32_t word[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = c * 4 + j;  // byte-row: tokens 8i .. 8i+7
-      if (i < S8) {
-        const int grp = (i * 8) / group;
-        word[j] = load_code_bytes(codes_h + code_row(i) * row_stride);
-        const size_t gr = group_row(grp) * row_stride;
-        float sc[DPL], zr[DPL];
-        load_bf16x4(scale_h + gr, sc);
-        load_bf16x4(zero_h + gr, zr);
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) {
-          hi[j][k] = round_bf16(zr[k] + sc[k]);  // bf16(+1 * s + z)
-          lo[j][k] = round_bf16(zr[k] - sc[k]);  // bf16(-1 * s + z)
-        }
-      } else {
-        word[j] = 0;
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) hi[j][k] = lo[j][k] = 0.0f;
-      }
-    }
+    Chunk ch;
+    load_chunk(ch, c, S8, group, codes_h, scale_h, zero_h, row_stride, code_row, group_row);
     float kv = 0.0f;
     for (int r = 0; r < rep; ++r) {
-      float acc[32];
-#pragma unroll
-      for (int t = 0; t < 32; ++t) acc[t] = 0.0f;
-#pragma unroll
-      for (int k = 0; k < DPL; ++k) {
-        const float qv = q_s[r * D + lane * DPL + k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float ph = qv * hi[j][k];  // exact: bf16 x bf16 in f32
-          const float pl = qv * lo[j][k];
-          const uint32_t byte = (word[j] >> (8 * k)) & 0xFFu;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) acc[8 * j + t] += ((byte >> t) & 1u) ? ph : pl;
-        }
-      }
-      const float s = reduce_scatter32(acc, lane);
+      const float s = score_chunk(ch, q_s + r * D, lane);
       kv = (r == 0) ? s : (reduce_sum ? kv + s : fmaxf(kv, s));
     }
     const int pos = c * 32 + lane;
@@ -239,61 +159,9 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
   __syncthreads();
 
   // ---- tau: 4 radix-256 passes over the keys --------------------------
-  uint32_t prefix = 0;
-  int remaining = budget;
-  int greater = 0;
-  for (int p = 0; p < 4; ++p) {
-    const int shift = 24 - 8 * p;
-    const uint32_t himask = p == 0 ? 0u : (0xFFFFFFFFu << (32 - 8 * p));
-    for (int i = tid; i < kRadix; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    for (int base = 0; base < S; base += kThreads) {
-      const int pos = base + tid;
-      int digit = kRadix;  // sentinel: not taking part
-      if (pos < S) {
-        const uint32_t key = keys[pos];
-        if ((key & himask) == prefix) digit = (key >> shift) & 0xFF;
-      }
-      const unsigned peers = __match_any_sync(kFull, digit);
-      if (digit < kRadix && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // lane owns buckets 8*lane .. 8*lane+7; ge[j] = count(digit >= j)
-      int v[8];
-      int tot = 0;
-#pragma unroll
-      for (int k = 7; k >= 0; --k) {
-        tot += hist[lane * 8 + k];
-        v[k] = tot;
-      }
-      int incl = tot;  // sum over lanes >= lane
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int n = __shfl_down_sync(kFull, incl, o);
-        if (lane + o < 32) incl += n;
-      }
-      const int excl = incl - tot;  // buckets above this lane's
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int ge = v[k] + excl;
-        const int ge_next = (k < 7 ? v[k + 1] : 0) + excl;
-        if (ge >= remaining && ge_next < remaining) {
-          sel[0] = lane * 8 + k;  // tau's digit: highest bucket reaching `remaining`
-          sel[1] = ge_next;       // participating keys strictly above it
-        }
-      }
-    }
-    __syncthreads();
-    const int jstar = sel[0];
-    const int above = sel[1];
-    prefix |= (uint32_t)jstar << shift;
-    remaining -= above;
-    greater += above;
-    __syncthreads();
-  }
-  const uint32_t tau_key = prefix;
-  const int m = greater;  // |{ key > tau }|
+  uint32_t tau_key;
+  int m;  // |{ key > tau }|
+  radix_select<kThreads>([&](int pos) { return keys[pos]; }, S, budget, hist, sel, tau_key, m);
 
   // ---- compaction: { key > tau } then the first (budget - m) ties -----
   int* out = idx_out + (size_t)row * budget;

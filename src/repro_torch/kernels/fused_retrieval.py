@@ -29,12 +29,13 @@ import ctypes
 
 import torch
 
-from repro_torch.core.retrieval import NEG_INF
+from repro_torch.core.retrieval import masked_scores, reduce_over_query_group
 from repro_torch.kvcache.paged import gather_block_rows
+from repro_torch.obs.flopcount import kernel_leaf
 
 from . import build
-from .fier_score import score_block
-from .topk_select import _sortable_keys, _unsortable
+from .fier_score import retrieval_scores
+from .topk_select import compact_indices, fier_topk_threshold_plain
 
 launches = 0  # K1 kernel launches since the last reset (the chip check reads it)
 launches_paged = 0  # K3 kernel launches since the last reset
@@ -51,55 +52,15 @@ KERNEL_HEAD_DIM = 128
 KERNEL_MAX_REP = 8
 
 
-def masked_keys(
+def masked_kv(
     s: torch.Tensor, lengths: torch.Tensor, sink: int, recent: int, group_reduce: str
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Group-reduce [B, Hkv, rep, S] scores, apply the guard-rails
-    (``_masked_block_keys``) and lift to keys.  Returns (kv f32, keys)."""
-    if group_reduce == "max":
-        kv = s.amax(dim=2)
-    elif group_reduce == "sum":
-        kv = s.sum(dim=2)
-    else:
-        raise ValueError(f"unknown group reduction {group_reduce!r}")
-    S = kv.shape[-1]
-    pos = torch.arange(S, dtype=torch.int32, device=kv.device)[None, None, :]
-    length = lengths.to(torch.int32)[:, None, None]
-    kv = torch.where(pos < length, kv, torch.full_like(kv, NEG_INF))
-    inf = torch.full_like(kv, float("inf"))
-    if sink > 0:
-        kv = torch.where(pos < sink, inf, kv)
-    if recent > 0:
-        kv = torch.where((pos >= length - recent) & (pos < length), inf, kv)
-    return kv, _sortable_keys(kv)
-
-
-def threshold_select(keys: torch.Tensor, budget: int):
-    """τ search + tie-aware compaction over keys [R, S] (int64 holding
-    uint32).  Returns (idx int32 [R, budget], tau_key int64 [R], m int32 [R])."""
-    R, S = keys.shape
-    tau_key = torch.sort(keys, dim=-1, descending=True).values[:, budget - 1]
-    gt = keys > tau_key[:, None]
-    tie = keys == tau_key[:, None]
-    m = gt.sum(dim=-1)
-    cgt = torch.cumsum(gt, dim=-1)
-    ctie = torch.cumsum(tie, dim=-1)
-    take_tie = tie & (ctie <= (budget - m)[:, None])
-    dest = torch.where(
-        gt, cgt - 1,
-        torch.where(take_tie, m[:, None] + ctie - 1, torch.full_like(cgt, budget)),
-    )
-    pos = torch.arange(S, dtype=torch.int32, device=keys.device).expand(R, S)
-    out = torch.zeros((R, budget + 1), dtype=torch.int32, device=keys.device)
-    out.scatter_(1, dest, pos)  # column `budget` collects the dropped entries
-    return out[:, :budget], tau_key, m.to(torch.int32)
-
-
-def retrieval_scores(q, codes, scale, zero, *, group: int) -> torch.Tensor:
-    """Per-query-head scores [B, Hkv, rep, S] of the ``score_block``
-    expression over a seq-major side-car."""
-    to_hm = lambda a: a.permute(0, 2, 1, 3)  # [B, Hkv, S/x, D]
-    return score_block(q, to_hm(codes), to_hm(scale), to_hm(zero), group=group)
+) -> torch.Tensor:
+    """Group-reduce per-head scores [B, Hkv, rep, S] and apply the
+    guard-rails (``_masked_block_keys``): the f32 kv scores [B, Hkv, S] that
+    K1 ranks."""
+    B, Hkv, rep, S = s.shape
+    kv = reduce_over_query_group(s.reshape(B, Hkv * rep, S), Hkv, group_reduce)
+    return masked_scores(kv, lengths.to(torch.int32), sink=sink, recent=recent)
 
 
 def fier_retrieve_plain(
@@ -107,16 +68,14 @@ def fier_retrieve_plain(
     group: int, group_reduce: str = "max", sink: int = 0, recent: int = 0,
 ):
     """The plain PyTorch version of K1 (same arguments as
-    :func:`fier_retrieve`).  Materialises the scores; the kernel does not."""
+    :func:`fier_retrieve`): K6's, K7's and ``compact_indices``' plain
+    versions in a row.  Materialises the scores; the kernel does not."""
     B, Hkv, rep, D = q.shape
     s = retrieval_scores(q, codes, scale, zero, group=group)
-    _, keys = masked_keys(s, lengths, sink, recent, group_reduce)
-    S = keys.shape[-1]
-    idx, tau_key, m = threshold_select(keys.reshape(B * Hkv, S), budget)
-    tau = _unsortable(tau_key)
-    return (
-        idx.reshape(B, Hkv, budget), tau.reshape(B, Hkv), m.reshape(B, Hkv)
-    )
+    kv = masked_kv(s, lengths, sink, recent, group_reduce).reshape(B * Hkv, -1)
+    tau, m = fier_topk_threshold_plain(kv, budget)
+    idx = compact_indices(kv, tau, m, budget)
+    return idx.reshape(B, Hkv, budget), tau.reshape(B, Hkv), m.reshape(B, Hkv)
 
 
 def fier_retrieve_paged_plain(
@@ -188,6 +147,7 @@ def _kernel():
     return _fn
 
 
+@kernel_leaf
 def fier_retrieve(
     q, codes, scale, zero, lengths, budget: int, *,
     group: int, group_reduce: str = "max", sink: int = 0, recent: int = 0,

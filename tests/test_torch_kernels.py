@@ -96,7 +96,7 @@ def test_k1_plain_matches_reference(B, S, Hkv, rep, D, g, budget, lens, reduce, 
     )
 
     # (2) selection over the same masked scores: exactly the reference's
-    kv, _ = fr.masked_keys(s, _t(lengths), sink, recent, reduce)
+    kv = fr.masked_kv(s, _t(lengths), sink, recent, reduce)
     j_idx = jops.topk_select(jnp.asarray(kv.numpy()), budget)  # kv already masked
     np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
 
@@ -161,7 +161,7 @@ def test_fier_decode_one_pass_matches_reference(Hkv, rep, reduce):
     idx, tau, m = ops.retrieve(_t(q), view, budget, return_stats=True, **sel)
     r_idx, r_tau, r_m = jops.retrieve(q, jview, budget, return_stats=True, **sel)
     s = fr.retrieval_scores(_t(q4), tmeta.codes, tmeta.scale, tmeta.zero, group=g)
-    kv, _ = fr.masked_keys(s, _t(length), 4, 8, reduce)
+    kv = fr.masked_kv(s, _t(length), 4, 8, reduce)
     eps = 2 * (2.0**-9 + D * 2.0**-23) * _bound(q4, qk, rep)
     ok, _ = selection_agrees(
         idx.reshape(B * Hkv, budget), _t(r_idx).reshape(B * Hkv, budget),

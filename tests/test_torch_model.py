@@ -47,7 +47,7 @@ def _engines(n_kv, budget):
     te = Engine.build(tc, n_slots=2, capacity=CAPACITY, policy=serving_policy(**pol),
                       device="cpu")
     jp = je.bundle.init(jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, device="cpu")
     return je, jp, te, tp
 
 

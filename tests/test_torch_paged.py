@@ -175,7 +175,7 @@ def test_k3_plain_matches_k1_and_reference(B, S, Hkv, rep, D, g, bs, budget, len
         block_size=bs, interpret=True, **sel,
     )
     s = fr.retrieval_scores(tq, _t(m.codes), _t(m.scale), _t(m.zero), group=g)
-    kv, _ = fr.masked_keys(s, tl, sink, recent, reduce)
+    kv = fr.masked_kv(s, tl, sink, recent, reduce)
     eps = 2 * (2.0**-9 + D * 2.0**-23) * _bound(q, m, rep)
     ok, ndiff = selection_agrees(
         got[0].reshape(B * Hkv, budget), _t(r_idx).reshape(B * Hkv, budget),

@@ -41,6 +41,7 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_entry_points_default_to_cuda():
     from repro_torch.configs import reduced_config
+    from repro_torch.convert import params_from_jax
     from repro_torch.models import build_model
     from repro_torch.serving import Engine
 
@@ -51,12 +52,14 @@ def test_entry_points_default_to_cuda():
         Engine.build(cfg, n_slots=1, capacity=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax({}, cfg)
     assert Engine.build(cfg, n_slots=1, capacity=64, device="cpu").device.type == "cpu"
 
 
 def test_modes_not_ported_raise():
     from repro_torch.configs import reduced_config
-    from repro_torch.core.policy import DecodePlan, PolicyConfig
+    from repro_torch.core.policy import DecodePlan, PolicyConfig, UnsupportedPlanError
     from repro_torch.serving import Engine, serving_policy
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
@@ -64,9 +67,11 @@ def test_modes_not_ported_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         Engine.build(reduced_config("olmo-1b"), n_slots=1, capacity=64, layout="paged",
                      offload_blocks=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="two_pass"):
-        DecodePlan.build(PolicyConfig(kind="fier", pipeline="two_pass"))
-    with pytest.raises(NotImplementedError, match="quest"):
+    # two_pass builds on a slab; the paged layout lacks it, as in the JAX matrix
+    assert DecodePlan.build(PolicyConfig(kind="fier", pipeline="two_pass")).pipeline == "two_pass"
+    with pytest.raises(UnsupportedPlanError, match="two_pass"):
+        DecodePlan.build(PolicyConfig(kind="fier", pipeline="two_pass", layout="paged"))
+    with pytest.raises(NotImplementedError, match="quest.*item 7b"):
         PolicyConfig(kind="quest")
     with pytest.raises(NotImplementedError, match="item 9"):
         Engine.build(reduced_config("granite-moe-1b-a400m"), n_slots=1, capacity=64,

@@ -55,7 +55,7 @@ def _policy(cls, layout, pool_blocks=0):
 def setup():
     jcfg, cfg = j_reduced_config("olmo-1b"), reduced_config("olmo-1b")
     jparams = j_build_model(jcfg, _policy(JPolicy, "slab")).init(jax.random.PRNGKey(0))
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
 
     def engine(layout, pool_blocks=0, *, n_slots, capacity=64):
         bundle = build_model(cfg, _policy(PolicyConfig, layout, pool_blocks), device="cpu")
@@ -247,7 +247,7 @@ def test_trace_replay_reproduces_committed_vtime_metrics():
                        pool_blocks=SMOKE_ENGINE["pool_blocks"])
     eng = Engine(build_model(cfg, pol, device="cpu"), n_slots=SMOKE_ENGINE["n_slots"],
                  capacity=SMOKE_ENGINE["capacity"], obs=Observability())
-    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
     trace = bursty_trace(0, cfg.vocab)
     doc = json.load(open(os.path.join(REPO, "BENCH_serve_trace.json")))
     want = {m["name"]: m["value"] for m in doc["metrics"]}
