@@ -30,6 +30,13 @@ result line):
    selection; ``ops.fier_decode_two_pass`` must give
    ``ops.fier_decode_one_pass``'s idx, τ, m and output bit for bit under
    the group max, and the same index set up to near-τ ties under the sum.
+   K1 and K3 also run on a ``long_500k`` row (B 1, 16 kv heads, 524,288
+   tokens, budget 4096: keys beyond the CTAs' shared memory, built on the
+   card from a seeded ``torch.Generator``) and on a ragged S = 8160 row whose
+   length ends inside a CTA's range: K1 within ε of its plain version, K3
+   bitwise K1 on a permuted pool with a null-block hole, both timed.  K1/K3
+   report their bound over the valid rows (no chunk past a row's length is
+   read) and over whole rows.
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
@@ -233,12 +240,10 @@ def check_kernels(torch, timer, shapes):
             lambda: fr.fier_retrieve(*args, **sel),
             lambda: torch.topk(kv_rows, BUDGET, dim=-1),
         )
-        nbytes = sum(a.numel() * a.element_size() for a in (q, qk.codes, qk.scale, qk.zero, lengths))
-        nbytes += idx_k.numel() * 4 + tau_k.numel() * 4 + m_k.numel() * 4
-        flops = 2 * B * Hkv * rep * S * D
         rows["fier_retrieve"].append(dict(
             shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"],
-            library_ms=t["library"], bytes=nbytes, flops=flops, max_abs_err=tau_err,
+            library_ms=t["library"], max_abs_err=tau_err,
+            **retrieval_work(q, lengths, S, BUDGET),
         ))
 
         # ---- K2 against its plain version, on K1's selection
@@ -284,25 +289,134 @@ def check_kernels(torch, timer, shapes):
     return finish_rows(rows)
 
 
+def retrieval_work(q, lengths, S, budget, table=None):
+    """Bytes and operations of one K1/K3 call: q, lengths (and the table),
+    the outputs, and the side-car of the positions below each row's length
+    (the kernel reads no chunk past it); ``bytes_full``: the side-car of
+    whole rows.  Operations: 2·rep·D per valid token and kv head."""
+    B, Hkv, rep, D = q.shape
+    lens = [int(x) for x in lengths.tolist()]
+    side = lambda n: Hkv * D * (-(-n // 8) + 4 * -(-n // GROUP))  # codes + bf16 scale/zero
+    fixed = q.numel() * 2 + B * 4 + B * Hkv * (budget + 2) * 4
+    fixed += 0 if table is None else table.numel() * 4
+    return dict(bytes=fixed + sum(side(n) for n in lens), bytes_full=fixed + B * side(S),
+                flops=2 * Hkv * rep * D * sum(lens))
+
+
+def long_inputs(torch, B, Hkv, rep, D, S, seed):
+    """q and the quantized keys of a long row, made on the card from a seeded
+    ``torch.Generator`` (numpy at this size would cost GBs of host memory);
+    K only, no V."""
+    from repro_torch.core.quantize import quantize
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ch = torch.randn(D, generator=gen, device=DEVICE).exp()  # per-channel spread
+    K = (torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE) * ch).to(torch.bfloat16)
+    q = torch.randn((B, Hkv, rep, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    qk = quantize(K, GROUP)
+    del K
+    return q, qk
+
+
+# long and ragged rows: name, (B, Hkv, rep, S), budget, lengths
+LONG_ROWS = (
+    ("long_500k", (1, 16, 1, 524288), 4096, (524288,)),  # configs/base.py long_500k
+    ("ragged_8160", (4, 16, 1, 8160), BUDGET, (8160, 5003, 2100, 700)),  # S % (C·32) != 0
+)
+
+
+def check_long_rows(torch, timer):
+    """K1 and K3 beyond one CTA's shared memory and on a ragged split: K1
+    against its plain version within ε, K3 bitwise K1 on a permuted pool
+    with a null-block hole, and each timed in turns with its plain version
+    and ``torch.topk``.  Returns {kernel: {row name: row}}."""
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels.check import selection_agrees
+
+    out = {"fier_retrieve": {}, "fier_retrieve_paged": {}}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (B, Hkv, rep, S), budget, lens in LONG_ROWS:
+        D = 128
+        q, qk = long_inputs(torch, B, Hkv, rep, D, S, seed=S)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        sel = dict(group=GROUP, group_reduce="max", sink=SINK, recent=RECENT)
+        args = (q, qk.codes, qk.scale, qk.zero, lengths, budget)
+        idx1, tau1, m1 = fr.fier_retrieve(*args, **sel)
+        idx_p, tau_p, m_p = fr.fier_retrieve_plain(*args, **sel)
+        torch.cuda.synchronize()
+        s = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+        kv_rows = fr.masked_kv(s, lengths, SINK, RECENT, "max").reshape(B * Hkv, S)
+        del s
+        amax = (qk.scale.float().abs() + qk.zero.float().abs()).amax()
+        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        ok, ndiff = selection_agrees(
+            idx1.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1), tau1.reshape(-1),
+            tau_p.reshape(-1), m1.reshape(-1), m_p.reshape(-1), kv_rows, eps,
+        )
+        tau_err = float(torch.where(tau1 == tau_p, torch.zeros_like(tau1),
+                                    (tau1 - tau_p).abs()).max())
+        if not ok:
+            raise AssertionError(f"K1 disagrees with its plain version on {name}: {ndiff} "
+                                 f"differing indices, eps {eps:.3g}")
+        del idx_p, tau_p, m_p
+        plan = fr.retrieval_plan(S, B * Hkv, n_sm)
+        log(f"  K1 {name} B={B} Hkv={Hkv} S={S} lengths {lens} ({plan}): index sets agree "
+            f"({ndiff} near-tau swaps, eps {eps:.3g}), tau err {tau_err:.3g}")
+
+        pools, table, _, _, sqk = paged_inputs(torch, q, None, None, qk, lengths, BLOCK_SIZE,
+                                               spare=64, seed=S)
+        kargs = (q, pools["codes"], pools["scale"], pools["zero"], lengths, budget)
+        idx3, tau3, m3 = fr.fier_retrieve(*kargs, block_table=table, **sel)
+        idx1, tau1, m1 = fr.fier_retrieve(q, sqk.codes, sqk.scale, sqk.zero, lengths, budget, **sel)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx3, idx1) and torch.equal(tau3, tau1) and torch.equal(m3, m1)):
+            raise AssertionError(f"K3 differs from K1 on the gathered slab on {name}")
+        log(f"  K3 {name}: idx, tau, m bitwise equal to K1 on the gathered slab "
+            f"({fr.retrieval_plan(S, B * Hkv, n_sm, BLOCK_SIZE)})")
+        del sqk
+        topk = lambda: torch.topk(kv_rows, budget, dim=-1)
+        t1 = in_turns(timer, lambda: fr.fier_retrieve_plain(*args, **sel),
+                      lambda: fr.fier_retrieve(*args, **sel), topk)
+        ptable = dict(sel, block_table=table)
+        t3 = in_turns(
+            timer,
+            lambda: fr.fier_retrieve_paged_plain(
+                q, pools["codes"], pools["scale"], pools["zero"], table, lengths, budget, **sel),
+            lambda: fr.fier_retrieve(*kargs, **ptable), topk,
+        )
+        for kname, t, tab in (("fier_retrieve", t1, None), ("fier_retrieve_paged", t3, table)):
+            out[kname][name] = dict(
+                shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"],
+                library_ms=t["library"], max_abs_err=tau_err,
+                **retrieval_work(q, lengths, S, budget, tab),
+            )
+        del q, qk, pools, table, kv_rows
+        torch.cuda.empty_cache()
+    for kname, rs in out.items():
+        finish_rows({f"{kname} {n}": [r] for n, r in rs.items()})
+    return out
+
+
 def paged_inputs(torch, q, K, V, qk, lengths, bs, spare, seed):
     """The slab's blocks scattered into a random permutation of pool blocks
-    (with ``spare`` unused blocks), and one table entry of row 1 inside its
-    length pointed at the null block 0, which holds non-zero data.  Returns
-    the pools, the table and the logical slabs the table gathers (what K1
-    and K2 see)."""
+    (with ``spare`` unused blocks), and one table entry of row 1 (row 0 when
+    B = 1) inside its length pointed at the null block 0, which holds
+    non-zero data.  Returns the pools, the table and the logical slabs the
+    table gathers (what K1 and K2 see); K and V None: the side-car only."""
     import numpy as np
 
     from repro_torch.core.quantize import QuantizedKeys
     from repro_torch.kvcache.paged import gather_block_rows
 
-    B, S = K.shape[:2]
+    B, S = qk.codes.shape[0], qk.codes.shape[1] * 8
     nb = S // bs
     N = 1 + B * nb + spare
     rng = np.random.default_rng(seed)
     perm = 1 + rng.permutation(N - 1)[: B * nb]
     table = torch.from_numpy(perm.reshape(B, nb).astype(np.int32)).to(q.device)
-    hole = int(lengths[1]) // bs // 2  # a block well inside row 1's length
-    table[1, hole] = 0
+    r = min(1, B - 1)
+    hole = int(lengths[r]) // bs // 2  # a block well inside the row's length
+    table[r, hole] = 0
 
     def to_pool(a, fill):
         pb = a.shape[1] // nb
@@ -314,14 +428,16 @@ def paged_inputs(torch, q, K, V, qk, lengths, bs, spare, seed):
         return pool
 
     noise = lambda t: torch.randn(t.shape, device=t.device).to(t.dtype)
-    pools = dict(
-        k=to_pool(K, noise), v=to_pool(V, noise),
+    pools = {} if K is None else dict(k=to_pool(K, noise), v=to_pool(V, noise))
+    pools.update(
         codes=to_pool(qk.codes, lambda t: torch.randint_like(t, 1, 256)),
         scale=to_pool(qk.scale, lambda t: noise(t).abs() + 0.5),
         zero=to_pool(qk.zero, noise),
     )
     g = lambda a: gather_block_rows(a, table)
     slab_qk = QuantizedKeys(g(pools["codes"]), g(pools["scale"]), g(pools["zero"]), qk.group)
+    if K is None:
+        return pools, table, None, None, slab_qk
     return pools, table, g(pools["k"]), g(pools["v"]), slab_qk
 
 
@@ -381,13 +497,10 @@ def check_paged_kernels(torch, timer, shapes):
             lambda: fr.fier_retrieve(*kargs, **ksel),
             lambda: torch.topk(kv_rows, BUDGET, dim=-1),
         )
-        nbytes = sum(a.numel() * a.element_size() for a in (q, sqk.codes, sqk.scale, sqk.zero))
-        nbytes += table.numel() * 4 + lengths.numel() * 4
-        nbytes += idx3.numel() * 4 + tau3.numel() * 4 + m3.numel() * 4
         rows["fier_retrieve_paged"].append(dict(
             shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"],
-            library_ms=t["library"], bytes=nbytes, flops=2 * B * Hkv * rep * S * D,
-            max_abs_err=tau_err,
+            library_ms=t["library"], max_abs_err=tau_err,
+            **retrieval_work(q, lengths, S, BUDGET, table),
         ))
 
         # ---- K4: bitwise K2 on the gathered slab, and its plain version
@@ -604,6 +717,8 @@ def finish_rows(rows):
     for name, rs in rows.items():
         for r in rs:
             r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S, r["flops"] / F32_FLOPS)
+            if "bytes_full" in r:  # K1/K3: whole rows read, as before the length skip
+                r["bound_full_ms"] = 1e3 * r["bytes_full"] / HBM_BYTES_PER_S
             r["bound_by"] = (
                 "bytes" if r["bytes"] / HBM_BYTES_PER_S >= r["flops"] / F32_FLOPS
                 else "operations"
@@ -1433,6 +1548,8 @@ def main() -> int:
     ]
     rows = check_kernels(torch, timer, shapes)
     rows.update(check_paged_kernels(torch, timer, shapes))
+    log("[kernels] K1/K3 on long and ragged rows")
+    long_rows = check_long_rows(torch, timer)
     log("[kernels] K5-K8 and two_pass vs one_pass")
     rows.update(check_unfused_kernels(torch, timer, shapes))
     del timer
@@ -1491,12 +1608,18 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1], "launches": counts[name],
-            "max_abs_err": max([x["max_abs_err"] for x in rs] + [engine_err.get(name, 0.0)]),
+            "max_abs_err": max([x["max_abs_err"] for x in rs] + [engine_err.get(name, 0.0)]
+                               + [x["max_abs_err"] for x in long_rows.get(name, {}).values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "check": "pass",
             "gqa_ms": rs[1]["ms"], "gqa_bound_ms": rs[1]["bound_ms"],
             "launches_run": launch_runs[name],
         }
+        if "bound_full_ms" in r:
+            row["bound_full_ms"] = r["bound_full_ms"]
+        for lname, lr in long_rows.get(name, {}).items():
+            row[lname] = {k: lr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by", "max_abs_err")}
         if name in PAGED_KERNELS:
             # launches above: the serving run (phase 5); the paged-vs-slab run too
             row["launches_paged_vs_slab"] = counts_p4[name]

@@ -2,11 +2,18 @@
 //   * the warp that scores 32 consecutive tokens from the packed 1-bit
 //     side-car (K1/K3 in fier_retrieve.cu, K6 in fier_score.cu), so the
 //     two-pass score scan writes exactly the per-token scores the one-pass
-//     retrieval kernel keeps in registers;
+//     retrieval kernel keeps on chip;
 //   * the monotone uint32 score keys and the radix-256 threshold search
-//     (K1/K3 over shared-memory keys, K7 in fier_topk.cu over a score row in
-//     device memory), so both find the same tau and m.
-// Every helper here is the code K1 ran before it was shared, unchanged.
+//     (K1/K3 over a row split across a thread-block cluster, K7 in
+//     fier_topk.cu over a score row in device memory), so both find the same
+//     tau and m.
+// The scoring warp keeps no array in local memory: a chunk is held in
+// registers as its raw loads (Chunk: code words and bf16 scale/zero), each
+// lane looks its 32 partial sums up in a 16-entry shared-memory table of its
+// channels' sums, and the reduce-scatter is unrolled at compile time.  The
+// arithmetic, and the order of every f32 sum, are those of the first K1
+// (a select-and-add per token and channel), so scores and selections are
+// the same bit for bit.
 
 #pragma once
 
@@ -16,6 +23,7 @@
 namespace fier {
 
 constexpr int kRadix = 256;
+constexpr int kPasses = 4;       // radix-256 digits of a uint32 key
 constexpr int kMaxRep = 8;
 constexpr int kD = 128;          // d_head: the only one a model of the port has
 constexpr int kDPL = kD / 32;    // channels per lane
@@ -39,49 +47,23 @@ __device__ __forceinline__ float unsortable(uint32_t key) {
   return __uint_as_float(u);
 }
 
-// The kDPL = 4 code bytes of one byte-row owned by a lane, as one word.
-__device__ __forceinline__ uint32_t load_code_bytes(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// kDPL = 4 bf16 values as f32.
-__device__ __forceinline__ void load_bf16x4(const __nv_bfloat16* p, float (&out)[kDPL]) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  out[0] = bf16_bits_to_float(w.x & 0xFFFFu);
-  out[1] = bf16_bits_to_float(w.x >> 16);
-  out[2] = bf16_bits_to_float(w.y & 0xFFFFu);
-  out[3] = bf16_bits_to_float(w.y >> 16);
-}
-
-// 32 partial sums per lane -> lane l holds the warp-wide sum of entry l.
-__device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) {
-    const bool upper = (lane & o) != 0;
-#pragma unroll
-    for (int i = 0; i < o; ++i) {
-      const float send = upper ? v[i] : v[i + o];
-      const float keep = upper ? v[i + o] : v[i];
-      v[i] = keep + __shfl_xor_sync(kFull, send, o);
-    }
-  }
-  return v[0];
-}
-
-// One 32-token chunk (4 byte-rows) as lane l holds it: the code bytes of its
-// kDPL channels and the two possible dequantized keys bf16(z + s) and
-// bf16(z - s) of each, exactly the score_block expression.
+// One 32-token chunk (4 byte-rows) as lane l loaded it: the code bytes of
+// its kDPL = 4 channels per byte-row (one word each) and the bf16 scale and
+// zero of the groups (4 bf16 values per uint2).  kGroups = 1 when the group
+// spans the whole chunk (group % 32 == 0), else 4: one entry per byte-row.
+template <int kGroups>
 struct Chunk {
   uint32_t word[4];
-  float hi[4][kDPL], lo[4][kDPL];
+  uint2 sc[kGroups], zr[kGroups];
 };
 
 // Load chunk c.  codes_h/scale_h/zero_h point at this lane's channels of the
-// (batch, kv-head) row; code_row(i) / group_row(grp) give the seq row (in
-// units of row_stride elements) of byte-row i and of group grp: the address
-// policy (slab or paged) is the caller's.  Byte-rows past S8 load as zeros.
-template <class CodeRow, class GroupRow>
-__device__ __forceinline__ void load_chunk(Chunk& ch, int c, int S8, int group,
+// (batch, kv-head) row; code_row(i) / group_row(t) give the seq row (in
+// units of row_stride elements) of byte-row i and of the group holding token
+// t: the address policy (slab or paged) is the caller's.  Byte-rows past S8
+// load as zeros.
+template <int kGroups, class CodeRow, class GroupRow>
+__device__ __forceinline__ void load_chunk(Chunk<kGroups>& ch, int c, int S8,
                                            const uint8_t* codes_h,
                                            const __nv_bfloat16* scale_h,
                                            const __nv_bfloat16* zero_h, size_t row_stride,
@@ -90,93 +72,192 @@ __device__ __forceinline__ void load_chunk(Chunk& ch, int c, int S8, int group,
   for (int j = 0; j < 4; ++j) {
     const int i = c * 4 + j;  // byte-row: tokens 8i .. 8i+7
     if (i < S8) {
-      const int grp = (i * 8) / group;
-      ch.word[j] = load_code_bytes(codes_h + code_row(i) * row_stride);
-      const size_t gr = group_row(grp) * row_stride;
-      float sc[kDPL], zr[kDPL];
-      load_bf16x4(scale_h + gr, sc);
-      load_bf16x4(zero_h + gr, zr);
-#pragma unroll
-      for (int k = 0; k < kDPL; ++k) {
-        ch.hi[j][k] = round_bf16(zr[k] + sc[k]);  // bf16(+1 * s + z)
-        ch.lo[j][k] = round_bf16(zr[k] - sc[k]);  // bf16(-1 * s + z)
+      ch.word[j] = *reinterpret_cast<const uint32_t*>(codes_h + code_row(i) * row_stride);
+      if (j < kGroups) {
+        const size_t gr = group_row(i * 8) * row_stride;
+        ch.sc[j] = *reinterpret_cast<const uint2*>(scale_h + gr);
+        ch.zr[j] = *reinterpret_cast<const uint2*>(zero_h + gr);
       }
     } else {
       ch.word[j] = 0;
-#pragma unroll
-      for (int k = 0; k < kDPL; ++k) ch.hi[j][k] = ch.lo[j][k] = 0.0f;
+      if (j < kGroups) ch.sc[j] = ch.zr[j] = make_uint2(0u, 0u);
     }
   }
 }
+
+// One step of the butterfly: lanes that differ in bit O trade halves.
+template <int O>
+__device__ __forceinline__ void reduce_step(float (&v)[32], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? v[i] : v[i + O];
+    const float keep = upper ? v[i + O] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, O);
+  }
+}
+
+// The same step when every lane keeps entries [0, O) and sends [O, 2O): the
+// entries of a lane whose bit O is set were stored swapped in advance.
+template <int O>
+__device__ __forceinline__ void reduce_step_swapped(float (&v)[32]) {
+#pragma unroll
+  for (int i = 0; i < O; ++i) v[i] = v[i] + __shfl_xor_sync(kFull, v[i + O], O);
+}
+
+// The 4 (channel) x 8 (token) code bits of one byte-row word -> the channel
+// nibble of token b: bit k of the result is bit b of byte k.
+__device__ __forceinline__ uint32_t token_nibble(uint32_t word, int b) {
+  const uint32_t x = (word >> b) & 0x01010101u;  // bit b of each byte at 8k
+  return (x * 0x10204080u) >> 28;                // bit 8k -> bit 28 + k, no carries
+}
+
+// Scratch a warp's score_chunk needs in shared memory: 16 sums per lane.
+constexpr int kTableFloats = 16 * 32;
 
 // The f32 score q_r . a of token 32c + lane for one query head q_r [kD] (f32
-// holding bf16 values).  Lane l accumulates its channels' products for all 32
-// tokens (each bf16 x bf16 product is exact in f32, so picking the
-// precomputed product by the sign bit is the same arithmetic), and a
-// butterfly reduce-scatter leaves lane l with token l's sum.
-__device__ __forceinline__ float score_chunk(const Chunk& ch, const float* q_r, int lane) {
+// holding bf16 values), a = bf16(+-s + z) as score_block forms it.  Lane l
+// owns channels 4l .. 4l+3 and, for each of the 32 tokens, sums their exact
+// products (bf16 x bf16 in f32) in channel order starting from 0:
+// (((0 + c0) + c1) + c2) + c3 with c_k = q_k * (bit ? hi_k : lo_k).  The sum
+// depends on the token only through its 4 code bits, so the lane forms the
+// 16 possible sums once per group (`tab`, this warp's kTableFloats of shared
+// memory, laid out [nibble][lane]) and looks each token's up.  A butterfly
+// reduce-scatter then leaves lane l with token l's sum; lanes whose bit 4
+// or 3 is set hold their byte-rows in swapped order, so the first two steps
+// need no select.  The arithmetic, and the order of every f32 sum, are those
+// of the plain select-and-add loop over channels the first K1 ran.
+template <int kGroups>
+__device__ __forceinline__ float score_chunk(const Chunk<kGroups>& ch, const float* q_r, int lane,
+                                             float* tab) {
+  float qv[kDPL];
+#pragma unroll
+  for (int k = 0; k < kDPL; ++k) qv[k] = q_r[lane * kDPL + k];
+  float* tl = tab + lane;
+  const int sw = (lane >> 3) & 3;  // entry block jj holds byte-row jj ^ sw
   float acc[32];
 #pragma unroll
-  for (int t = 0; t < 32; ++t) acc[t] = 0.0f;
+  for (int jj = 0; jj < 4; ++jj) {
+    const int j = jj ^ sw;
+    if (jj < kGroups) {  // the sums of byte-row j's group
+      uint2 s = ch.sc[0], z = ch.zr[0];
+      if (kGroups > 1) {
 #pragma unroll
-  for (int k = 0; k < kDPL; ++k) {
-    const float qv = q_r[lane * kDPL + k];
+        for (int g = 1; g < kGroups; ++g)
+          if (j == g) s = ch.sc[g], z = ch.zr[g];
+      }
+      const float sc[kDPL] = {bf16_bits_to_float(s.x & 0xFFFFu), bf16_bits_to_float(s.x >> 16),
+                              bf16_bits_to_float(s.y & 0xFFFFu), bf16_bits_to_float(s.y >> 16)};
+      const float zr[kDPL] = {bf16_bits_to_float(z.x & 0xFFFFu), bf16_bits_to_float(z.x >> 16),
+                              bf16_bits_to_float(z.y & 0xFFFFu), bf16_bits_to_float(z.y >> 16)};
+      float t[16];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float ph = qv * ch.hi[j][k];  // exact: bf16 x bf16 in f32
-      const float pl = qv * ch.lo[j][k];
-      const uint32_t byte = (ch.word[j] >> (8 * k)) & 0xFFu;
+      for (int k = 0; k < kDPL; ++k) {
+        const float ph = qv[k] * round_bf16(zr[k] + sc[k]);  // bf16(+1 * s + z): exact product
+        const float pl = qv[k] * round_bf16(zr[k] - sc[k]);  // bf16(-1 * s + z)
+        if (k == 0) {
+          t[0] = 0.0f + pl;
+          t[1] = 0.0f + ph;
+        } else {
 #pragma unroll
-      for (int t = 0; t < 8; ++t) acc[8 * j + t] += ((byte >> t) & 1u) ? ph : pl;
+          for (int n = 0; n < 8; ++n) {
+            if (n < (1 << k)) {
+              t[n | (1 << k)] = t[n] + ph;
+              t[n] = t[n] + pl;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 16; ++n) tl[n * 32] = t[n];
     }
+    uint32_t w = ch.word[0];
+#pragma unroll
+    for (int g = 1; g < 4; ++g)
+      if (j == g) w = ch.word[g];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[8 * jj + b] = tl[token_nibble(w, b) * 32];
   }
-  return reduce_scatter32(acc, lane);
+  reduce_step_swapped<16>(acc);
+  reduce_step_swapped<8>(acc);
+  reduce_step<4>(acc, lane);
+  reduce_step<2>(acc, lane);
+  reduce_step<1>(acc, lane);
+  return acc[0];
 }
 
-// tau (as a key) and m = |{ key > tau }| of the budget-th largest of the S
-// keys key_at(0 .. S-1), by 4 radix-256 passes with warp-aggregated
-// shared-memory histograms (__match_any_sync).  Every thread of the
-// kThreads-thread block calls it and gets the result; hist [kRadix] and
-// sel [2] are shared scratch.
-template <int kThreads, class KeyAt>
-__device__ __forceinline__ void radix_select(KeyAt key_at, int S, int budget, int* hist, int* sel,
-                                             uint32_t& tau_key, int& m) {
+// Add the keys of one warp (one per lane, `in` false: not a key) to the
+// histogram h of digit (key >> shift) & 0xFF over the keys whose digits
+// above it equal prefix's (himask).  Pass 0 (shift 24), where most of a
+// warp's keys share a digit, takes one atomic per distinct digit
+// (__match_any_sync); later passes, whose few keys spread over many
+// digits, one atomic per key.
+__device__ __forceinline__ void count_digit(int* h, uint32_t key, bool in, uint32_t himask,
+                                            uint32_t prefix, int shift, int lane) {
+  const int digit = (in && (key & himask) == prefix) ? (int)((key >> shift) & 0xFF) : kRadix;
+  if (shift == 24) {
+    const unsigned peers = __match_any_sync(kFull, digit);
+    if (digit < kRadix && lane == __ffs(peers) - 1) atomicAdd(&h[digit], __popc(peers));
+  } else if (digit < kRadix) {
+    atomicAdd(&h[digit], 1);
+  }
+}
+
+// tau (as a key) and m = |{ key > tau }| of the budget-th largest of the
+// keys key_at(0 .. n-1) and of those of the blocks that share the search,
+// by 4 radix-256 passes with warp-aggregated shared-memory histograms
+// (__match_any_sync).  Every thread of the kThreads-thread block calls it.
+// Pass p counts into hist + p * kRadix (shared, [kPasses][kRadix], zeroed by
+// the caller before a __syncthreads, never rewritten after the pass; with
+// first_counted the caller has already counted pass 0 there), then
+// total(p, hist_p) returns the histogram of the whole row (shared memory
+// every thread can read, valid after a __syncthreads): the pass's own for
+// one block, the sum over a cluster's blocks for a split row.  sel [2] is
+// shared scratch.
+template <int kThreads, class KeyAt, class Total>
+__device__ __forceinline__ void radix_select(KeyAt key_at, int n, int budget, int* hist, int* sel,
+                                             Total total, bool first_counted, uint32_t& tau_key,
+                                             int& m) {
+  constexpr int kUnroll = 4;  // independent keys in flight per thread
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   uint32_t prefix = 0;
   int remaining = budget;
   int greater = 0;
-  for (int p = 0; p < 4; ++p) {
+  for (int p = 0; p < kPasses; ++p) {
     const int shift = 24 - 8 * p;
     const uint32_t himask = p == 0 ? 0u : (0xFFFFFFFFu << (32 - 8 * p));
-    for (int i = tid; i < kRadix; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    for (int base = 0; base < S; base += kThreads) {
-      const int pos = base + tid;
-      int digit = kRadix;  // sentinel: not taking part
-      if (pos < S) {
-        const uint32_t key = key_at(pos);
-        if ((key & himask) == prefix) digit = (key >> shift) & 0xFF;
+    int* h = hist + p * kRadix;
+    if (p > 0 || !first_counted) {
+      for (int base = 0; base < n; base += kThreads * kUnroll) {
+        uint32_t key[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int pos = base + u * kThreads + tid;
+          key[u] = pos < n ? key_at(pos) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+          count_digit(h, key[u], base + u * kThreads + tid < n, himask, prefix, shift, lane);
       }
-      const unsigned peers = __match_any_sync(kFull, digit);
-      if (digit < kRadix && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
+      __syncthreads();
     }
-    __syncthreads();
+    const int* t = total(p, h);
     if (warp == 0) {
       // lane owns buckets 8*lane .. 8*lane+7; ge[j] = count(digit >= j)
       int v[8];
       int tot = 0;
 #pragma unroll
       for (int k = 7; k >= 0; --k) {
-        tot += hist[lane * 8 + k];
+        tot += t[lane * 8 + k];
         v[k] = tot;
       }
       int incl = tot;  // sum over lanes >= lane
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const int n = __shfl_down_sync(kFull, incl, o);
-        if (lane + o < 32) incl += n;
+        const int nb = __shfl_down_sync(kFull, incl, o);
+        if (lane + o < 32) incl += nb;
       }
       const int excl = incl - tot;  // buckets above this lane's
 #pragma unroll
@@ -189,13 +270,14 @@ __device__ __forceinline__ void radix_select(KeyAt key_at, int S, int budget, in
         }
       }
     }
+    // sel is rewritten only after the next pass's histogram barrier, which
+    // every thread reaches after reading it here
     __syncthreads();
     const int jstar = sel[0];
     const int above = sel[1];
     prefix |= (uint32_t)jstar << shift;
     remaining -= above;
     greater += above;
-    __syncthreads();
   }
   tau_key = prefix;
   m = greater;

@@ -35,6 +35,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlockTokens = 512;
 constexpr int kBlockChunks = kBlockTokens / 32;
 
+template <int kGroups>  // Chunk<kGroups>: 1 when group % 32 == 0, else 4
 __global__ void __launch_bounds__(kThreads)
 fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
                   const uint8_t* __restrict__ codes,        // [B, S/8, Hkv, D]
@@ -44,6 +45,7 @@ fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
                   int S, int Hkv, int rep, int group) {
   constexpr int D = kD;
   __shared__ float q_s[kMaxRep * kD];
+  __shared__ float tabs[kWarps * kTableFloats];  // score_chunk's sums, per warp
 
   const int row = blockIdx.x;  // b * Hkv + h
   const int b = row / Hkv;
@@ -58,7 +60,7 @@ fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
   __syncthreads();
 
   auto code_row = [&](int i) -> size_t { return (size_t)b * S8 + i; };
-  auto group_row = [&](int grp) -> size_t { return (size_t)b * (S / group) + grp; };
+  auto group_row = [&](int t) -> size_t { return (size_t)b * (S / group) + t / group; };
   const size_t row_stride = (size_t)Hkv * D;
   const size_t lane_off = (size_t)h * D + lane * kDPL;
   float* out_row = out + (size_t)row * rep * S;
@@ -67,12 +69,12 @@ fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
   const int c0 = blockIdx.y * kBlockChunks;
   const int c1 = min(n_chunks, c0 + kBlockChunks);
   for (int c = c0 + warp; c < c1; c += kWarps) {  // warp-uniform trip count
-    Chunk ch;
-    load_chunk(ch, c, S8, group, codes + lane_off, scale + lane_off, zero + lane_off,
+    Chunk<kGroups> ch;
+    load_chunk(ch, c, S8, codes + lane_off, scale + lane_off, zero + lane_off,
                row_stride, code_row, group_row);
     const int pos = c * 32 + lane;
     for (int r = 0; r < rep; ++r) {
-      const float s = score_chunk(ch, q_s + r * D, lane);
+      const float s = score_chunk(ch, q_s + r * D, lane, tabs + warp * kTableFloats);
       if (pos < S) out_row[(size_t)r * S + pos] = s;
     }
   }
@@ -86,7 +88,8 @@ extern "C" int fier_score_launch(const void* q, const void* codes, const void* s
   if (rep < 1 || rep > kMaxRep || D != kD || group <= 0 || group % 8 || S % group)
     return (int)cudaErrorInvalidValue;
   dim3 grid(B * Hkv, (S + kBlockTokens - 1) / kBlockTokens);
-  fier_score_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = group % 32 == 0 ? &fier_score_kernel<1> : &fier_score_kernel<4>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(codes),
       static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(zero),
       static_cast<float*>(out), S, Hkv, rep, group);

@@ -36,13 +36,17 @@ topk_threshold_kernel(const float* __restrict__ scores,  // [BH, S]
                       float* __restrict__ tau_out,       // [BH]
                       int* __restrict__ m_out,           // [BH]
                       int S, int budget) {
-  __shared__ int hist[kRadix];
+  __shared__ int hist[kPasses * kRadix];
   __shared__ int sel[2];
   const float* s = scores + (size_t)blockIdx.x * S;
+  for (int i = threadIdx.x; i < kPasses * kRadix; i += kThreads) hist[i] = 0;
+  __syncthreads();
   uint32_t tau_key;
   int m;
-  radix_select<kThreads>([&](int pos) { return sortable_key(s[pos]); }, S, budget, hist, sel,
-                         tau_key, m);
+  // the block owns its whole row: a pass's histogram is the row's
+  auto own = [](int, const int* h) { return h; };
+  radix_select<kThreads>([&](int pos) { return sortable_key(s[pos]); }, S, budget, hist, sel, own,
+                         false, tau_key, m);
   if (threadIdx.x == 0) {
     tau_out[blockIdx.x] = unsortable(tau_key);
     m_out[blockIdx.x] = m;

@@ -11,8 +11,11 @@ where τ is the budget-th largest key and m the strictly-greater count.
 
 ``fier_retrieve`` reads the seq-major side-car of the cache directly
 (codes [B, S/8, Hkv, D], scale/zero [B, S/g, Hkv, D]) — no head-major copy.
-On a CUDA tensor it launches ``csrc/fier_retrieve.cu`` (scores and keys
-live in registers and shared memory, never in device memory); on a CPU
+On a CUDA tensor it launches ``csrc/fier_retrieve.cu``: each row is split
+over a thread-block cluster as :func:`retrieval_plan` says, and its scores
+and keys live in registers and shared memory — except on the long-row path
+(keys of a row beyond what 8 CTAs' shared memory holds, ~379k tokens), where
+the keys, 4 bytes per token and kv head, go to a device scratch.  On a CPU
 tensor it runs :func:`fier_retrieve_plain`, the same function in plain
 PyTorch.
 
@@ -26,6 +29,8 @@ pool (``gather_block_rows``) and runs K1's.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,16 +45,69 @@ from .topk_select import compact_indices, fier_topk_threshold_plain
 launches = 0  # K1 kernel launches since the last reset (the chip check reads it)
 launches_paged = 0  # K3 kernel launches since the last reset
 
-# shared memory a block may use on sm_90, and what the kernel keeps beside
-# the row's keys (q in f32 for up to 8 query heads × 128 dims, the radix
-# histogram, scan scratch)
+# shared memory a CTA may use on sm_90, and a bound on what the kernel keeps
+# beside its keys (q in f32 for up to 8 query heads × 128 dims, each of 16
+# warps' 16 × 32 scoring sums, one radix histogram per pass and their sum,
+# scan scratch; a static_assert in the .cu holds it to this bound)
 SMEM_LIMIT = 232448
-SMEM_STATIC = 8 * 128 * 4 + 256 * 4 + 256
-MAX_ROW_TOKENS = (SMEM_LIMIT - SMEM_STATIC) // 4
+SMEM_STATIC = 43008
+MAX_CLUSTER = 8  # CTAs per row: the portable cluster size
+# the widest split taken only to fill the SMs: a 512-thread CTA takes a whole
+# SM, and clusters of 8 such CTAs did not all fit one wave (PERF.md)
+FILL_CLUSTER = 4
 # the one d_head the card has checked the kernel at (chip_smoke.py phase 2);
 # a slice that brings another adds it to the .cu and to that phase
 KERNEL_HEAD_DIM = 128
 KERNEL_MAX_REP = 8
+
+
+class RetrievalPlan(NamedTuple):
+    """How the CUDA kernel splits each (batch, kv-head) row."""
+
+    cluster: int  # CTAs per row, one thread-block cluster
+    cta_tokens: int  # tokens of the row each CTA scores (a multiple of 32)
+    smem_keys: bool  # keys in shared memory; False: the long-row path
+    smem_bytes: int  # dynamic shared memory of each CTA
+
+    def ranges(self, S: int) -> list[tuple[int, int]]:
+        """The token range [t0, t1) of each CTA, in rank order."""
+        T = self.cta_tokens
+        return [(min(r * T, S), min((r + 1) * T, S)) for r in range(self.cluster)]
+
+
+def retrieval_plan(S: int, rows: int, n_sm: int, bs: int | None = None) -> RetrievalPlan:
+    """The split of a row of S tokens for ``rows`` = B·Hkv rows on a card of
+    ``n_sm`` SMs (``bs``: the pool's block size, for K3's table range).
+
+    C, the CTAs per row, is the largest power of two (≤ 4) whose grid
+    ``rows·C`` still runs in one wave of one CTA per SM, halved while a CTA
+    would get no token, and doubled (up to 8) while a CTA's keys (4 bytes
+    each) do not fit its shared memory.  Where even 8 CTAs cannot hold a
+    row's keys, the long-row path keeps them in a device scratch
+    [rows, C·cta_tokens] instead."""
+    chunks = -(-S // 32)
+    tokens = lambda c: -(-chunks // c) * 32
+    table = lambda T: 4 * ((T + bs - 1) // bs + 1) if bs else 0
+    fits = lambda c: SMEM_STATIC + 4 * tokens(c) + table(tokens(c)) <= SMEM_LIMIT
+    c = 1
+    while c < FILL_CLUSTER and rows * 2 * c <= n_sm:
+        c *= 2
+    while c > 1 and (c - 1) * tokens(c) >= S:
+        c //= 2
+    while c < MAX_CLUSTER and not fits(c):
+        c *= 2
+    T = tokens(c)
+    smem_keys = fits(c)
+    smem = (4 * T if smem_keys else 0) + table(T)
+    if SMEM_STATIC + smem > SMEM_LIMIT:
+        raise ValueError(f"S={S}: a CTA's {T}-token range needs {smem} bytes of block "
+                         f"table in shared memory, more than {SMEM_LIMIT - SMEM_STATIC}")
+    return RetrievalPlan(c, T, smem_keys, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def masked_kv(
@@ -141,7 +199,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("fier_retrieve").fier_retrieve_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -163,6 +221,9 @@ def fier_retrieve(
     With ``block_table`` int32 [B, n_btab] (entries < N; 0 is the null
     block) the side-car is a pool: codes [N, bs/8, Hkv, D], scale/zero
     [N, bs/g, Hkv, D], S = n_btab · bs, and idx holds logical positions (K3).
+
+    Any S that the shapes admit runs on the card: rows whose keys do not fit
+    8 CTAs' shared memory take the long-row path (:func:`retrieval_plan`).
     """
     global launches, launches_paged
     paged = block_table is not None
@@ -184,14 +245,8 @@ def fier_retrieve(
     if rep > KERNEL_MAX_REP:
         raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query "
                          f"heads per kv head, got {rep}")
-    n_btab = block_table.shape[1] if paged else 0
-    if S + n_btab > MAX_ROW_TOKENS:
-        raise ValueError(
-            f"S={S} tokens: one row's keys and its {n_btab}-entry block table "
-            f"({4 * (S + n_btab)} bytes) do not fit in the {SMEM_LIMIT}-byte shared "
-            f"memory of a block (limit {MAX_ROW_TOKENS} words); the long-row "
-            f"variant that re-scores per sweep is ROADMAP Queue 2 (K1 long rows)"
-        )
+    n_sm = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    plan = retrieval_plan(S, B * Hkv, n_sm, bs if paged else None)
     q = q.to(torch.bfloat16).contiguous()
     codes, scale, zero = codes.contiguous(), scale.contiguous(), zero.contiguous()
     table = block_table.contiguous() if paged else None
@@ -199,12 +254,16 @@ def fier_retrieve(
     idx = torch.empty((B, Hkv, budget), dtype=torch.int32, device=dev)
     tau = torch.empty((B, Hkv), dtype=torch.float32, device=dev)
     m = torch.empty((B, Hkv), dtype=torch.int32, device=dev)
+    keys = None if plan.smem_keys else torch.empty(
+        (B * Hkv, plan.cluster * plan.cta_tokens), dtype=torch.int32, device=dev
+    )
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(
         q.data_ptr(), codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
         table.data_ptr() if paged else None, lengths.data_ptr(), idx.data_ptr(),
         tau.data_ptr(), m.data_ptr(), B, S, bs, Hkv, rep, D, group, budget,
-        int(group_reduce == "sum"), sink, recent, stream,
+        int(group_reduce == "sum"), sink, recent, plan.cluster, plan.cta_tokens,
+        None if keys is None else keys.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"fier_retrieve kernel launch failed: cudaError {err}")

@@ -187,3 +187,61 @@ def test_wrappers_check_shapes():
     K = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="idx"):
         sa.fier_attend_selected(q, K, K, torch.zeros((1, 2, 8), dtype=torch.int64), lens)
+
+
+def _keys_fit(S, C, bs):
+    """Whether a C-CTA split of an S-token row keeps its keys in shared memory."""
+    T = -(-(-(-S // 32)) // C) * 32
+    table = 4 * ((T + bs - 1) // bs + 1) if bs else 0
+    return fr.SMEM_STATIC + 4 * T + table <= fr.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bs", [None, 32, 8])
+@pytest.mark.parametrize("rows", [1, 16, 64])
+@pytest.mark.parametrize("S", [32, 96, 8160, 8192, 65536, 367392, 378880, 378912, 524288])
+def test_retrieval_plan_splits_rows(S, rows, bs):
+    """K1/K3's split of a row over a cluster: the CTAs' token ranges cover
+    [0, S) in rank order without overlap or an empty CTA, each CTA's shared
+    memory fits the 232,448 bytes of sm_90, the grid runs in one wave of
+    one CTA per SM on 132 SMs and fills them as far as a power of two up to
+    4 allows, and the long-row path (keys in device memory) is taken exactly
+    when 8 CTAs cannot hold the row's keys."""
+    plan = fr.retrieval_plan(S, rows, 132, bs)
+    C, T = plan.cluster, plan.cta_tokens
+    assert C in (1, 2, 4, 8) and T % 32 == 0 and C * T >= S
+    ranges = plan.ranges(S)
+    assert ranges[0][0] == 0 and ranges[-1][1] == S
+    assert all(t0 % 32 == 0 and t0 < t1 for t0, t1 in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert fr.SMEM_STATIC + plan.smem_bytes <= 232448
+    assert plan.smem_keys == _keys_fit(S, 8, bs)
+    if plan.smem_keys:
+        assert plan.smem_bytes >= 4 * T
+    if plan.smem_keys and rows * C > 132:  # more than one wave only where memory needs it
+        assert C == 1 or not _keys_fit(S, C // 2, bs)
+    if rows * 2 * C <= 132 and C < fr.FILL_CLUSTER:  # narrower only where wider leaves a CTA empty
+        assert (2 * C - 1) * (-(-(-(-S // 32)) // (2 * C)) * 32) >= S
+
+
+def test_wrapper_takes_rows_beyond_one_block():
+    """Rows longer than one CTA's shared memory (once a ~56k-token limit)
+    pass the wrapper's checks: S = 65,536 runs (here, on the CPU, through
+    the plain version) and plans a shared-memory split; long_500k plans the
+    long-row path."""
+    assert not hasattr(fr, "MAX_ROW_TOKENS")
+    S, D = 65536, 16
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 1, D)).astype(np.float32)).to(torch.bfloat16)
+    codes = torch.from_numpy(rng.integers(0, 256, (1, S // 8, 1, D), dtype=np.uint8))
+    scale = torch.from_numpy(rng.random((1, S // 32, 1, D)).astype(np.float32) + 0.5)
+    zero = torch.from_numpy(rng.standard_normal((1, S // 32, 1, D)).astype(np.float32))
+    scale, zero = scale.to(torch.bfloat16), zero.to(torch.bfloat16)
+    lens = torch.tensor([S - 5], dtype=torch.int32)
+    sel = dict(group=32, sink=4, recent=64)
+    idx, tau, m = fr.fier_retrieve(q, codes, scale, zero, lens, 4096, **sel)
+    want = fr.fier_retrieve_plain(q, codes, scale, zero, lens, 4096, **sel)
+    assert all(torch.equal(a, b) for a, b in zip((idx, tau, m), want))
+    assert tuple(idx.shape) == (1, 1, 4096) and int(idx.max()) < S - 5
+    assert fr.retrieval_plan(S, 64, 132).smem_keys
+    assert fr.retrieval_plan(S, 64, 132, 32).smem_keys
+    assert not fr.retrieval_plan(524288, 16, 132).smem_keys
