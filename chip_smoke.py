@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py                 # the whole check, as described below
     python3 chip_smoke.py --kernels-only  # phases 1-2 only, no result line
+    python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
+        # phase 2 also times K2 built from another source with the earlier
+        # two-launch interface (e.g. from an older commit) in turns with this one
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -36,7 +39,12 @@ result line):
    length ends inside a CTA's range: K1 within ε of its plain version, K3
    bitwise K1 on a permuted pool with a null-block hole, both timed.  K1/K3
    report their bound over the valid rows (no chunk past a row's length is
-   read) and over whole rows.
+   read) and over whole rows.  K2, K4 and K8 then run at every rep the
+   kernel admits (1, 2, 4, 8), at the ladder's budget 512, at budget 1000
+   (no multiple of the plan's 64-slot step) and at budget 8192 (a CTA finds
+   its rows in two chunks): K2 within 1e-4·max|out| of its plain version,
+   two K2 launches on the same inputs equal bit for bit, K4 = K2 and K8 =
+   K2 bit for bit, each timed.
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
@@ -136,7 +144,9 @@ def log(*a):
 
 class Timer:
     """Median device time of a callable, CUDA events around each launch,
-    the L2 cache (50 MB) flushed by a 256 MB write before every launch.
+    the L2 cache (50 MB) flushed by a 256 MB write before every launch
+    (``clean=True``: by a 256 MB read, which leaves no dirty line for the
+    timed work to write back).
     A ~3 ms device spin after the flush lets the host enqueue the timed
     work before the start event fires, so the wrapper's host-side
     overhead (checks, allocation, the ctypes call) is not in the window."""
@@ -145,13 +155,16 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
 
-    def __call__(self, fn, iters: int = 15, warmup: int = 3) -> float:
+    def __call__(self, fn, iters: int = 15, warmup: int = 3, clean: bool = False) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
-            self.flush_buf.zero_()
+            if clean:
+                self.flush_buf.sum()
+            else:
+                self.flush_buf.zero_()
             torch.cuda._sleep(5_000_000)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -259,8 +272,7 @@ def check_kernels(torch, timer, shapes):
             )
         log(f"  K2 B={B} Hkv={Hkv} rep={rep}: max |err| {err:.3g} "
             f"(<= {K2_REL_TOL}·max|out| = {K2_REL_TOL * scale:.3g})")
-        valid = idx_k < lengths[:, None, None]
-        mask = valid[:, :, None, :].expand(B, Hkv, rep, BUDGET)
+        mask = (idx_k < lengths[:, None, None])[:, :, None, :].expand(B, Hkv, rep, BUDGET)
 
         def library():
             from repro_torch.core.retrieval import gather_kv
@@ -276,13 +288,9 @@ def check_kernels(torch, timer, shapes):
             lambda: sa.fier_attend_selected(q, K, V, idx_k, lengths),
             library,
         )
-        n_valid = int(valid.sum())
-        nbytes = 2 * n_valid * D * 2 + idx_k.numel() * 4 + q.numel() * 2
-        nbytes += lengths.numel() * 4 + out_k.numel() * 4
-        flops = 4 * n_valid * rep * D
         rows["fier_attend_selected"].append(dict(
             shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"],
-            library_ms=t["library"], bytes=nbytes, flops=flops, max_abs_err=err,
+            library_ms=t["library"], max_abs_err=err, **attend_work(q, idx_k, lengths),
         ))
         del q, K, V, qk, lengths, s, kv
         torch.cuda.empty_cache()
@@ -522,8 +530,7 @@ def check_paged_kernels(torch, timer, shapes):
                                  f"{K2_REL_TOL} · {scale:.3g}")
         log(f"  K4 B={B} Hkv={Hkv} rep={rep}: bitwise equal to K2 on the gathered slab; "
             f"vs plain max |err| {err:.3g} (<= {K2_REL_TOL * scale:.3g})")
-        valid = idx3 < lengths[:, None, None]
-        mask = valid[:, :, None, :].expand(B, Hkv, rep, BUDGET)
+        mask = (idx3 < lengths[:, None, None])[:, :, None, :].expand(B, Hkv, rep, BUDGET)
         kflat = pools["k"].reshape(-1, Hkv, D)
         vflat = pools["v"].reshape(-1, Hkv, D)
         heads = torch.arange(Hkv, device=q.device)[None, :, None]
@@ -542,13 +549,9 @@ def check_paged_kernels(torch, timer, shapes):
                 q, pools["k"], pools["v"], idx3, lengths, block_table=table),
             library,
         )
-        n_valid = int(valid.sum())
-        nbytes = 2 * n_valid * D * 2 + idx3.numel() * 4 + q.numel() * 2
-        nbytes += lengths.numel() * 4 + table.numel() * 4 + out4.numel() * 4
         rows["fier_attend_selected_paged"].append(dict(
             shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"],
-            library_ms=t["library"], bytes=nbytes, flops=4 * n_valid * rep * D,
-            max_abs_err=err,
+            library_ms=t["library"], max_abs_err=err, **attend_work(q, idx3, lengths, table),
         ))
         del q, pools, Ks, Vs, sqk, s, kv
         torch.cuda.empty_cache()
@@ -702,15 +705,197 @@ def check_unfused_kernels(torch, timer, shapes):
 
         t = in_turns(timer, lambda: sa.fier_attend_gathered_plain(q, ks, vs, mask),
                      lambda: sa.fier_attend_gathered(q, ks, vs, mask), library)
-        n_valid = int(mask.sum())
-        nbytes = 2 * n_valid * D * 2 + mask.numel() + q.numel() * 2 + out8.numel() * 4
         rows["sparse_attention"].append(dict(
             shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
-            bytes=nbytes, flops=4 * n_valid * rep * D, max_abs_err=err,
+            max_abs_err=err, **attend_work(q, idx1, lengths, mask=mask),
         ))
         del q, K, V, qk, lengths, got, want, s_k, s_p, masked, ks, vs, view
         torch.cuda.empty_cache()
     return finish_rows(rows)
+
+
+# K2/K4/K8 beyond the main path's shape: name, (B, Hkv, rep), budget.  Every
+# rep the kernel admits (sparse_attention.KERNEL_REPS), the ladder's budget
+# 512, a budget no multiple of the plan's step (1000), and the budget of a
+# whole row (8192: a CTA's 4096 slots exceed MAX_CHUNK, so it finds its rows
+# in two chunks).
+ATTEND_VARIANTS = (
+    ("serving", (SLOTS, 16, 1), BUDGET),
+    ("budget_512", (SLOTS, 16, 1), 512),
+    ("budget_1000", (SLOTS, 16, 1), 1000),
+    ("budget_8192", (SLOTS, 16, 1), CAPACITY),
+    ("rep2", (SLOTS, 8, 2), BUDGET),
+    ("gqa_rep4", (SLOTS, 4, 4), BUDGET),
+    ("rep8", (SLOTS, 2, 8), BUDGET),
+)
+
+
+def attend_inputs(torch, B, Hkv, rep, D, S, budget, seed):
+    """q, K, V, lengths and a selection for K2, made on the card from a
+    seeded ``torch.Generator``: per (b, h) row ``budget`` distinct positions
+    below max(length, budget), ascending (as K1 returns them, mostly), so a
+    row shorter than the budget has masked slots."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ch = torch.randn(D, generator=gen, device=DEVICE).exp()  # per-channel spread
+    K = (torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE) * ch).to(torch.bfloat16)
+    V = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    q = torch.randn((B, Hkv, rep, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    lens = [S, 5003, 2100, 700][:B]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    rows = []
+    for n in lens:
+        r = torch.rand((Hkv, max(n, budget)), generator=gen, device=DEVICE)
+        rows.append(r.argsort(-1)[:, :budget].sort(-1).values)
+    idx = torch.stack(rows).to(torch.int32)
+    return q, K, V, lengths, idx
+
+
+def attend_work(q, idx, lengths, table=None, mask=None):
+    """Bytes and operations of one K2/K4/K8 call: the valid K and V rows,
+    idx (K8: the mask), q, lengths (K4: the table) and the f32 output."""
+    B, Hkv, rep, D = q.shape
+    valid = (mask != 0) if mask is not None else idx < lengths[:, None, None]
+    n_valid = int(valid.sum())
+    nbytes = 2 * n_valid * D * 2 + q.numel() * 2 + B * Hkv * rep * D * 4
+    nbytes += mask.numel() if mask is not None else idx.numel() * 4 + lengths.numel() * 4
+    nbytes += 0 if table is None else table.numel() * 4
+    return dict(bytes=nbytes, flops=4 * n_valid * rep * D)
+
+
+def baseline_attend(torch, path):
+    """K2 built from another source with the two-launch interface this
+    kernel replaced (a partial pass into f32 scratch buffers, then a
+    combine): ``fier_attend_launch(q, K, V, table, idx, lengths, part_o,
+    part_md, out, B, S, bs, Hkv, rep, D, budget, scale, stream)``.  For
+    timing the two side by side in one run; nothing else calls it."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import build
+
+    src = os.path.abspath(path)
+    digest = hashlib.sha1(open(src, "rb").read()).hexdigest()[:12]
+    lib = build.BUILD_DIR / f"libfier_attend_baseline-{digest}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), src],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the baseline {src}:\n{res.stderr}")
+    fn = ctypes.CDLL(str(lib)).fier_attend_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    tile = 64  # selected rows per block of its partial pass
+
+    def run(q, K, V, idx, lengths):
+        B, Hkv, rep, D = q.shape
+        S, budget = K.shape[1], idx.shape[2]
+        n_tiles = -(-budget // tile)
+        part_o = torch.empty((B * Hkv, n_tiles, rep, D), dtype=torch.float32, device=q.device)
+        part_md = torch.empty((B * Hkv, n_tiles, rep, 2), dtype=torch.float32, device=q.device)
+        out = torch.empty((B, Hkv, rep, D), dtype=torch.float32, device=q.device)
+        q32 = q.to(torch.float32).contiguous()
+        err = fn(q32.data_ptr(), K.data_ptr(), V.data_ptr(), None, idx.data_ptr(),
+                 lengths.data_ptr(), part_o.data_ptr(), part_md.data_ptr(), out.data_ptr(),
+                 B, S, S, Hkv, rep, D, budget, 1.0 / (D ** 0.5),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"baseline K2 launch failed: cudaError {err}")
+        return out
+
+    return run
+
+
+def check_attend_variants(torch, timer, baseline=None):
+    """K2, K4 and K8 at every shape of ATTEND_VARIANTS: K2 within
+    K2_REL_TOL of its plain version, two K2 launches on the same inputs
+    equal bit for bit (the cluster combine runs in a fixed order), K4 on a
+    permuted pool with a null-block hole equal to K2 on the gathered slab
+    bit for bit, K8 on ``gather_kv`` of the selection equal to K2 bit for
+    bit; each timed (L2 flushed).  ``baseline`` (``baseline_attend``):
+    timed in turns with K2 at the serving and GQA shapes, held to the same
+    tolerance.  Returns {variant name: row}."""
+    from repro_torch.core.quantize import quantize
+    from repro_torch.core.retrieval import gather_kv
+    from repro_torch.kernels import sparse_attention as sa
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (B, Hkv, rep), budget in ATTEND_VARIANTS:
+        D, S = 128, CAPACITY
+        q, K, V, lengths, idx = attend_inputs(torch, B, Hkv, rep, D, S, budget, seed=budget + rep)
+        plan = sa.attend_plan(budget, B * Hkv, n_sm, rep)
+        out2 = sa.fier_attend_selected(q, K, V, idx, lengths)
+        again = sa.fier_attend_selected(q, K, V, idx, lengths)
+        want = sa.fier_attend_selected_plain(q, K, V, idx, lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(out2, again):
+            raise AssertionError(f"K2 {name}: two launches on the same inputs differ (max "
+                                 f"{float((out2 - again).abs().max()):.3g})")
+        err = float((out2 - want).abs().max())
+        scale = float(want.abs().max())
+        if not (err <= K2_REL_TOL * scale and torch.isfinite(out2).all()):
+            raise AssertionError(f"K2 {name} disagrees with its plain version: {err:.3g} > "
+                                 f"{K2_REL_TOL} · {scale:.3g}")
+        del want, again
+
+        pools, table, Ks, Vs, _ = paged_inputs(
+            torch, q, K, V, quantize(K, GROUP), lengths, BLOCK_SIZE, spare=64, seed=rep)
+        out4 = sa.fier_attend_selected(q, pools["k"], pools["v"], idx, lengths,
+                                       block_table=table)
+        ref4 = sa.fier_attend_selected(q, Ks, Vs, idx, lengths)
+        ks, vs = gather_kv(K, V, idx)
+        mask = (idx < lengths[:, None, None]).to(torch.int8)
+        out8 = sa.fier_attend_gathered(q, ks, vs, mask)
+        torch.cuda.synchronize()
+        if not torch.equal(out4, ref4):
+            raise AssertionError(f"K4 {name} differs from K2 on the gathered slab: max "
+                                 f"{float((out4 - ref4).abs().max()):.3g}")
+        if not torch.equal(out8, out2):
+            raise AssertionError(f"K8 {name} differs from K2 on gather_kv of its selection: "
+                                 f"max {float((out8 - out2).abs().max()):.3g}")
+        row = dict(shape=(B, Hkv, rep, D, S), budget=budget, cluster=plan.cluster,
+                   max_abs_err=err, **attend_work(q, idx, lengths))
+        row["bound_ms"] = 1e3 * row["bytes"] / HBM_BYTES_PER_S
+        row["ms"] = timer(lambda: sa.fier_attend_selected(q, K, V, idx, lengths))
+        row["k4_ms"] = timer(lambda: sa.fier_attend_selected(
+            q, pools["k"], pools["v"], idx, lengths, block_table=table))
+        row["k8_ms"] = timer(lambda: sa.fier_attend_gathered(q, ks, vs, mask))
+        line = (f"  K2/K4/K8 {name} B={B} Hkv={Hkv} rep={rep} budget={budget} (C={plan.cluster}): "
+                f"two launches equal, K4 = K2 and K8 = K2 bit for bit, vs plain max |err| "
+                f"{err:.3g} (<= {K2_REL_TOL * scale:.3g}); K2 {row['ms']:.4f} K4 "
+                f"{row['k4_ms']:.4f} K8 {row['k8_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+                f"({row['bytes']} B)")
+        if name == "serving":  # what this timer gives a plain read of as many bytes
+            flat = torch.ones(row["bytes"] // 2, dtype=torch.bfloat16, device=DEVICE)
+            row["read_floor_ms"] = timer(lambda: flat.sum())
+            # the same two after a flush that leaves the L2 clean
+            row["read_floor_clean_ms"] = timer(lambda: flat.sum(), clean=True)
+            row["ms_clean"] = timer(lambda: sa.fier_attend_selected(q, K, V, idx, lengths),
+                                    clean=True)
+            line += (f"; x.sum() over {flat.numel() * 2} B: {row['read_floor_ms']:.4f} ms; "
+                     f"after a read flush: K2 {row['ms_clean']:.4f}, x.sum() "
+                     f"{row['read_floor_clean_ms']:.4f} ms")
+            del flat
+        if baseline is not None and name in ("serving", "gqa_rep4"):
+            old = baseline(q, K, V, idx, lengths)
+            torch.cuda.synchronize()
+            old_err = float((old - out2).abs().max())
+            if not old_err <= 2 * K2_REL_TOL * scale:
+                raise AssertionError(f"the baseline K2 disagrees with K2 at {name}: {old_err:.3g}")
+            t = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                fn = (lambda: baseline(q, K, V, idx, lengths)) if which == "old" else (
+                    lambda: sa.fier_attend_selected(q, K, V, idx, lengths))
+                t[which].append(timer(fn))
+            row["baseline_ms"] = sum(t["old"]) / 2
+            row["ms_in_turns"] = sum(t["new"]) / 2
+            line += (f"; in turns with the baseline: baseline {row['baseline_ms']:.4f} ms, "
+                     f"K2 {row['ms_in_turns']:.4f} ms")
+        log(line)
+        out[name] = row
+        del q, K, V, lengths, idx, pools, table, Ks, Vs, ks, vs, mask, out2, out4, out8, ref4
+        torch.cuda.empty_cache()
+    return out
 
 
 def finish_rows(rows):
@@ -1536,7 +1721,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for name, (_, report) in built.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
 
     log("[kernels] each kernel against its plain version")
@@ -1552,6 +1737,11 @@ def main() -> int:
     long_rows = check_long_rows(torch, timer)
     log("[kernels] K5-K8 and two_pass vs one_pass")
     rows.update(check_unfused_kernels(torch, timer, shapes))
+    log("[kernels] K2/K4/K8 at every admitted rep, budgets 512 and 1000, determinism")
+    baseline = None
+    if "--baseline-attend" in sys.argv:
+        baseline = baseline_attend(torch, sys.argv[sys.argv.index("--baseline-attend") + 1])
+    attend_variants = check_attend_variants(torch, timer, baseline)
     del timer
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv:  # a quick build-and-check call; no result line
@@ -1625,6 +1815,17 @@ def main() -> int:
             row["launches_paged_vs_slab"] = counts_p4[name]
         if name == "fier_attend_selected":
             row["launches_two_pass"] = counts_p6[name]
+        if name in ("fier_attend_selected", "fier_attend_selected_paged", "sparse_attention"):
+            ms_key = {"fier_attend_selected": "ms", "fier_attend_selected_paged": "k4_ms",
+                      "sparse_attention": "k8_ms"}[name]
+            row["variants"] = {
+                v: dict(budget=r["budget"], shape=r["shape"], ms=r[ms_key], bound_ms=r["bound_ms"],
+                        cluster=r["cluster"],
+                        **{k: r[k] for k in ("read_floor_ms", "read_floor_clean_ms", "ms_clean",
+                                             "baseline_ms", "ms_in_turns")
+                           if k in r and name == "fier_attend_selected"})
+                for v, r in attend_variants.items()
+            }
         if name == "pack_quantize":
             row["bytes_off_side_car_bf16"] = r["bytes_off_side_car_bf16"]
             row["bytes_off_side_car_f32"] = r["bytes_off_side_car_f32"]

@@ -14,7 +14,7 @@ version, plus their build (``build.py``) and ``CacheView`` entry points
 K3 and K4 are ``fier_retrieve`` / ``fier_attend_selected`` given a
 ``block_table``; each layout keeps its own launch count.  K1, K3 and K6
 share the scoring warp and K1, K3 and K7 the radix search
-(``csrc/fier_common.cuh``); K2, K4 and K8 share their tiles.
+(``csrc/fier_common.cuh``); K2, K4 and K8 share one kernel body and its plan.
 """
 from __future__ import annotations
 

@@ -7,66 +7,105 @@
 // repro/kernels/sparse_attention.py::fused_sparse_attention_hm (pallas_call at
 // :228, body _fused_kernel :133, online softmax _softmax_accumulate :39).  K4
 // replaces paged_fused_sparse_attention_hm (pallas_call at :358, body
-// _paged_fused_kernel :262).
+// _paged_fused_kernel :262).  K8 replaces sparse_attention_hm (pallas_call at
+// :106, body _kernel :64).
 //
-// What bounds it on the card: bytes.  Per (batch, kv-head) it reads the
-// `budget` selected K rows and V rows (2 x budget x D x 2 bytes) straight from
-// the seq-major [B, S, Hkv, D] cache slabs; at the serving shape (B = 4,
-// Hkv = 16, budget = 1024, D = 128) that is 33.6 MB per call, about 10 us at
-// 3.35 TB/s.  The arithmetic (2 x rep x D multiply-adds per row) is far below
-// the card's rate.
+// What bounds it on the card: bytes.  Per (batch, kv-head) row it reads the
+// valid ones of its `budget` selected K rows and V rows (2 x D x 2 bytes
+// each) from the seq-major [B, S, Hkv, D] cache slabs, plus idx, q and the
+// f32 output.  At the serving shape (B = 4, Hkv = 16, budget = 1024, D = 128,
+// lengths 8192/5003/2100/700) that is 31,211,536 B: 0.00932 ms at
+// 3.35 TB/s.  The arithmetic is 2 x rep FLOP per 2 bytes of K (and of V),
+// far below the card's ridge at rep <= 8, so it stays in f32 FMAs: tensor
+// cores would not move the bound.  What the design must do is keep enough
+// scattered 256-byte rows in flight to cover the memory latency.
 //
-// Design.  The (b, h) rows are split into tiles of 64 selected rows so that
-// B x Hkv x budget/64 blocks (1024 at the serving shape) keep every SM busy
-// with loads in flight; the TPU kernel's sequential grid carry becomes a
-// second, small combine kernel:
-//   * attend_partial: a tile's rows are gathered with 16-byte loads (D/8
-//     lanes per row; each row is 2*D contiguous bytes of the slab) — no K'/V'
-//     copy is made.  q.k is accumulated in f32 and scaled by 1/sqrt(D); slots
-//     with idx >= length are masked to -1e30 (and their rows never loaded).
-//     The tile's max m, its denominator sum(exp(s - m)) and its unnormalised
-//     output sum(p v) go to a small f32 scratch (rep x (D + 2) per tile).
-//   * attend_combine: per (b, h, query head) the tiles merge with the usual
-//     rescaling exp(m_j - M), and the output is out / max(den, 1e-30), f32.
-// With one tile (budget <= 64) the arithmetic is the reference's single-block
-// online softmax.
-//
-// K4 differs only where a tile stages its rows (address policy kPaged): the
-// logical index t becomes the pool row table[b, t / bs] * bs + t % bs of the
-// K/V pools [N, bs, Hkv, D] (K2: b * S + t of the slabs); a masked row's
-// table entry is never read.  Tiles, the masked rows never loaded and
-// attend_combine are shared, so on the same logical contents K4's output is
-// K2's bit for bit.  It reads K2's bytes plus one table entry per selected
-// row.
-//
-// K8 replaces the TPU kernel sparse_attention_hm (pallas_call at :106, body
-// _kernel :64): the unfused attend over pre-gathered K'/V' with an int8
-// validity mask.  It is a third address policy (kGathered): row t of (b, h)
-// of k_sel / v_sel [B, budget, Hkv, D] (what gather_kv returns) is read at
-// the element offset b * sb + t * st + h * sh given by the tensors' strides
-// (channels contiguous), so neither the seq-major layout nor gather_kv's
-// transposed head-major view needs a copy, and a slot is valid where
-// mask[b, h, t] != 0.  Tiles and attend_combine are K2's, so
-// K8(gather_kv(K, V, idx), idx < length) equals K2(K, V, idx, length) bit
-// for bit.  It reads the valid gathered rows (K2's bytes) plus one mask
-// byte per slot.
+// Design: one launch per call.
+//   * Each (b, h) row's `budget` slots are split over a thread-block
+//     cluster of C <= 8 CTAs of 256 threads (sparse_attention.attend_plan
+//     picks C from budget, B x Hkv, rep and the SM count, never from the
+//     address policy: one CTA per SM, C = 2 at the serving shape); CTA r
+//     takes slots [r budget / C, (r + 1) budget / C).
+//   * A CTA first finds the row of every slot of its range (up to
+//     kMaxChunk = 2048 slots at a time; one chunk unless its range is
+//     longer): the idx reads are independent and unrolled, so they cost one
+//     memory latency, not one per slot as they would inside the copy loop
+//     (K4: one more for the block-table entries, each read once per slot).
+//     The rows, -1 for a masked slot, sit in shared memory.
+//   * Its 16 row groups of 16 lanes then stream their slots (group g takes
+//     slots g, g + 16, ...) through a ring in shared memory, kBatch = 4 rows
+//     a step and kRing = 3 steps deep: each lane issues cp.async.cg 16-byte
+//     copies of its 8 channels of the K row and the V row, so a CTA keeps up
+//     to 12 rows per group (96 KiB) in flight.  A masked slot (idx >=
+//     length, or mask == 0 for K8) is never read: its copies have source
+//     size 0, which zero-fills the shared row.  A lane reads back only the
+//     bytes it copied itself, so waiting for its own copies is enough and
+//     the steps need no barrier: no group waits for another.
+//   * Per step and group: q . k of 4 rows (q in registers, f32, a xor
+//     butterfly over the 16 lanes, times 1/sqrt(D); masked slots -1e30), an
+//     online softmax per query head (the group's running max, denominator
+//     and accumulators rescaled by exp(m_old - m_new) once per step), then
+//     p . v into the lane's f32 accumulators.  rep is a template parameter
+//     (1, 2, 4, 8), so q and the accumulators take registers for the real
+//     rep only.
+//   * The combine: the CTA merges its 16 groups' (m, den, unnormalised o)
+//     in group order and writes the result into its own slot of rank 0's
+//     shared memory through distributed shared memory (after waiting on a
+//     cluster barrier phase every CTA arrived at when it started).  One
+//     cluster barrier (arrive.release, wait.acquire) makes every slot
+//     visible to rank 0, which merges the slots in rank order and writes
+//     out / max(den, 1e-30); the other ranks exit, since no CTA reads their
+//     shared memory.  No partial result reaches device memory, and every
+//     sum runs in a fixed order, so the output is deterministic.
+// Why groups and not the whole CTA: a CTA-wide step (scores, one warp's
+// softmax, p . v, three barriers) measured 2 us per 32 KiB at rep 1 and
+// 5 us at rep 4, slower than the memory delivers them (PERF.md).
 
+// K4 differs only where a slot's row is found (address policy kPaged): the
+// logical index t becomes the pool row table[b, t / bs] * bs + t % bs of the
+// K/V pools [N, bs, Hkv, D] (a shift and a mask when bs is a power of two;
+// K2: b * S + t of the slabs); a masked slot's table entry is never read.
+// K8 is a third policy (kGathered): row t of (b, h) of k_sel / v_sel
+// [B, budget, Hkv, D] (what gather_kv returns) at the element offset
+// b * sb + t * st + h * sh given by the tensors' strides (channels
+// contiguous), valid where mask[b, h, t] != 0.  The plan, the stages and the
+// arithmetic are shared, so on the same logical contents K4's output and
+// K8's (on gather_kv(K, V, idx) with idx < length) are K2's bit for bit.
+
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;  // selected rows per block
-constexpr int kMaxRep = 8;
-constexpr int kD = 128;         // d_head: the only one a model of the port has
-constexpr int kLPR = kD / 8;    // lanes per row (each lane holds 8 channels = 16 bytes)
+constexpr int kThreads = 256;
+constexpr int kD = 128;              // d_head: the only one a model of the port has
+constexpr int kLPR = kD / 8;         // lanes per row (each lane holds 8 channels = 16 bytes)
+constexpr int kGroups = kThreads / kLPR;  // row groups of 16 lanes
+constexpr int kBatch = 4;            // slots a group takes per step
+constexpr int kRing = 3;             // steps of a group in shared memory
+constexpr int kStep = kGroups * kBatch;   // slots the CTA takes per step
+constexpr int kMaxCluster = 8;
+constexpr int kMaxChunk = 2048;      // slots whose rows a CTA holds at once (4 bytes each)
 constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr float kMasked = -1e30f;    // a masked slot's score, as the reference masks
+// the ring: K rows [kRing][kGroups][kBatch] of kLPR 16-byte chunks, then V rows alike
+constexpr int kRingChunks = kRing * kGroups * kBatch * kLPR;
+constexpr int kRingBytes = 2 * kRingChunks * 16;  // sparse_attention.RING_BYTES
+static_assert(kGroups * 8 * (kD + 2) * 4 <= kRingBytes, "the group merge reuses the ring");
+// dynamic shared memory: the ring, rank 0's receive slots, the chunk's rows
+// (sparse_attention.AttendPlan.smem_bytes)
+template <int kRep>
+constexpr size_t smem_bytes(int C, int chunk) {
+  return kRingBytes + (size_t)C * kRep * (kD + 2) * 4 + (size_t)chunk * 4;
+}
 
-// Where a tile finds its rows (template argument of attend_partial).
+// Where a slot finds its rows (template argument of fier_attend_kernel).
 constexpr int kSlab = 0;      // K2: K/V [B, S, Hkv, D], rows idx[t]
-constexpr int kPaged = 1;     // K4: K/V [N, bs, Hkv, D] through table [B, n_btab]
+constexpr int kPaged = 1;     // K4: K/V [N, bs, Hkv, D] through table [B, S / bs]
 constexpr int kGathered = 2;  // K8: K/V [B, budget, Hkv, D], row t, validity mask[t]
 
 __device__ __forceinline__ void bf16x8_to_float(const uint4& w, float (&out)[8]) {
@@ -78,66 +117,88 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& w, float (&out)[8])
   }
 }
 
-// kAddr = kSlab (K2): K/V [B, S, Hkv, D], table and mask unused.
-// kAddr = kPaged (K4): K/V [N, bs, Hkv, D], table [B, n_btab] with
-// S = n_btab * bs.  kAddr = kGathered (K8): K/V [B, budget, Hkv, D] with
-// element strides (sb, st, sh) (S = budget), mask [B, Hkv, budget]; table,
-// idx and lengths unused.
-template <int kAddr>
-__global__ void __launch_bounds__(kThreads)
-attend_partial(const float* __restrict__ q,              // [B, Hkv, rep, D]
-               const __nv_bfloat16* __restrict__ K,
-               const __nv_bfloat16* __restrict__ V,
-               const int* __restrict__ table,            // [B, n_btab] (K4)
-               const int* __restrict__ idx,              // [B, Hkv, budget] (K2, K4)
-               const int* __restrict__ lengths,          // [B] (K2, K4)
-               const int8_t* __restrict__ mask,          // [B, Hkv, budget] (K8)
-               float* __restrict__ part_o,               // [B*Hkv, n_tiles, rep, D]
-               float* __restrict__ part_md,              // [B*Hkv, n_tiles, rep, 2]
-               int S, int Hkv, int rep, int budget, float scale, int bs,
-               long long sb, long long st, long long sh) {
-  constexpr int D = kD;
-  constexpr int LPR = kLPR;
-  constexpr int kGroups = kThreads / LPR;  // rows in flight per block
-  extern __shared__ float smem[];
-  float* q_s = smem;                  // [rep][D]
-  float* p_s = q_s + rep * D;         // [rep][kTile] scores, then probabilities
-  float* o_s = p_s + rep * kTile;     // [kGroups][rep][D]
-  __shared__ int rows_s[kTile];  // seq row of K/V (units of Hkv*D elements)
-  __shared__ int valid_s[kTile];
-  __shared__ float md_s[kMaxRep][2];
+// 16 bytes global -> shared, bypassing L1; src_bytes = 0 reads nothing and
+// zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
-  const int bh = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int n_tiles = gridDim.y;
+// kAddr = kSlab (K2): K/V [B, S, Hkv, D], table and mask unused.
+// kAddr = kPaged (K4): K/V [N, bs, Hkv, D], table [B, S / bs]; bsh = log2(bs)
+// when bs is a power of two, else -1.  kAddr = kGathered (K8): K/V
+// [B, budget, Hkv, D] with element strides (sb, st, sh), mask
+// [B, Hkv, budget]; table, idx and lengths unused.
+template <int kAddr, int kRep>
+__global__ void __launch_bounds__(kThreads)
+fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D] bf16 or f32
+                   const __nv_bfloat16* __restrict__ K,
+                   const __nv_bfloat16* __restrict__ V,
+                   const int* __restrict__ table,            // [B, S / bs] (K4)
+                   const int* __restrict__ idx,              // [B, Hkv, budget] (K2, K4)
+                   const int* __restrict__ lengths,          // [B] (K2, K4)
+                   const int8_t* __restrict__ mask,          // [B, Hkv, budget] (K8)
+                   float* __restrict__ out,                  // [B, Hkv, rep, D]
+                   int S, int Hkv, int budget, float scale, int bs, int bsh,
+                   long long sb, long long st, long long sh, int chunk, int q_bf16) {
+  constexpr int D = kD;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  uint4* kring = reinterpret_cast<uint4*>(dyn);  // [kRing][kGroups][kBatch][kLPR]
+  uint4* vring = kring + kRingChunks;             // the same for V
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  // rank 0 receives each rank's unnormalised output and (max, denominator)
+  float* recv_o = reinterpret_cast<float*>(dyn + kRingBytes);    // [C][kRep][D]
+  float* recv_md = recv_o + C * kRep * D;                        // [C][kRep][2]
+  int* rows_s = reinterpret_cast<int*>(recv_md + C * kRep * 2);  // [chunk]: row, -1 masked
+  const int rank = (int)cluster.block_rank();
+  const int bh = blockIdx.x / C;  // b * Hkv + h
   const int b = bh / Hkv;
   const int h = bh - b * Hkv;
   const int tid = threadIdx.x;
-  const int gid = tid / LPR;   // row slot within the block
-  const int sl = tid % LPR;    // lane within the row: channels 8*sl .. 8*sl+7
-  const int t0 = tile * kTile;
-  const int nrows = min(kTile, budget - t0);
+  const int gid = tid / kLPR;  // row group
+  const int sl = tid % kLPR;   // lane within the row: channels 8*sl .. 8*sl+7
+  const int s0 = (int)((long long)rank * budget / C);  // this CTA's slots [s0, s1)
+  const int s1 = (int)((long long)(rank + 1) * budget / C);
+  // Every CTA of the cluster must have started before any writes into rank
+  // 0's shared memory: arrive now, wait (long since complete) before the push.
+  cluster_arrive_relaxed();
 
-  for (int i = tid; i < rep * D; i += kThreads) q_s[i] = q[(size_t)bh * rep * D + i];
-  for (int t = tid; t < nrows; t += kThreads) {
-    bool valid;
-    if constexpr (kAddr == kGathered) {
-      valid = mask[(size_t)bh * budget + t0 + t] != 0;
-      rows_s[t] = t0 + t;
+  float qr[kRep][8];  // bf16 q converts exactly; no cast kernel before the launch
+#pragma unroll
+  for (int r = 0; r < kRep; ++r) {
+    const size_t e = ((size_t)bh * kRep + r) * D + sl * 8;
+    if (q_bf16) {
+      bf16x8_to_float(*reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(q) + e),
+                      qr[r]);
     } else {
-      const int r = idx[(size_t)bh * budget + t0 + t];
-      valid = (r < lengths[b]) && (r >= 0) && (r < S);
-      if constexpr (kAddr == kPaged) {
-        rows_s[t] = valid ? table[(size_t)b * (S / bs) + r / bs] * bs + r % bs : 0;
-      } else {
-        rows_s[t] = b * S + r;
-      }
+      const float4* qp = reinterpret_cast<const float4*>(static_cast<const float*>(q) + e);
+      const float4 a = qp[0], z = qp[1];
+      qr[r][0] = a.x; qr[r][1] = a.y; qr[r][2] = a.z; qr[r][3] = a.w;
+      qr[r][4] = z.x; qr[r][5] = z.y; qr[r][6] = z.z; qr[r][7] = z.w;
     }
-    valid_s[t] = valid;
   }
-  __syncthreads();
 
-  // rows_s[t] counts rows of row_elems elements from (b, h)'s head offset
+  // element offset of (b, h)'s channel 0 in a row, and row length in elements
   size_t head_off, row_elems;
   if constexpr (kAddr == kGathered) {
     head_off = (size_t)(b * sb + h * sh);
@@ -146,178 +207,290 @@ attend_partial(const float* __restrict__ q,              // [B, Hkv, rep, D]
     head_off = (size_t)h * D;
     row_elems = (size_t)Hkv * D;
   }
-  const __nv_bfloat16* Kbh = K + head_off + sl * 8;
-  const __nv_bfloat16* Vbh = V + head_off + sl * 8;
+  const int length = kAddr == kGathered ? 0 : lengths[b];
+  const int* trow = kAddr == kPaged ? table + (size_t)b * (S / bs) : nullptr;
 
-  // ---- scores s = (q . k) * scale, masked --------------------------------
-  for (int base = 0; base < nrows; base += kGroups) {  // uniform trip count
-    const int t = base + gid;
-    const bool in = t < nrows;
-    const bool valid = in && valid_s[t];
-    float kf[8];
-    if (valid) {
-      const uint4 w = *reinterpret_cast<const uint4*>(Kbh + (size_t)rows_s[t] * row_elems);
-      bf16x8_to_float(w, kf);
-    } else {
+  // the group's running softmax: the same values in all 16 lanes (a xor
+  // butterfly gives every lane the same sums)
+  float m_run[kRep], den_run[kRep], acc[kRep][8];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) kf[k] = 0.0f;
-    }
-    for (int r = 0; r < rep; ++r) {
-      float part = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) part += q_s[r * D + sl * 8 + k] * kf[k];
-#pragma unroll
-      for (int o = LPR / 2; o >= 1; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
-      if (in && sl == 0) p_s[r * kTile + t] = valid ? part * scale : -1e30f;
-    }
-  }
-  __syncthreads();
-
-  // ---- per query head: tile max, probabilities, denominator --------------
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  for (int r = warp; r < rep; r += kThreads / 32) {
-    float mx = -__int_as_float(0x7f800000);
-    for (int t = lane; t < nrows; t += 32) mx = fmaxf(mx, p_s[r * kTile + t]);
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-    float den = 0.0f;
-    for (int t = lane; t < nrows; t += 32) {
-      const float p = valid_s[t] ? expf(p_s[r * kTile + t] - mx) : 0.0f;
-      p_s[r * kTile + t] = p;
-      den += p;
-    }
-#pragma unroll
-    for (int o = 16; o >= 1; o >>= 1) den += __shfl_xor_sync(kFull, den, o);
-    if (lane == 0) {
-      md_s[r][0] = mx;
-      md_s[r][1] = den;
-    }
-  }
-  __syncthreads();
-
-  // ---- unnormalised output sum_t p[t] v[t] --------------------------------
-  float acc[kMaxRep][8];
-#pragma unroll
-  for (int r = 0; r < kMaxRep; ++r)
+  for (int r = 0; r < kRep; ++r) {
+    m_run[r] = kMasked;
+    den_run[r] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[r][k] = 0.0f;
-  for (int t = gid; t < nrows; t += kGroups) {
-    if (!valid_s[t]) continue;
-    float vf[8];
-    const uint4 w = *reinterpret_cast<const uint4*>(Vbh + (size_t)rows_s[t] * row_elems);
-    bf16x8_to_float(w, vf);
-#pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r < rep) {
-        const float p = p_s[r * kTile + t];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[r][k] += p * vf[k];
+  }
+
+  // The range in chunks of at most `chunk` slots (one chunk unless the
+  // budget is very large): the chunk's rows first, then its steps.
+  for (int c0 = s0; c0 < s1; c0 += chunk) {
+    const int m = min(chunk, s1 - c0);
+    __syncthreads();  // every thread is done with the previous chunk's rows
+    // ---- every slot's row at once: independent loads, unrolled, so one
+    // memory latency (two for K4: idx, then the table entry) per chunk
+#pragma unroll 4
+    for (int i = tid; i < m; i += kThreads) {
+      if constexpr (kAddr == kGathered) {
+        rows_s[i] = mask[(size_t)bh * budget + c0 + i] != 0 ? c0 + i : -1;
+      } else {
+        const int r = idx[(size_t)bh * budget + c0 + i];
+        const bool valid = (r < length) && (r >= 0) && (r < S);
+        rows_s[i] = !valid ? -1 : kAddr == kSlab ? b * S + r : r;
       }
     }
+    if constexpr (kAddr == kPaged) {
+      __syncthreads();
+#pragma unroll 4
+      for (int i = tid; i < m; i += kThreads) {
+        const int r = rows_s[i];
+        if (r >= 0) {
+          const int blk = bsh >= 0 ? r >> bsh : r / bs;
+          rows_s[i] = trow[blk] * bs + (bsh >= 0 ? r & (bs - 1) : r - blk * bs);
+        }
+      }
+    }
+    __syncthreads();
+
+    // Group g takes slots g, g + kGroups, ... of the chunk, kBatch per step.
+    // Each thread copies, and later reads, only its own 16-byte chunk of
+    // its group's rows, so waiting for its own copies is enough: the steps
+    // need no barrier.  Slots past the chunk or masked are zero-filled
+    // (source size 0: nothing is read).
+    auto slot = [&](int step, int u) { return gid + kGroups * (step * kBatch + u); };
+    auto ring_at = [&](int step, int u) {
+      return (((step % kRing) * kGroups + gid) * kBatch + u) * kLPR + sl;
+    };
+    auto issue = [&](int step) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = slot(step, u);
+        const int row = i < m ? rows_s[i] : -1;
+        const size_t e = head_off + (size_t)max(row, 0) * row_elems + sl * 8;
+        const int nb = row >= 0 ? 16 : 0;
+        cp_async16(kring + ring_at(step, u), K + e, nb);
+        cp_async16(vring + ring_at(step, u), V + e, nb);
+      }
+    };
+
+    const int n_steps = (m + kStep - 1) / kStep;  // uniform over the CTA
+#pragma unroll
+    for (int j = 0; j < kRing - 1; ++j) {
+      if (j < n_steps) issue(j);
+      cp_async_commit();
+    }
+    for (int step = 0; step < n_steps; ++step) {
+      cp_async_wait<kRing - 2>();  // this thread's copies of the step have landed
+      if (step + kRing - 1 < n_steps) issue(step + kRing - 1);  // into the previous step's slot
+      cp_async_commit();
+
+      // ---- scores s = (q . k) * scale of the step's kBatch rows, masked
+      float sc[kRep][kBatch];
+      bool ok[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = slot(step, u);
+        ok[u] = i < m && rows_s[i] >= 0;
+        float kf[8];
+        bf16x8_to_float(kring[ring_at(step, u)], kf);
+#pragma unroll
+        for (int r = 0; r < kRep; ++r) {
+          float part = 0.0f;
+#pragma unroll
+          for (int k = 0; k < 8; ++k) part += qr[r][k] * kf[k];
+          sc[r][u] = part;
+        }
+      }
+#pragma unroll
+      for (int o = kLPR / 2; o >= 1; o >>= 1)
+#pragma unroll
+        for (int r = 0; r < kRep; ++r)
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) sc[r][u] += __shfl_xor_sync(kFull, sc[r][u], o);
+
+      // ---- online softmax per query head: rescale by exp(m_old - m_new)
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        float mb = kMasked;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          sc[r][u] = ok[u] ? sc[r][u] * scale : kMasked;
+          mb = fmaxf(mb, sc[r][u]);
+        }
+        const float m_new = fmaxf(m_run[r], mb);
+        const float alpha = expf(m_run[r] - m_new);
+        float den = 0.0f;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          sc[r][u] = ok[u] ? expf(sc[r][u] - m_new) : 0.0f;
+          den += sc[r][u];
+        }
+        den_run[r] = den_run[r] * alpha + den;
+        m_run[r] = m_new;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[r][k] *= alpha;
+      }
+
+      // ---- unnormalised output: acc += sum_u p[u] v[u] --------------------
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        float vf[8];
+        bf16x8_to_float(vring[ring_at(step, u)], vf);
+#pragma unroll
+        for (int r = 0; r < kRep; ++r)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[r][k] = fmaf(sc[r][u], vf[k], acc[r][k]);
+      }
+    }
+    cp_async_wait<0>();
   }
+  __syncthreads();  // every group is done with the ring: it holds the merge next
+
+  // ---- the CTA's (m, den, o): its groups merged in group order, pushed
+  // into rank 0's receive slot for this rank
+  float* red = reinterpret_cast<float*>(dyn);  // [kGroups][kRep][D] accumulators
+  float* red_m = red + kGroups * kRep * D;     // [kGroups][kRep] maxima
+  float* red_den = red_m + kGroups * kRep;     // [kGroups][kRep] denominators
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r < rep) {
+  for (int r = 0; r < kRep; ++r) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) o_s[(gid * rep + r) * D + sl * 8 + k] = acc[r][k];
+    for (int k = 0; k < 8; ++k) red[(gid * kRep + r) * D + sl * 8 + k] = acc[r][k];
+    if (sl == 0) {
+      red_m[gid * kRep + r] = m_run[r];
+      red_den[gid * kRep + r] = den_run[r];
     }
   }
   __syncthreads();
-  const size_t part = (size_t)bh * n_tiles + tile;
-  for (int i = tid; i < rep * D; i += kThreads) {
-    float s = 0.0f;
-    for (int g = 0; g < kGroups; ++g) s += o_s[g * rep * D + i];
-    part_o[part * rep * D + i] = s;
-  }
-  for (int r = tid; r < rep; r += kThreads) {
-    part_md[(part * rep + r) * 2 + 0] = md_s[r][0];
-    part_md[(part * rep + r) * 2 + 1] = md_s[r][1];
-  }
-}
-
-__global__ void attend_combine(const float* __restrict__ part_o,   // [BH, n_tiles, rep, D]
-                               const float* __restrict__ part_md,  // [BH, n_tiles, rep, 2]
-                               float* __restrict__ out,            // [BH, rep, D]
-                               int n_tiles, int rep, int D) {
-  const int bh = blockIdx.x;
-  for (int i = threadIdx.x; i < rep * D; i += blockDim.x) {
+  cluster_wait();  // every CTA of the cluster is running
+  float* to_o = cluster.map_shared_rank(recv_o, 0) + rank * kRep * D;
+  float* to_md = cluster.map_shared_rank(recv_md, 0) + rank * kRep * 2;
+  for (int i = tid; i < kRep * D; i += kThreads) {
     const int r = i / D;
-    float M = -__int_as_float(0x7f800000);
-    for (int j = 0; j < n_tiles; ++j)
-      M = fmaxf(M, part_md[(((size_t)bh * n_tiles + j) * rep + r) * 2]);
-    float num = 0.0f, den = 0.0f;
-    for (int j = 0; j < n_tiles; ++j) {
-      const size_t pj = (size_t)bh * n_tiles + j;
-      const float w = expf(part_md[(pj * rep + r) * 2] - M);
-      den += part_md[(pj * rep + r) * 2 + 1] * w;
-      num += part_o[pj * rep * D + i] * w;
+    float M = kMasked;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) M = fmaxf(M, red_m[g * kRep + r]);
+    float o = 0.0f, den = 0.0f;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const float w = expf(red_m[g * kRep + r] - M);
+      o += red[g * kRep * D + i] * w;
+      den += red_den[g * kRep + r] * w;
     }
-    out[(size_t)bh * rep * D + i] = num / fmaxf(den, 1e-30f);
+    to_o[i] = o;
+    if (i % D == 0) {
+      to_md[r * 2] = M;
+      to_md[r * 2 + 1] = den;
+    }
+  }
+
+  // ---- combine over the cluster: rank 0 merges the ranks in rank order --
+  cluster_arrive();  // release: this CTA's pushes reach rank 0 before the barrier
+  cluster_wait();
+  if (rank != 0) return;  // no CTA reads another's shared memory after the barrier
+  for (int i = tid; i < kRep * D; i += kThreads) {
+    const int r = i / D;
+    float M = kMasked;
+    for (int c = 0; c < C; ++c) M = fmaxf(M, recv_md[(c * kRep + r) * 2]);
+    float num = 0.0f, den = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      const float w = expf(recv_md[(c * kRep + r) * 2] - M);
+      num += recv_o[c * kRep * D + i] * w;
+      den += recv_md[(c * kRep + r) * 2 + 1] * w;
+    }
+    out[(size_t)bh * kRep * D + i] = num / fmaxf(den, 1e-30f);
   }
 }
 
-template <int kAddr>
+template <int kAddr, int kRep>
 cudaError_t launch(const void* q, const void* K, const void* V, const void* table,
-                   const void* idx, const void* lengths, const void* mask, void* part_o,
-                   void* part_md, void* out, int B, int S, int Hkv, int rep, int budget,
-                   float scale, int bs, long long sb, long long st, long long sh,
-                   cudaStream_t stream) {
-  constexpr int D = kD;
-  constexpr int kGroups = kThreads / kLPR;
-  const int n_tiles = (budget + kTile - 1) / kTile;
-  const size_t smem = sizeof(float) * ((size_t)rep * D + (size_t)rep * kTile +
-                                       (size_t)kGroups * rep * D);
-  auto kernel = attend_partial<kAddr>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * Hkv, n_tiles);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(K),
+                   const void* idx, const void* lengths, const void* mask, void* out, int B,
+                   int S, int Hkv, int budget, float scale, int bs, long long sb, long long st,
+                   long long sh, int C, int chunk, int q_bf16, cudaStream_t stream) {
+  auto kernel = fier_attend_kernel<kAddr, kRep>;
+  // the ring is above the 48 KiB default: raise the limit once per
+  // instantiation, to the most any chunk needs
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<kRep>(kMaxCluster, kMaxChunk));
+  if (attr != cudaSuccess) return attr;
+  const int bsh = (bs & (bs - 1)) == 0 ? __builtin_ctz(bs) : -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * Hkv * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<kRep>(C, chunk);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr_c[1];
+  attr_c[0].id = cudaLaunchAttributeClusterDimension;
+  attr_c[0].val.clusterDim.x = C;
+  attr_c[0].val.clusterDim.y = 1;
+  attr_c[0].val.clusterDim.z = 1;
+  cfg.attrs = attr_c;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, q, static_cast<const __nv_bfloat16*>(K),
       static_cast<const __nv_bfloat16*>(V), static_cast<const int*>(table),
       static_cast<const int*>(idx), static_cast<const int*>(lengths),
-      static_cast<const int8_t*>(mask), static_cast<float*>(part_o),
-      static_cast<float*>(part_md), S, Hkv, rep, budget, scale, bs, sb, st, sh);
-  err = cudaGetLastError();
+      static_cast<const int8_t*>(mask), static_cast<float*>(out), S, Hkv, budget, scale, bs,
+      bsh, sb, st, sh, chunk, q_bf16);
   if (err != cudaSuccess) return err;
-  const int threads = rep * D < 1024 ? rep * D : 1024;
-  attend_combine<<<B * Hkv, threads, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_md),
-      static_cast<float*>(out), n_tiles, rep, D);
   return cudaGetLastError();
+}
+
+// The instantiation for rep (1, 2, 4 or 8; sparse_attention.KERNEL_REPS).
+template <int kAddr>
+cudaError_t launch_rep(const void* q, const void* K, const void* V, const void* table,
+                       const void* idx, const void* lengths, const void* mask, void* out, int B,
+                       int S, int Hkv, int rep, int budget, float scale, int bs, long long sb,
+                       long long st, long long sh, int C, int chunk, int q_bf16,
+                       cudaStream_t stream) {
+  decltype(&launch<kAddr, 1>) go;
+  switch (rep) {
+    case 1: go = &launch<kAddr, 1>; break;
+    case 2: go = &launch<kAddr, 2>; break;
+    case 4: go = &launch<kAddr, 4>; break;
+    case 8: go = &launch<kAddr, 8>; break;
+    default: return cudaErrorInvalidValue;
+  }
+  return go(q, K, V, table, idx, lengths, mask, out, B, S, Hkv, budget, scale, bs, sb, st, sh,
+            C, chunk, q_bf16, stream);
+}
+
+// C CTAs per row, each holding the rows of `chunk` slots at once
+bool plan_ok(int C, int chunk) {
+  return C >= 1 && C <= kMaxCluster && (C & (C - 1)) == 0 && chunk >= 1 && chunk <= kMaxChunk;
 }
 
 }  // namespace
 
 // table == nullptr: K2, K/V are the slabs [B, S, Hkv, D].  Otherwise K4:
 // K/V are block pools [N, bs, Hkv, D] walked through table [B, S / bs].
+// cluster: CTAs per (b, h) row; chunk: slots whose rows a CTA holds at once
+// (sparse_attention.attend_plan).  q is bf16 when q_bf16, else f32.
 extern "C" int fier_attend_launch(const void* q, const void* K, const void* V,
                                   const void* table, const void* idx, const void* lengths,
-                                  void* part_o, void* part_md, void* out, int B, int S, int bs,
-                                  int Hkv, int rep, int D, int budget, float scale,
+                                  void* out, int B, int S, int bs, int Hkv, int rep, int D,
+                                  int budget, float scale, int cluster, int chunk, int q_bf16,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rep < 1 || rep > kMaxRep || D != kD) return (int)cudaErrorInvalidValue;
+  if (D != kD || budget <= 0 || !plan_ok(cluster, chunk)) return (int)cudaErrorInvalidValue;
   if (table == nullptr)
-    return (int)launch<kSlab>(q, K, V, nullptr, idx, lengths, nullptr, part_o, part_md, out, B,
-                              S, Hkv, rep, budget, scale, 1, 0, 0, 0, st);
+    return (int)launch_rep<kSlab>(q, K, V, nullptr, idx, lengths, nullptr, out, B, S, Hkv, rep,
+                                  budget, scale, 1, 0, 0, 0, cluster, chunk, q_bf16, st);
   if (bs < 1 || S % bs) return (int)cudaErrorInvalidValue;
-  return (int)launch<kPaged>(q, K, V, table, idx, lengths, nullptr, part_o, part_md, out, B, S,
-                             Hkv, rep, budget, scale, bs, 0, 0, 0, st);
+  return (int)launch_rep<kPaged>(q, K, V, table, idx, lengths, nullptr, out, B, S, Hkv, rep,
+                                 budget, scale, bs, 0, 0, 0, cluster, chunk, q_bf16, st);
 }
 
 // K8: k_sel/v_sel [B, budget, Hkv, D] gathered rows with element strides
 // (sb, st, sh) and contiguous channels (both tensors alike; each a multiple
-// of 8, for the 16-byte loads), mask int8 [B, Hkv, budget].
+// of 8, for the 16-byte copies), mask int8 [B, Hkv, budget].
 extern "C" int fier_attend_gathered_launch(const void* q, const void* k_sel, const void* v_sel,
-                                           const void* mask, void* part_o, void* part_md,
-                                           void* out, int B, int budget, int Hkv, int rep, int D,
-                                           long long sb, long long st, long long sh, float scale,
-                                           void* stream) {
-  if (rep < 1 || rep > kMaxRep || D != kD || sb % 8 || st % 8 || sh % 8)
+                                           const void* mask, void* out, int B, int budget,
+                                           int Hkv, int rep, int D, long long sb, long long st,
+                                           long long sh, float scale, int cluster, int chunk,
+                                           int q_bf16, void* stream) {
+  if (D != kD || budget <= 0 || !plan_ok(cluster, chunk) || sb % 8 || st % 8 || sh % 8)
     return (int)cudaErrorInvalidValue;
-  return (int)launch<kGathered>(q, k_sel, v_sel, nullptr, nullptr, nullptr, mask, part_o,
-                                part_md, out, B, budget, Hkv, rep, budget, scale, 1, sb, st, sh,
-                                static_cast<cudaStream_t>(stream));
+  return (int)launch_rep<kGathered>(q, k_sel, v_sel, nullptr, nullptr, nullptr, mask, out, B,
+                                    budget, Hkv, rep, budget, scale, 1, sb, st, sh, cluster,
+                                    chunk, q_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -10,28 +10,36 @@ from the seq-major [B, S, Hkv, D] K/V slabs (no K'/V' copy), and the
 1/√D, slots with idx ≥ length masked, f32 softmax, output
 out / max(den, 1e-30) in f32.
 
-On a CUDA tensor ``fier_attend_selected`` launches
-``csrc/fier_attend.cu`` (a tiled partial pass plus a small combine, one
-C call); on a CPU tensor it runs :func:`fier_attend_selected_plain`.
+On a CUDA tensor ``fier_attend_selected`` launches ``csrc/fier_attend.cu``
+once: each (b, h) row's slots are split over a thread-block cluster as
+:func:`attend_plan` says; in every CTA, 16 row groups stream their slots'
+K and V rows into shared memory with ``cp.async`` (a ring three steps
+deep, masked slots never read), each keeping an online softmax; and the
+cluster's CTAs merge their (max, denominator, output) through distributed
+shared memory in rank order.  Only ``out`` is allocated.  The kernel is bound by bytes:
+at the serving shape (B 4, Hkv 16, budget 1024, D 128, lengths
+8192/5003/2100/700) it must move 31,211,536 B, 0.00932 ms at 3.35 TB/s.
+On a CPU tensor it runs :func:`fier_attend_selected_plain`.
 
 Given a ``block_table`` [B, n_btab], ``fier_attend_selected`` is K4: it
 reads the selected rows from the K/V block pools [N, bs, Hkv, D] through
-the table — the same CUDA kernels, with logical index t read at pool row
-(table[b, t // bs], t % bs), so its output is K2's bit for bit on the
+the table — the same CUDA kernel body, with logical index t read at pool
+row (table[b, t // bs], t % bs), so its output is K2's bit for bit on the
 table-gathered contents.  Its plain version,
 :func:`fier_attend_selected_paged_plain`, gathers the pools and runs K2's.
 
 ``fier_attend_gathered`` is K8: the rows arrive gathered already
 (k_sel/v_sel [B, budget, Hkv, D], what ``gather_kv`` returns) with an int8
-validity mask [B, Hkv, budget].  It runs K2's kernels with a third address
-policy, so K8 on ``gather_kv(K, V, idx)`` and ``idx < length`` equals K2 on
-(K, V, idx, length) bit for bit.  Its plain version,
-:func:`fier_attend_gathered_plain`, is the softmax K2's plain version
-runs after its gather.
+validity mask [B, Hkv, budget].  It runs K2's kernel body with a third
+address policy and the same plan, so K8 on ``gather_kv(K, V, idx)`` and
+``idx < length`` equals K2 on (K, V, idx, length) bit for bit.  Its plain
+version, :func:`fier_attend_gathered_plain`, is the softmax K2's plain
+version runs after its gather.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,16 +48,64 @@ from repro_torch.kvcache.paged import gather_block_rows
 from repro_torch.obs.flopcount import kernel_leaf
 
 from . import build
+from .fused_retrieval import _sm_count
 
 launches = 0  # K2 kernel launches since the last reset (the chip check reads it)
 launches_paged = 0  # K4 kernel launches since the last reset
 launches_gathered = 0  # K8 kernel launches since the last reset
 
-TILE = 64  # selected rows per block of the partial pass (kTile in the .cu)
 # the one d_head the card has checked the kernel at (chip_smoke.py phase 2);
 # a slice that brings another adds it to the .cu and to that phase
 KERNEL_HEAD_DIM = 128
-KERNEL_MAX_REP = 8
+# query heads per kv head: one instantiation each, all run by that phase
+KERNEL_REPS = (1, 2, 4, 8)
+MAX_CLUSTER = 8  # CTAs per (b, h) row: the portable cluster size
+STEP = 64  # slots a CTA takes per step: 16 row groups × 4 (kStep in the .cu)
+RING_BYTES = 3 * STEP * 2 * KERNEL_HEAD_DIM * 2  # three steps of K and V rows, bf16
+MAX_CHUNK = 2048  # slots whose rows (4 bytes each) a CTA holds at once (kMaxChunk)
+SMEM_LIMIT = 232448  # shared memory a CTA may use on sm_90
+
+
+class AttendPlan(NamedTuple):
+    """How the CUDA kernel splits each (batch, kv-head) row's slots."""
+
+    cluster: int  # CTAs per row, one thread-block cluster
+    chunk: int  # slots whose rows a CTA finds at once (its whole range below MAX_CHUNK)
+    smem_bytes: int  # shared memory of each CTA: the ring, rank 0's receive slots, the rows
+
+    def ranges(self, budget: int) -> list[tuple[int, int]]:
+        """The slot range [s0, s1) of each CTA, in rank order (as the .cu
+        computes it)."""
+        C = self.cluster
+        return [(r * budget // C, (r + 1) * budget // C) for r in range(C)]
+
+
+def attend_plan(budget: int, rows: int, n_sm: int, rep: int) -> AttendPlan:
+    """The split of ``budget`` slots for ``rows`` = B·Hkv rows on a card of
+    ``n_sm`` SMs, for ``rep`` query heads per kv head.
+
+    C, the CTAs per row, is the largest power of two (≤ 8) whose grid
+    ``rows·C`` still runs in one wave of one CTA per SM and whose CTAs each
+    get at least one whole 64-slot step.  Two CTAs per SM (they would fit:
+    the 96 KiB ring and at most 8 KiB of rows each) were measured slower:
+    clusters of them were not all placed in one wave (PERF.md).  A CTA finds
+    the rows of up to ``MAX_CHUNK`` slots at once (its whole range unless
+    the budget is very large).  ``rep`` selects the kernel's instantiation
+    and sizes rank 0's receive slots; it does not change the split.  The
+    plan never depends on where the rows are found (slab, pool or
+    gathered), so K2, K4 and K8 split a row alike and give equal outputs
+    bit for bit."""
+    if rep not in KERNEL_REPS:
+        raise ValueError(f"the CUDA kernel takes {KERNEL_REPS} query heads per kv "
+                         f"head, got {rep}")
+    if budget <= 0 or rows <= 0 or n_sm <= 0:
+        raise ValueError(f"budget {budget}, rows {rows} and n_sm {n_sm} must be positive")
+    c = 1
+    while c < MAX_CLUSTER and rows * 2 * c <= n_sm and budget >= 2 * c * STEP:
+        c *= 2
+    chunk = min(-(-budget // c), MAX_CHUNK)
+    recv = c * rep * (KERNEL_HEAD_DIM + 2) * 4  # each rank's output and (max, den)
+    return AttendPlan(c, chunk, RING_BYTES + recv + 4 * chunk)
 
 
 def _valid(idx: torch.Tensor, lengths: torch.Tensor | None) -> torch.Tensor:
@@ -126,6 +182,30 @@ def _check(q, K, V, block_table, idx, lengths):
     return B, Hkv, rep, D, S, bs, idx.shape[2]
 
 
+def check_kernel_operands(q, K, V) -> None:
+    """What the CUDA kernel admits beyond the shapes (a CUDA tensor outside
+    it raises; the plain version on the CPU takes any)."""
+    rep, D = q.shape[2], q.shape[3]
+    if K.dtype != torch.bfloat16 or V.dtype != torch.bfloat16:
+        raise ValueError(f"the CUDA kernel takes bf16 K/V, got {K.dtype}, {V.dtype}")
+    if D != KERNEL_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIM}, got {D}")
+    if rep not in KERNEL_REPS:
+        raise ValueError(f"the CUDA kernel takes {KERNEL_REPS} query heads per kv "
+                         f"head, got {rep}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data is not 16-byte aligned (the kernel reads q
+    16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _plan(dev, rows: int, budget: int, rep: int) -> AttendPlan:
+    n_sm = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    return attend_plan(budget, rows, n_sm, rep)
+
+
 _fn = None
 
 
@@ -134,7 +214,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("fier_attend").fier_attend_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn = fn
@@ -161,28 +242,21 @@ def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None) -> tor
         return fier_attend_selected_plain(q, K, V, idx, lengths)
     if dev.type != "cuda":
         raise ValueError(f"fier_attend_selected runs on cuda or cpu, not {dev}")
-    if K.dtype != torch.bfloat16 or V.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bf16 K/V, got {K.dtype}, {V.dtype}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIM}, got {D}")
-    if rep > KERNEL_MAX_REP:
-        raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query "
-                         f"heads per kv head, got {rep}")
+    check_kernel_operands(q, K, V)
+    plan = _plan(dev, B * Hkv, budget, rep)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-    q = q.to(torch.float32).contiguous()
+    q_bf16 = q.dtype == torch.bfloat16  # read as it is; other types go to f32
+    q = _aligned((q if q_bf16 else q.to(torch.float32)).contiguous())
     K, V, idx = K.contiguous(), V.contiguous(), idx.contiguous()
     table = block_table.contiguous() if paged else None
     lengths = lengths.to(torch.int32).contiguous()
-    n_tiles = -(-budget // TILE)
-    part_o = torch.empty((B * Hkv, n_tiles, rep, D), dtype=torch.float32, device=dev)
-    part_md = torch.empty((B * Hkv, n_tiles, rep, 2), dtype=torch.float32, device=dev)
     out = torch.empty((B, Hkv, rep, D), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(
         q.data_ptr(), K.data_ptr(), V.data_ptr(), table.data_ptr() if paged else None,
-        idx.data_ptr(), lengths.data_ptr(), part_o.data_ptr(), part_md.data_ptr(),
-        out.data_ptr(), B, S, bs, Hkv, rep, D, budget, 1.0 / (D ** 0.5), stream,
+        idx.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, S, bs, Hkv, rep, D, budget,
+        1.0 / (D ** 0.5), plan.cluster, plan.chunk, int(q_bf16), stream,
     )
     if err != 0:
         raise RuntimeError(f"fier_attend_selected kernel launch failed: cudaError {err}")
@@ -209,8 +283,8 @@ def _kernel_gathered():
     if _fn_gathered is None:
         fn = build.load("fier_attend").fier_attend_gathered_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-            + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         _fn_gathered = fn
@@ -244,14 +318,10 @@ def fier_attend_gathered(q, k_sel, v_sel, mask) -> torch.Tensor:
         return fier_attend_gathered_plain(q, k_sel, v_sel, mask)
     if dev.type != "cuda":
         raise ValueError(f"fier_attend_gathered runs on cuda or cpu, not {dev}")
-    if k_sel.dtype != torch.bfloat16 or v_sel.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bf16 rows, got {k_sel.dtype}, {v_sel.dtype}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIM}, got {D}")
-    if rep > KERNEL_MAX_REP:
-        raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query "
-                         f"heads per kv head, got {rep}")
-    q = q.to(torch.float32).contiguous()
+    check_kernel_operands(q, k_sel, v_sel)
+    plan = _plan(dev, B * Hkv, budget, rep)
+    q_bf16 = q.dtype == torch.bfloat16  # read as it is; other types go to f32
+    q = _aligned((q if q_bf16 else q.to(torch.float32)).contiguous())
     # the kernel reads rows through the strides (gather_kv returns a
     # transposed view); other layouts are copied once
     if not _strided_rows_ok(k_sel, v_sel):
@@ -259,15 +329,12 @@ def fier_attend_gathered(q, k_sel, v_sel, mask) -> torch.Tensor:
     if mask.dtype != torch.int8:
         mask = (mask != 0).to(torch.int8)
     mask = mask.contiguous()
-    n_tiles = -(-budget // TILE)
-    part_o = torch.empty((B * Hkv, n_tiles, rep, D), dtype=torch.float32, device=dev)
-    part_md = torch.empty((B * Hkv, n_tiles, rep, 2), dtype=torch.float32, device=dev)
     out = torch.empty((B, Hkv, rep, D), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_gathered()(
-        q.data_ptr(), k_sel.data_ptr(), v_sel.data_ptr(), mask.data_ptr(), part_o.data_ptr(),
-        part_md.data_ptr(), out.data_ptr(), B, budget, Hkv, rep, D, *k_sel.stride()[:3],
-        1.0 / (D ** 0.5), stream,
+        q.data_ptr(), k_sel.data_ptr(), v_sel.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        B, budget, Hkv, rep, D, *k_sel.stride()[:3], 1.0 / (D ** 0.5), plan.cluster, plan.chunk,
+        int(q_bf16), stream,
     )
     if err != 0:
         raise RuntimeError(f"fier_attend_gathered kernel launch failed: cudaError {err}")

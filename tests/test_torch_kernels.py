@@ -245,3 +245,60 @@ def test_wrapper_takes_rows_beyond_one_block():
     assert fr.retrieval_plan(S, 64, 132).smem_keys
     assert fr.retrieval_plan(S, 64, 132, 32).smem_keys
     assert not fr.retrieval_plan(524288, 16, 132).smem_keys
+
+
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("budget", [32, 512, 1000, 1024, 4096])
+@pytest.mark.parametrize("rows", [1, 16, 64])
+def test_attend_plan_splits_slots(rows, budget, rep):
+    """K2/K4/K8's split of a row's slots over a cluster: the CTAs' ranges
+    cover [0, budget) exactly once in rank order, no CTA is empty unless
+    budget < C, C ≤ 8, the grid runs in one wave of one CTA per SM on 132
+    SMs wherever it splits, each CTA's shared memory fits the 232,448 bytes
+    of sm_90 and holds its chunk's rows, and nothing of the address policy
+    enters the plan: the same arguments give the same plan, whether K2, K4
+    or K8 asks."""
+    import inspect
+
+    plan = sa.attend_plan(budget, rows, 132, rep)
+    C = plan.cluster
+    assert C in (1, 2, 4, 8) and C <= sa.MAX_CLUSTER
+    ranges = plan.ranges(budget)
+    assert len(ranges) == C and ranges[0][0] == 0 and ranges[-1][1] == budget
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    covered = np.concatenate([np.arange(s0, s1) for s0, s1 in ranges])
+    np.testing.assert_array_equal(covered, np.arange(budget))
+    assert budget < C or all(s1 > s0 for s0, s1 in ranges)
+    assert plan.smem_bytes <= sa.SMEM_LIMIT
+    assert plan.chunk == min(max(s1 - s0 for s0, s1 in ranges), sa.MAX_CHUNK)
+    assert plan.smem_bytes == sa.RING_BYTES + C * rep * (128 + 2) * 4 + 4 * plan.chunk
+    assert C == 1 or rows * C <= 132  # one wave wherever it splits
+    assert all(s1 - s0 >= sa.STEP for s0, s1 in ranges) or C == 1
+    if C < sa.MAX_CLUSTER and budget >= 2 * C * sa.STEP:  # wider only beyond one wave
+        assert rows * 2 * C > 132
+    assert list(inspect.signature(sa.attend_plan).parameters) == ["budget", "rows", "n_sm", "rep"]
+    assert sa.attend_plan(budget, rows, 132, rep) == plan
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4, 8, 3, 5, 16])
+def test_attend_kernel_admits_reps(rep):
+    """The CUDA kernel has one instantiation per rep in KERNEL_REPS: the
+    wrapper's operand check and the plan raise for any other (the plain
+    version on the CPU takes it)."""
+    q = torch.zeros((1, 2, rep, 128), dtype=torch.float32)
+    K = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16)
+    if rep in sa.KERNEL_REPS:
+        sa.check_kernel_operands(q, K, K)
+        assert sa.attend_plan(64, 2, 132, rep).cluster == 1
+    else:
+        with pytest.raises(ValueError, match="query heads per kv head"):
+            sa.check_kernel_operands(q, K, K)
+        with pytest.raises(ValueError, match="query heads per kv head"):
+            sa.attend_plan(64, 2, 132, rep)
+    with pytest.raises(ValueError, match="d_head"):
+        sa.check_kernel_operands(q[..., :64], K[..., :64], K[..., :64])
+    with pytest.raises(ValueError, match="bf16"):
+        sa.check_kernel_operands(q, K.float(), K)
+    idx = torch.zeros((1, 2, 8), dtype=torch.int32)
+    out = sa.fier_attend_selected(q, K, K, idx, torch.tensor([64], dtype=torch.int32))
+    assert tuple(out.shape) == (1, 2, rep, 128)

@@ -9,8 +9,12 @@ skip layer (the reduced model has two layers), sink 4 and recent 8.
   within 2^-5·max|x| — an f32 summation order that flips one bf16 rounding
   upstream moves the few elements downstream of it by a few bf16 steps.
 * Teacher-forced decode with the budget at the full capacity, so every
-  valid token is selected: 8 steps fed the reference's greedy tokens, logits
-  within 1e-4·max|logit|.
+  valid token is selected: the reference's prefill cache is copied into the
+  port's first, so both decode from equal caches; 8 steps fed the
+  reference's greedy tokens, logits within 1e-4·max|logit|.  (Chained on the
+  port's own prefill cache, one bf16 element that the prefill check admits
+  can move a row's logits past that tolerance.)  The port's own chained
+  decode still gives the reference's greedy tokens in those 8 steps.
 * Greedy ``Engine.generate`` with budget 32 < prompt lengths (selection
   active): tokens identical.
 """
@@ -70,6 +74,29 @@ def _close_bf16(got, want, what):
     assert diff.max() <= 2.0**-5 * np.abs(want).max(), f"{what}: max gap {diff.max():.3g}"
 
 
+def _to_torch(a, like):
+    """A reference array as a CPU tensor of ``like``'s dtype (bf16 values
+    pass exactly through f32)."""
+    return torch.from_numpy(_f32(a)).to(like.dtype)
+
+
+def _cache_from_reference(tc, jc):
+    """The port's cache ``tc`` with the reference cache ``jc``'s contents:
+    front/rest k and v, the rest side-car's codes, scale and zero, and
+    length."""
+    out = {**tc, "front": dict(tc["front"]), "rest": dict(tc["rest"])}
+    for part in ("front", "rest"):
+        for name in ("k", "v"):
+            out[part][name] = _to_torch(jc[part][name], tc[part][name])
+    jm, tm = jc["rest"]["meta"], tc["rest"]["meta"]
+    out["rest"]["meta"] = dataclasses.replace(
+        tm, codes=torch.from_numpy(np.asarray(jm.codes)).to(tm.codes.dtype),
+        scale=_to_torch(jm.scale, tm.scale), zero=_to_torch(jm.zero, tm.zero),
+    )
+    out["length"] = torch.from_numpy(np.asarray(jc["length"])).to(tc["length"].dtype)
+    return out
+
+
 @pytest.mark.parametrize("n_kv", [None, 2], ids=["mha", "gqa"])
 def test_prefill_and_teacher_forced_decode(n_kv):
     je, jp, te, tp = _engines(n_kv, budget=CAPACITY)
@@ -89,6 +116,9 @@ def test_prefill_and_teacher_forced_decode(n_kv):
     np.testing.assert_array_equal(tc["length"].numpy(), np.asarray(jc["length"]))
 
     tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    own = tc  # the port's own prefill cache, for the chained greedy run
+    tc = _cache_from_reference(tc, jc)
+    greedy = []
     for step in range(8):
         jn, jlog, jc = je.decode(jp, jnp.asarray(tok), jc)
         _, tlog, tc = te.decode(tp, torch.from_numpy(tok), tc)
@@ -98,7 +128,15 @@ def test_prefill_and_teacher_forced_decode(n_kv):
             err_msg=f"decode step {step}",
         )
         tok = np.asarray(jn).astype(np.int32)
+        greedy.append(tok)
     np.testing.assert_array_equal(tc["length"].numpy(), LENGTHS + 8)
+
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for step in range(8):
+        nxt, _, own = te.decode(tp, torch.from_numpy(tok), own)
+        tok = nxt.numpy().astype(np.int32)
+        np.testing.assert_array_equal(tok, greedy[step], err_msg=f"chained step {step}")
+    np.testing.assert_array_equal(own["length"].numpy(), LENGTHS + 8)
 
 
 @pytest.mark.parametrize("n_kv", [None, 2], ids=["mha", "gqa"])
