@@ -6,21 +6,27 @@
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
+    python3 chip_smoke.py [--kernels-only] --baseline-unfused OTHER_CSRC_DIR
+        # phase 2 also builds K6 and K7 from another directory's fier_score.cu
+        # and fier_topk.cu with the interfaces of the one-block-per-row K7 and
+        # the many-wave K6, holds them bitwise to these and times them in turns
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
 1. Setup: the card's name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together).
+   ``nvcc`` per source, all started together); every kernel's ptxas report
+   must show a 0-byte stack frame and 0 spill bytes.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (olmo-1b: 4 slots, 16 kv heads, d_head 128, capacity 8192,
    group 32, budget 1024) and at a GQA shape (4 kv heads × 4 query heads,
    with the group sum and with the group max), with per-row lengths that
    include one row shorter than the budget; then the kernel, its plain
    version and one library call (where one computes the same function)
-   timed in turns with the L2 cache flushed before every launch.  The paged kernels K3 and K4
-   run on a pool built by scattering the slab's blocks (bs 32) into a random
+   timed in turns with the L2 cache flushed before every launch (an empty
+   kernel timed the same way gives the floor under every time).  The paged
+   kernels K3 and K4 run on a pool built by scattering the slab's blocks (bs 32) into a random
    permutation of pool blocks, with spare blocks and one table entry inside
    a row's length pointed at the null block 0 (non-zero data): K3 must equal
    K1 on the gathered slab bit for bit (idx, τ, m), K4 must equal K2 bit for
@@ -37,10 +43,17 @@ result line):
    tokens, budget 4096: keys beyond the CTAs' shared memory, built on the
    card from a seeded ``torch.Generator``) and on a ragged S = 8160 row whose
    length ends inside a CTA's range: K1 within ε of its plain version, K3
-   bitwise K1 on a permuted pool with a null-block hole, both timed.  K1/K3
-   report their bound over the valid rows (no chunk past a row's length is
-   read) and over whole rows.  K2, K4 and K8 then run at every rep the
-   kernel admits (1, 2, 4, 8), at the ladder's budget 512, at budget 1000
+   bitwise K1 on a permuted pool with a null-block hole, K6 within ε of its
+   plain version and K7 exactly its plain version's τ and m on the masked
+   scores (at ``long_500k`` every K7 pass re-reads the row), all timed.
+   K1/K3 report their bound over the valid rows (no chunk past a row's
+   length is read) and over whole rows.  K6 also runs at rep 8 (within ε),
+   and K7 on adversarial rows (ties, ±0.0, +inf guard rails, a −1e30 tail,
+   an all-tied row) at 16 and 64 rows of S = 8192 and 16 rows of S = 8191
+   (one CTA per row; rows off a 16-byte boundary), and split over a
+   cluster at 64 rows of 16,384, 16 rows of 65,536 and 4 rows of 65,533,
+   budgets 1, 1024 and S: τ and m exactly its plain version's.  K2, K4 and
+   K8 then run at every rep the kernel admits (1, 2, 4, 8), at the ladder's budget 512, at budget 1000
    (no multiple of the plan's 64-slot step) and at budget 8192 (a CTA finds
    its rows in two chunks): K2 within 1e-4·max|out| of its plain version,
    two K2 launches on the same inputs equal bit for bit, K4 = K2 and K8 =
@@ -189,6 +202,69 @@ def in_turns(timer, plain, kernel, library):
     return {k: (sum(v) / len(v) if v else None) for k, v in t.items()}
 
 
+def old_new(timer, old, new):
+    """old, new, new, old: (mean of old's two medians, mean of new's)."""
+    t = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        t[which].append(timer(old if which == "old" else new))
+    return sum(t["old"]) / 2, sum(t["new"]) / 2
+
+
+def nvcc_lib(src, tag):
+    """``src`` (a .cu file; its directory's headers go into the hash) built
+    with the port's flags into the build directory and loaded: for the
+    comparison kernels of this script, which the port does not call."""
+    import ctypes
+    import glob
+    import hashlib
+
+    from repro_torch.kernels import build
+
+    src = os.path.abspath(src)
+    h = hashlib.sha1(open(src, "rb").read())
+    for header in sorted(glob.glob(os.path.join(os.path.dirname(src), "*.cuh"))):
+        h.update(open(header, "rb").read())
+    lib = build.BUILD_DIR / f"lib{tag}-{h.hexdigest()[:12]}.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not lib.exists():
+        res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), src],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+    return ctypes.CDLL(str(lib))
+
+
+EMPTY_KERNEL = """
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_kernel_ms(torch, timer) -> float:
+    """This timer's reading for an empty kernel (one CTA, launched through
+    ctypes like the port's kernels): the floor under every time it gives."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    src = build.BUILD_DIR / "empty_kernel.cu"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(EMPTY_KERNEL)
+    fn = nvcc_lib(str(src), "empty_kernel").empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    return timer(run)
+
+
 # ------------------------------------------------------------ phase 2
 
 def make_inputs(torch, B, Hkv, rep, D, S, seed):
@@ -226,10 +302,7 @@ def check_kernels(torch, timer, shapes):
         torch.cuda.synchronize()
         s = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
         kv = fr.masked_kv(s, lengths, SINK, RECENT, reduce)
-        # both sum the same exact f32 products (bf16 q × bf16 a) in other
-        # orders: |Δscore| <= D·2^-23 · rep · max Σ_d |q_d|·|a_td|
-        amax = (qk.scale.float().abs() + qk.zero.float().abs()).amax()
-        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        eps = score_eps(q, qk)
         ok, ndiff = selection_agrees(
             idx_k.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1),
             tau_k.reshape(-1), tau_p.reshape(-1), m_k.reshape(-1), m_p.reshape(-1),
@@ -337,11 +410,16 @@ def check_long_rows(torch, timer):
     """K1 and K3 beyond one CTA's shared memory and on a ragged split: K1
     against its plain version within ε, K3 bitwise K1 on a permuted pool
     with a null-block hole, and each timed in turns with its plain version
-    and ``torch.topk``.  Returns {kernel: {row name: row}}."""
+    and ``torch.topk``.  On the same rows K6 lies within ε of its plain
+    version and K7, on the masked kv scores, gives its plain version's τ
+    and m exactly (``long_500k``: every pass re-reads the row), each timed.
+    Returns {kernel: {row name: row}}."""
+    from repro_torch.kernels import fier_score as fs
     from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import topk_select as tk
     from repro_torch.kernels.check import selection_agrees
 
-    out = {"fier_retrieve": {}, "fier_retrieve_paged": {}}
+    out = {"fier_retrieve": {}, "fier_retrieve_paged": {}, "fier_score": {}, "topk_threshold": {}}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for name, (B, Hkv, rep, S), budget, lens in LONG_ROWS:
         D = 128
@@ -354,9 +432,35 @@ def check_long_rows(torch, timer):
         torch.cuda.synchronize()
         s = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
         kv_rows = fr.masked_kv(s, lengths, SINK, RECENT, "max").reshape(B * Hkv, S)
-        del s
-        amax = (qk.scale.float().abs() + qk.zero.float().abs()).amax()
-        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        eps = score_eps(q, qk)
+
+        # ---- K6 within ε of its plain version, K7 exactly its plain version's
+        sargs = (q, qk.codes, qk.scale, qk.zero)
+        s_k = fs.fier_score_scan(*sargs, group=GROUP)
+        tau7, m7 = tk.fier_topk_threshold(kv_rows, budget)
+        tau7_p, m7_p = tk.fier_topk_threshold_plain(kv_rows, budget)
+        torch.cuda.synchronize()
+        err6 = float((s_k - s).abs().max())
+        if not (err6 <= eps and torch.isfinite(s_k).all()):
+            raise AssertionError(f"K6 disagrees with its plain version on {name}: "
+                                 f"{err6:.3g} > {eps:.3g}")
+        if not (torch.equal(tau7, tau7_p) and torch.equal(m7, m7_p)):
+            raise AssertionError(f"K7 differs from its plain version on {name}")
+        log(f"  K6 {name} ({fs.score_plan(S, B * Hkv, n_sm)}): max |Δscore| {err6:.3g} "
+            f"(<= {eps:.3g}); K7 ({tk.topk_plan(S, B * Hkv, n_sm)}): tau and m equal to its "
+            f"plain version")
+        t6 = in_turns(timer, lambda: fs.retrieval_scores(*sargs, group=GROUP),
+                      lambda: fs.fier_score_scan(*sargs, group=GROUP), None)
+        t7 = in_turns(timer, lambda: tk.fier_topk_threshold_plain(kv_rows, budget),
+                      lambda: tk.fier_topk_threshold(kv_rows, budget),
+                      lambda: torch.topk(kv_rows, budget, dim=-1).values[:, -1])
+        out["fier_score"][name] = dict(
+            shape=(B, Hkv, rep, D, S), ms=t6["kernel"], plain_ms=t6["plain"], library_ms=None,
+            max_abs_err=err6, **score_work(*sargs, s_k))
+        out["topk_threshold"][name] = dict(
+            shape=(B, Hkv, rep, D, S), ms=t7["kernel"], plain_ms=t7["plain"],
+            library_ms=t7["library"], max_abs_err=0.0, **topk_work(kv_rows))
+        del s, s_k
         ok, ndiff = selection_agrees(
             idx1.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1), tau1.reshape(-1),
             tau_p.reshape(-1), m1.reshape(-1), m_p.reshape(-1), kv_rows, eps,
@@ -400,6 +504,97 @@ def check_long_rows(torch, timer):
             )
         del q, qk, pools, table, kv_rows
         torch.cuda.empty_cache()
+    for kname, rs in out.items():
+        finish_rows({f"{kname} {n}": [r] for n, r in rs.items()})
+    return out
+
+
+def topk_rows(torch, R, S, seed):
+    """Score rows [R, S] on the card built like the CPU tests' K7 rows:
+    quarter-step values (many exact ties), a ±0.0 mix, +inf sink and recent
+    windows before a −1e30 tail past a length, an all-tied row, a row with
+    fewer valid scores than the budget, alternating ±0.0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = np.round(rng.standard_normal((max(R, 5), S)) * 4) / 4
+    s[0, ::7] = 0.0
+    s[0, 3::7] = -0.0
+    n = S - S // 5  # row 1's length
+    s[1, :SINK] = np.inf
+    s[1, n - RECENT:n] = np.inf
+    s[1, n:] = -1e30
+    s[2, :] = 1.5
+    s[3, 700:] = -1e30
+    s[4, ::2] = -0.0
+    s[4, 1::2] = 0.0
+    return torch.from_numpy(s[-R:].astype(np.float32)).to(DEVICE)  # fewer than 5 rows: the last
+
+
+# K7 on adversarial rows (``topk_rows``): name, (rows, S).  One CTA per row
+# at S = 8192 (16 and 64 rows) and at an odd S, whose rows start off a
+# 16-byte boundary (4-byte copies at a range's ends); rows split over a
+# cluster (topk_plan: C = 2 at 64 rows of 16,384, C = 8 at 16 rows of
+# 65,536) with keys in shared memory, and at an odd S with a ragged last CTA.
+TOPK_ROWS = (
+    ("rows16_8192", (16, CAPACITY)),
+    ("rows64_8192", (64, CAPACITY)),
+    ("rows16_8191", (16, CAPACITY - 1)),
+    ("rows64_16384", (64, 2 * CAPACITY)),
+    ("rows16_65536", (16, 8 * CAPACITY)),
+    ("rows4_65533", (4, 8 * CAPACITY - 3)),
+)
+
+
+def check_score_topk_variants(torch, timer):
+    """K6 at the most query heads per kv head the kernel takes (rep 8,
+    ``fier_score.KERNEL_MAX_REP``) within ε of its plain version, and K7 on
+    ``TOPK_ROWS`` at budgets 1, 1024 and S: τ and m exactly its plain
+    version's; each timed (K7 at budget 1024).  Returns {kernel: {name: row}}."""
+    from repro_torch.kernels import fier_score as fs
+    from repro_torch.kernels import topk_select as tk
+
+    out = {"fier_score": {}, "topk_threshold": {}}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    B, Hkv, rep, D, S = SLOTS, 2, fs.KERNEL_MAX_REP, 128, CAPACITY
+    q, _, _, qk, _ = make_inputs(torch, B, Hkv, rep, D, S, seed=30)
+    args = (q, qk.codes, qk.scale, qk.zero)
+    s_k = fs.fier_score_scan(*args, group=GROUP)
+    s_p = fs.retrieval_scores(*args, group=GROUP)
+    torch.cuda.synchronize()
+    eps = score_eps(q, qk)
+    err = float((s_k - s_p).abs().max())
+    if not (err <= eps and torch.isfinite(s_k).all()):
+        raise AssertionError(f"K6 disagrees with its plain version at rep {rep}: "
+                             f"{err:.3g} > {eps:.3g}")
+    t = in_turns(timer, lambda: fs.retrieval_scores(*args, group=GROUP),
+                 lambda: fs.fier_score_scan(*args, group=GROUP), None)
+    out["fier_score"]["rep8"] = dict(
+        shape=(B, Hkv, rep, D, S), ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+        max_abs_err=err, **score_work(*args, s_k))
+    log(f"  K6 rep 8 {(B, Hkv, rep, D, S)} ({fs.score_plan(S, B * Hkv, n_sm)}): "
+        f"max |Δscore| {err:.3g} (<= {eps:.3g})")
+    del q, qk, args, s_k, s_p
+
+    for name, (R, S) in TOPK_ROWS:
+        rows = topk_rows(torch, R, S, seed=R + S)
+        for budget in (1, BUDGET, S):
+            tau, m = tk.fier_topk_threshold(rows, budget)
+            tau_p, m_p = tk.fier_topk_threshold_plain(rows, budget)
+            torch.cuda.synchronize()
+            if not (torch.equal(tau, tau_p) and torch.equal(m, m_p)):
+                bad = int(((tau != tau_p) | (m != m_p)).sum())
+                raise AssertionError(f"K7 differs from its plain version on {name} at budget "
+                                     f"{budget}: {bad} rows")
+        t = in_turns(timer, lambda: tk.fier_topk_threshold_plain(rows, BUDGET),
+                     lambda: tk.fier_topk_threshold(rows, BUDGET),
+                     lambda: torch.topk(rows, BUDGET, dim=-1).values[:, -1])
+        out["topk_threshold"][name] = dict(
+            shape=(R, S), ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+            max_abs_err=0.0, **topk_work(rows))
+        log(f"  K7 {name} ({tk.topk_plan(S, R, n_sm)}): tau and m equal to its plain version "
+            f"at budgets 1, {BUDGET}, {S}")
+        del rows
     for kname, rs in out.items():
         finish_rows({f"{kname} {n}": [r] for n, r in rs.items()})
     return out
@@ -483,8 +678,7 @@ def check_paged_kernels(torch, timer, shapes):
         # first half; K3 = K1 bitwise, so the same near-τ band applies here
         s = fr.retrieval_scores(q, sqk.codes, sqk.scale, sqk.zero, group=GROUP)
         kv = fr.masked_kv(s, lengths, SINK, RECENT, reduce)
-        amax = (sqk.scale.float().abs() + sqk.zero.float().abs()).amax()
-        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        eps = score_eps(q, sqk)
         from repro_torch.kernels.check import selection_agrees
 
         ok, ndiff = selection_agrees(
@@ -564,12 +758,36 @@ def byte_diff(torch, a, b) -> int:
     return int((as_bytes(a) != as_bytes(b)).sum())
 
 
-def check_unfused_kernels(torch, timer, shapes):
+def score_work(q, codes, scale, zero, out):
+    """Bytes and operations of one K6 call: its four inputs read once, the
+    f32 scores written once; 2·D operations per token and query head."""
+    B, Hkv, rep, D = q.shape
+    nbytes = sum(a.numel() * a.element_size() for a in (q, codes, scale, zero)) + out.numel() * 4
+    return dict(bytes=nbytes, flops=2 * B * Hkv * rep * out.shape[-1] * D)
+
+
+def topk_work(scores):
+    """Bytes of one K7 call: the f32 rows read once, τ and m written."""
+    return dict(bytes=scores.numel() * 4 + scores.shape[0] * 8, flops=0)
+
+
+def score_eps(q, qk):
+    """ε, the bound between a kernel's scores (K1/K3/K6) and its plain
+    version's: both sum the same exact f32 products (bf16 q × bf16 a) in
+    other orders, so |Δscore| <= D·2^-23 · rep · max Σ_d |q_d|·|a_td|."""
+    B, Hkv, rep, D = q.shape
+    amax = (qk.scale.float().abs() + qk.zero.float().abs()).amax()
+    return float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+
+
+def check_unfused_kernels(torch, timer, shapes, baseline=None):
     """K5–K8 against their plain versions, K8 bitwise against K2 on the same
     selection, and ``ops.fier_decode_two_pass`` against
     ``ops.fier_decode_one_pass``: idx, τ, m and output bit for bit under
     ``max``, the index set within ε of τ under ``sum`` (the group sum runs
-    in torch's order there, in K1's inside K1)."""
+    in torch's order there, in K1's inside K1).  ``baseline``
+    (``baseline_unfused``): K6 and K7 of another source, held bitwise to
+    these and timed in turns with them."""
     import torch.nn.functional as F
 
     from repro_torch.core import retrieval
@@ -584,6 +802,7 @@ def check_unfused_kernels(torch, timer, shapes):
     from repro_torch.kernels.check import selection_agrees
 
     rows = {"pack_quantize": [], "fier_score": [], "topk_threshold": [], "sparse_attention": []}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for (B, Hkv, rep, D, S, reduce) in shapes:
         q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=rep + 20)
         shape = (B, Hkv, rep, D, S)
@@ -621,20 +840,26 @@ def check_unfused_kernels(torch, timer, shapes):
         s_k = fs.fier_score_scan(*args, group=GROUP)
         s_p = fs.retrieval_scores(*args, group=GROUP)
         torch.cuda.synchronize()
-        amax = (qk.scale.float().abs() + qk.zero.float().abs()).amax()
-        eps = float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
+        eps = score_eps(q, qk)
         err = float((s_k - s_p).abs().max())
         if not (err <= eps and torch.isfinite(s_k).all()):
             raise AssertionError(f"K6 disagrees with its plain version at {shape}: "
                                  f"{err:.3g} > {eps:.3g}")
-        log(f"  K6 {shape}: max |Δscore| {err:.3g} (<= {eps:.3g})")
+        log(f"  K6 {shape} ({fs.score_plan(S, B * Hkv, n_sm)}): max |Δscore| {err:.3g} "
+            f"(<= {eps:.3g})")
         t = in_turns(timer, lambda: fs.retrieval_scores(*args, group=GROUP),
                      lambda: fs.fier_score_scan(*args, group=GROUP), None)
-        nbytes = sum(a.numel() * a.element_size() for a in args) + s_k.numel() * 4
-        rows["fier_score"].append(dict(
-            shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
-            bytes=nbytes, flops=2 * B * Hkv * rep * S * D, max_abs_err=err,
-        ))
+        row = dict(shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+                   max_abs_err=err, **score_work(*args, s_k))
+        if baseline is not None:
+            if not torch.equal(baseline["fier_score"](*args), s_k):
+                raise AssertionError(f"the baseline K6 differs from K6 at {shape}")
+            row["baseline_ms"], row["ms_in_turns"] = old_new(
+                timer, lambda: baseline["fier_score"](*args),
+                lambda: fs.fier_score_scan(*args, group=GROUP))
+            log(f"  K6 {shape} in turns with the baseline (bitwise equal): baseline "
+                f"{row['baseline_ms']:.4f} ms, K6 {row['ms_in_turns']:.4f} ms")
+        rows["fier_score"].append(row)
 
         # ---- K7: tau and m exactly its plain version's
         masked = fr.masked_kv(s_k, lengths, SINK, RECENT, reduce).reshape(B * Hkv, S)
@@ -643,15 +868,23 @@ def check_unfused_kernels(torch, timer, shapes):
         torch.cuda.synchronize()
         if not (torch.equal(tau_k, tau_p) and torch.equal(m_k, m_p)):
             raise AssertionError(f"K7 differs from its plain version at {shape}")
-        log(f"  K7 {shape} {reduce}: tau and m equal to its plain version")
+        log(f"  K7 {shape} {reduce} ({tk.topk_plan(S, B * Hkv, n_sm)}): tau and m equal to "
+            f"its plain version")
         t = in_turns(timer, lambda: tk.fier_topk_threshold_plain(masked, BUDGET),
                      lambda: tk.fier_topk_threshold(masked, BUDGET),
                      lambda: torch.topk(masked, BUDGET, dim=-1).values[:, -1])
-        rows["topk_threshold"].append(dict(
-            shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
-            bytes=masked.numel() * 4 + tau_k.numel() * 4 + m_k.numel() * 4, flops=0,
-            max_abs_err=0.0,
-        ))
+        row = dict(shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+                   max_abs_err=0.0, **topk_work(masked))
+        if baseline is not None:
+            old_tau, old_m = baseline["topk_threshold"](masked, BUDGET)
+            if not (torch.equal(old_tau, tau_k) and torch.equal(old_m, m_k)):
+                raise AssertionError(f"the baseline K7 differs from K7 at {shape}")
+            row["baseline_ms"], row["ms_in_turns"] = old_new(
+                timer, lambda: baseline["topk_threshold"](masked, BUDGET),
+                lambda: tk.fier_topk_threshold(masked, BUDGET))
+            log(f"  K7 {shape} in turns with the baseline (equal): baseline "
+                f"{row['baseline_ms']:.4f} ms, K7 {row['ms_in_turns']:.4f} ms")
+        rows["topk_threshold"].append(row)
 
         # ---- the two pipelines on one slab view
         view = CacheView.slab(K, V, qk, lengths)
@@ -769,19 +1002,8 @@ def baseline_attend(torch, path):
     part_md, out, B, S, bs, Hkv, rep, D, budget, scale, stream)``.  For
     timing the two side by side in one run; nothing else calls it."""
     import ctypes
-    import hashlib
 
-    from repro_torch.kernels import build
-
-    src = os.path.abspath(path)
-    digest = hashlib.sha1(open(src, "rb").read()).hexdigest()[:12]
-    lib = build.BUILD_DIR / f"libfier_attend_baseline-{digest}.so"
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), src],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the baseline {src}:\n{res.stderr}")
-    fn = ctypes.CDLL(str(lib)).fier_attend_launch
+    fn = nvcc_lib(path, "fier_attend_baseline").fier_attend_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     tile = 64  # selected rows per block of its partial pass
@@ -803,6 +1025,41 @@ def baseline_attend(torch, path):
         return out
 
     return run
+
+
+def baseline_unfused(torch, path):
+    """K6 and K7 built from another directory's ``fier_score.cu`` and
+    ``fier_topk.cu`` (with their headers) with the interfaces these kernels
+    replaced: ``fier_score_launch(q, codes, scale, zero, out, B, S, Hkv,
+    rep, D, group, stream)`` and ``fier_topk_launch(scores, tau, m, rows, S,
+    budget, stream)``.  For timing them in turns with this checkout's
+    kernels; nothing else calls them.  Returns {kernel name: callable}."""
+    import ctypes
+
+    score = nvcc_lib(os.path.join(path, "fier_score.cu"), "fier_score_baseline").fier_score_launch
+    score.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    topk = nvcc_lib(os.path.join(path, "fier_topk.cu"), "fier_topk_baseline").fier_topk_launch
+    topk.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def run_score(q, codes, scale, zero):
+        B, Hkv, rep, D = q.shape
+        S = codes.shape[1] * 8
+        out = torch.empty((B, Hkv, rep, S), dtype=torch.float32, device=q.device)
+        if score(q.data_ptr(), codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+                 out.data_ptr(), B, S, Hkv, rep, D, GROUP, stream()) != 0:
+            raise RuntimeError("baseline K6 launch failed")
+        return out
+
+    def run_topk(scores, budget):
+        R, S = scores.shape
+        tau = torch.empty((R,), dtype=torch.float32, device=scores.device)
+        m = torch.empty((R,), dtype=torch.int32, device=scores.device)
+        if topk(scores.data_ptr(), tau.data_ptr(), m.data_ptr(), R, S, budget, stream()) != 0:
+            raise RuntimeError("baseline K7 launch failed")
+        return tau, m
+
+    return {"fier_score": run_score, "topk_threshold": run_topk}
 
 
 def check_attend_variants(torch, timer, baseline=None):
@@ -882,13 +1139,9 @@ def check_attend_variants(torch, timer, baseline=None):
             old_err = float((old - out2).abs().max())
             if not old_err <= 2 * K2_REL_TOL * scale:
                 raise AssertionError(f"the baseline K2 disagrees with K2 at {name}: {old_err:.3g}")
-            t = {"old": [], "new": []}
-            for which in ("old", "new", "new", "old"):
-                fn = (lambda: baseline(q, K, V, idx, lengths)) if which == "old" else (
-                    lambda: sa.fier_attend_selected(q, K, V, idx, lengths))
-                t[which].append(timer(fn))
-            row["baseline_ms"] = sum(t["old"]) / 2
-            row["ms_in_turns"] = sum(t["new"]) / 2
+            row["baseline_ms"], row["ms_in_turns"] = old_new(
+                timer, lambda: baseline(q, K, V, idx, lengths),
+                lambda: sa.fier_attend_selected(q, K, V, idx, lengths))
             line += (f"; in turns with the baseline: baseline {row['baseline_ms']:.4f} ms, "
                      f"K2 {row['ms_in_turns']:.4f} ms")
         log(line)
@@ -1425,6 +1678,11 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
     return errs, lg1
 
 
+# the CUDA kernels' function names in csrc/ (profiler rows)
+PORT_KERNEL_NAMES = ("fier_retrieve_kernel", "fier_attend_kernel", "fier_score_kernel",
+                     "topk_threshold_kernel", "pack_quantize_kernel")
+
+
 def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
     """Device busy share of decode steps, their kernel launches and the
     kernels that fill them (torch.profiler; the profiler's own overhead
@@ -1462,9 +1720,12 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
         f"device busy {busy_us / steps / 1e3:.3f} ms/step "
         f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle), "
         f"{n_kernels // steps} kernel launches/step")
-    for e in sorted(events, key=dev, reverse=True)[:10]:
-        log(f"    {dev(e) / steps / 1e3:8.3f} ms/step  {e.count // steps:5d} calls/step  "
-            f"{e.key[:90]}")
+    ranked = sorted(events, key=dev, reverse=True)
+    # the ten largest rows, and every kernel of the port's own below them
+    for i, e in enumerate(ranked):
+        if i < 10 or any(k in e.key for k in PORT_KERNEL_NAMES):
+            log(f"    {dev(e) / steps / 1e3:8.3f} ms/step  {e.count // steps:5d} calls/step  "
+                f"{e.key[:90]}")
 
 
 # ------------------------------------------------------------ phase 6
@@ -1723,9 +1984,15 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"[setup] ptxas {name}: {line.strip()}")
+            if "stack frame" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+                raise AssertionError(f"{name}: a kernel uses local memory: {line.strip()}")
 
     log("[kernels] each kernel against its plain version")
     timer = Timer(torch)
+    empty_ms = empty_kernel_ms(torch, timer)
+    log(f"  an empty kernel (one CTA, launched through ctypes) reads {empty_ms:.4f} ms in this "
+        f"timer: the floor under every kernel time below")
     shapes = [
         (SLOTS, 16, 1, 128, CAPACITY, "max"),   # olmo-1b main path (MHA)
         (SLOTS, 4, 4, 128, CAPACITY, "sum"),    # GQA
@@ -1736,7 +2003,13 @@ def main() -> int:
     log("[kernels] K1/K3 on long and ragged rows")
     long_rows = check_long_rows(torch, timer)
     log("[kernels] K5-K8 and two_pass vs one_pass")
-    rows.update(check_unfused_kernels(torch, timer, shapes))
+    unfused_base = None
+    if "--baseline-unfused" in sys.argv:
+        unfused_base = baseline_unfused(torch, sys.argv[sys.argv.index("--baseline-unfused") + 1])
+    rows.update(check_unfused_kernels(torch, timer, shapes, unfused_base))
+    log("[kernels] K6 at rep 8, K7 on adversarial rows")
+    for kname, rs in check_score_topk_variants(torch, timer).items():
+        long_rows[kname].update(rs)
     log("[kernels] K2/K4/K8 at every admitted rep, budgets 512 and 1000, determinism")
     baseline = None
     if "--baseline-attend" in sys.argv:
@@ -1803,8 +2076,11 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "check": "pass",
             "gqa_ms": rs[1]["ms"], "gqa_bound_ms": rs[1]["bound_ms"],
-            "launches_run": launch_runs[name],
+            "launches_run": launch_runs[name], "empty_kernel_ms": empty_ms,
         }
+        for k in ("baseline_ms", "ms_in_turns"):
+            if k in r:
+                row[k], row["gqa_" + k] = r[k], rs[1][k]
         if "bound_full_ms" in r:
             row["bound_full_ms"] = r["bound_full_ms"]
         for lname, lr in long_rows.get(name, {}).items():

@@ -13,6 +13,7 @@ failed compile raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -76,6 +77,20 @@ def build(names=SOURCES) -> dict[str, tuple[float, str]]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return built
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device (the kernels' plans size grids by it)."""
+    import torch
+
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,17 +8,29 @@
 // (2 x S/g x D x 2 bytes) once and writes rep x S f32 scores; at the serving
 // shape (B = 4, Hkv = 16, rep = 1, S = 8192, D = 128, g = 32) that is
 // 18.9 MB per call, about 5.6 us at 3.35 TB/s.  The arithmetic (D
-// multiply-adds per token and query head) is far below the card's rate.
+// multiply-adds per token and query head) is far below the card's f32 rate,
+// but the scoring warp's issue slots (a 16-entry sum table, 32 lookups and
+// a 31-step reduce-scatter per chunk and query head) come close to the
+// byte time.
 //
-// Design.  Unlike K1, tokens are independent here, so a row is spread over
-// many blocks: block (row, y) scores tokens [512y, 512y + 512) with 8 warps,
-// each warp a 32-token chunk at a time.  A chunk is loaded and scored by the
-// device functions K1 uses (fier_common.cuh: load_chunk, score_chunk), from
-// the seq-major [B, S/8, Hkv, D] / [B, S/g, Hkv, D] side-car directly, so
-// every score equals K1's internal score of that token and query head bit
-// for bit.  Lane l stores token 32c + l of each query head: 128 contiguous
-// bytes per warp and head.  B x Hkv x S/512 blocks (1024 at the serving
-// shape) fill the 132 SMs.
+// Design.  One resident wave: fier_score.score_plan splits each row into
+// `parts` contiguous runs of `part_chunks` 32-token chunks and launches at
+// most one CTA per SM (512 threads, 256 when g is not a multiple of 32); a
+// CTA walks the (row, part) units blockIdx.x, + gridDim.x, ... (one unit
+// per CTA when rows x parts <= the SM count: 2 x 64 = 128 CTAs at the
+// serving shape).  Per unit the CTA stages q once; each warp then scores
+// the unit's chunks c0 + warp, + kWarps, ... and loads the next chunk's
+// code words and scale/zero (a register double buffer, as K1's) before it
+// scores the current one, so every warp keeps a chunk's bytes in flight.  A
+// chunk is loaded and scored by the device functions K1 uses
+// (fier_common.cuh: load_chunk, score_chunk), from the seq-major
+// [B, S/8, Hkv, D] / [B, S/g, Hkv, D] side-car directly, so every score
+// equals K1's internal score of that token and query head bit for bit.
+// Lane l stores token 32c + l of each query head: 128 contiguous bytes per
+// warp and head.  A warp reads 128 contiguous code bytes per byte-row and
+// 256 of scale and of zero per group: every 32-byte sector it touches is
+// used whole, so a CTA keeps to one kv head (q of one head staged, the rows
+// split evenly) rather than reading whole 2 KB byte-rows of all heads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -30,68 +42,86 @@ namespace {
 
 using namespace fier;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockTokens = 512;
-constexpr int kBlockChunks = kBlockTokens / 32;
+// Threads per CTA: 512 (one CTA per SM, 128 registers) when a chunk has one
+// group, else 256, so that the 4-group chunk's double buffer fits registers.
+template <int kGroups>
+__host__ __device__ constexpr int threads_for() { return kGroups == 1 ? 512 : 256; }
 
 template <int kGroups>  // Chunk<kGroups>: 1 when group % 32 == 0, else 4
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads_for<kGroups>(), 1)
 fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
                   const uint8_t* __restrict__ codes,        // [B, S/8, Hkv, D]
                   const __nv_bfloat16* __restrict__ scale,  // [B, S/g, Hkv, D]
                   const __nv_bfloat16* __restrict__ zero,   // [B, S/g, Hkv, D]
                   float* __restrict__ out,                  // [B, Hkv, rep, S]
-                  int S, int Hkv, int rep, int group) {
+                  int rows, int S, int Hkv, int rep, int group, int parts, int part_chunks) {
   constexpr int D = kD;
+  constexpr int kThreads = threads_for<kGroups>();
+  constexpr int kWarps = kThreads / 32;
   __shared__ float q_s[kMaxRep * kD];
   __shared__ float tabs[kWarps * kTableFloats];  // score_chunk's sums, per warp
 
-  const int row = blockIdx.x;  // b * Hkv + h
-  const int b = row / Hkv;
-  const int h = row - b * Hkv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int S8 = S >> 3;
-
-  for (int i = tid; i < rep * D; i += kThreads)
-    q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);
-  __syncthreads();
-
-  auto code_row = [&](int i) -> size_t { return (size_t)b * S8 + i; };
-  auto group_row = [&](int t) -> size_t { return (size_t)b * (S / group) + t / group; };
-  const size_t row_stride = (size_t)Hkv * D;
-  const size_t lane_off = (size_t)h * D + lane * kDPL;
-  float* out_row = out + (size_t)row * rep * S;
-
   const int n_chunks = (S + 31) / 32;
-  const int c0 = blockIdx.y * kBlockChunks;
-  const int c1 = min(n_chunks, c0 + kBlockChunks);
-  for (int c = c0 + warp; c < c1; c += kWarps) {  // warp-uniform trip count
-    Chunk<kGroups> ch;
-    load_chunk(ch, c, S8, codes + lane_off, scale + lane_off, zero + lane_off,
-               row_stride, code_row, group_row);
-    const int pos = c * 32 + lane;
-    for (int r = 0; r < rep; ++r) {
-      const float s = score_chunk(ch, q_s + r * D, lane, tabs + warp * kTableFloats);
-      if (pos < S) out_row[(size_t)r * S + pos] = s;
+  const size_t row_stride = (size_t)Hkv * D;  // elements between seq rows
+
+  for (int u = blockIdx.x; u < rows * parts; u += gridDim.x) {
+    const int row = u / parts;  // b * Hkv + h
+    const int b = row / Hkv;
+    const int h = row - b * Hkv;
+    __syncthreads();  // every warp is done with the previous unit's q
+    for (int i = tid; i < rep * D; i += kThreads)
+      q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);
+    __syncthreads();
+
+    auto code_row = [&](int i) -> size_t { return (size_t)b * S8 + i; };
+    auto group_row = [&](int t) -> size_t { return (size_t)b * (S / group) + t / group; };
+    const size_t lane_off = (size_t)h * D + lane * kDPL;
+    const uint8_t* codes_h = codes + lane_off;
+    const __nv_bfloat16* scale_h = scale + lane_off;
+    const __nv_bfloat16* zero_h = zero + lane_off;
+    float* out_row = out + (size_t)row * rep * S;
+
+    const int c0 = (u - row * parts) * part_chunks;
+    const int c1 = min(n_chunks, c0 + part_chunks);
+    int c = c0 + warp;
+    Chunk<kGroups> cur, nxt;
+    if (c < c1) load_chunk(cur, c, S8, codes_h, scale_h, zero_h, row_stride, code_row, group_row);
+    for (; c < c1; c += kWarps) {  // warp-uniform trip count
+      if (c + kWarps < c1)
+        load_chunk(nxt, c + kWarps, S8, codes_h, scale_h, zero_h, row_stride, code_row,
+                   group_row);
+      const int pos = c * 32 + lane;
+      for (int r = 0; r < rep; ++r) {
+        const float s = score_chunk(cur, q_s + r * D, lane, tabs + warp * kTableFloats);
+        if (pos < S) out_row[(size_t)r * S + pos] = s;
+      }
+      cur = nxt;
     }
   }
 }
 
 }  // namespace
 
+// Each of the B x Hkv rows is split into `parts` runs of `part_chunks`
+// 32-token chunks, and `grid` CTAs walk the units (fier_score.score_plan).
 extern "C" int fier_score_launch(const void* q, const void* codes, const void* scale,
                                  const void* zero, void* out, int B, int S, int Hkv, int rep,
-                                 int D, int group, void* stream) {
+                                 int D, int group, int parts, int part_chunks, int grid,
+                                 void* stream) {
   if (rep < 1 || rep > kMaxRep || D != kD || group <= 0 || group % 8 || S % group)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(B * Hkv, (S + kBlockTokens - 1) / kBlockTokens);
-  auto kernel = group % 32 == 0 ? &fier_score_kernel<1> : &fier_score_kernel<4>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (parts < 1 || part_chunks < 1 || (long long)parts * part_chunks * 32 < S || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool one = group % 32 == 0;
+  auto kernel = one ? &fier_score_kernel<1> : &fier_score_kernel<4>;
+  kernel<<<grid, one ? threads_for<1>() : threads_for<4>(), 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(codes),
       static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(zero),
-      static_cast<float*>(out), S, Hkv, rep, group);
+      static_cast<float*>(out), B * Hkv, S, Hkv, rep, group, parts, part_chunks);
   return (int)cudaGetLastError();
 }

@@ -12,14 +12,16 @@ must not run in TF32: torch's matmul default keeps full f32, and
 
 ``fier_score_scan`` reads the seq-major side-car directly (codes
 [B, S/8, Hkv, D], scale/zero [B, S/g, Hkv, D]) and writes f32 scores
-[B, Hkv, rep, S].  On a CUDA tensor it launches ``csrc/fier_score.cu``,
-which scores each 32-token chunk with the device function K1 uses, so its
-scores are K1's internal scores bit for bit; on a CPU tensor it runs
-:func:`retrieval_scores`, its plain version.
+[B, Hkv, rep, S].  On a CUDA tensor it launches ``csrc/fier_score.cu``
+in one resident wave (:func:`score_plan`), which scores each 32-token chunk
+with the device function K1 uses, so its scores are K1's internal scores
+bit for bit; on a CPU tensor it runs :func:`retrieval_scores`, its plain
+version.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -90,6 +92,32 @@ def _check(q, codes, scale, zero, group):
     return B, Hkv, rep, D, S
 
 
+class ScorePlan(NamedTuple):
+    """How the CUDA kernel spreads the rows' chunks over the SMs."""
+
+    parts: int  # runs of chunks each row is split into
+    part_chunks: int  # 32-token chunks of each run (the last may be shorter)
+    grid: int  # CTAs, one per SM at most: each walks units grid apart
+
+    def ranges(self, S: int) -> list[tuple[int, int]]:
+        """The token range [t0, t1) of each part of a row, in order."""
+        T = self.part_chunks * 32
+        return [(min(p * T, S), min((p + 1) * T, S)) for p in range(self.parts)]
+
+
+def score_plan(S: int, rows: int, n_sm: int) -> ScorePlan:
+    """The split of ``rows`` score rows of S tokens on a card of ``n_sm``
+    SMs: each row into as many equal runs of chunks as one CTA per SM
+    allows (at least one run, at most one chunk each), and a grid of at
+    most ``n_sm`` CTAs, so every CTA is resident at once; with more rows
+    than SMs, a CTA scores several (row, run) units in turn."""
+    chunks = -(-S // 32)
+    parts = min(max(1, n_sm // rows), chunks)
+    part_chunks = -(-chunks // parts)
+    parts = -(-chunks // part_chunks)  # no empty run
+    return ScorePlan(parts, part_chunks, min(rows * parts, n_sm))
+
+
 _fn = None
 
 
@@ -97,7 +125,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("fier_score").fier_score_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -123,13 +151,15 @@ def fier_score_scan(q, codes, scale, zero, *, group: int) -> torch.Tensor:
     if rep > KERNEL_MAX_REP:
         raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query "
                          f"heads per kv head, got {rep}")
+    n_sm = build.sm_count(dev)
+    plan = score_plan(S, B * Hkv, n_sm)
     q = q.to(torch.bfloat16).contiguous()
     codes, scale, zero = codes.contiguous(), scale.contiguous(), zero.contiguous()
     out = torch.empty((B, Hkv, rep, S), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(
         q.data_ptr(), codes.data_ptr(), scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-        B, S, Hkv, rep, D, group, stream,
+        B, S, Hkv, rep, D, group, plan.parts, plan.part_chunks, plan.grid, stream,
     )
     if err != 0:
         raise RuntimeError(f"fier_score_scan kernel launch failed: cudaError {err}")

@@ -29,7 +29,6 @@ pool (``gather_block_rows``) and runs K1's.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -103,11 +102,6 @@ def retrieval_plan(S: int, rows: int, n_sm: int, bs: int | None = None) -> Retri
         raise ValueError(f"S={S}: a CTA's {T}-token range needs {smem} bytes of block "
                          f"table in shared memory, more than {SMEM_LIMIT - SMEM_STATIC}")
     return RetrievalPlan(c, T, smem_keys, smem)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def masked_kv(
@@ -245,7 +239,7 @@ def fier_retrieve(
     if rep > KERNEL_MAX_REP:
         raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query "
                          f"heads per kv head, got {rep}")
-    n_sm = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    n_sm = build.sm_count(dev)
     plan = retrieval_plan(S, B * Hkv, n_sm, bs if paged else None)
     q = q.to(torch.bfloat16).contiguous()
     codes, scale, zero = codes.contiguous(), scale.contiguous(), zero.contiguous()

@@ -48,7 +48,6 @@ from repro_torch.kvcache.paged import gather_block_rows
 from repro_torch.obs.flopcount import kernel_leaf
 
 from . import build
-from .fused_retrieval import _sm_count
 
 launches = 0  # K2 kernel launches since the last reset (the chip check reads it)
 launches_paged = 0  # K4 kernel launches since the last reset
@@ -202,7 +201,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _plan(dev, rows: int, budget: int, rep: int) -> AttendPlan:
-    n_sm = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    n_sm = build.sm_count(dev)
     return attend_plan(budget, rows, n_sm, rep)
 
 

@@ -11,8 +11,10 @@ the same keys in registers (``csrc/fier_common.cuh``).
 
 ``fier_topk_threshold`` takes masked f32 scores [R, S] and returns τ, the
 budget-th largest score, and m, the count strictly greater.  On a CUDA
-tensor it launches ``csrc/fier_topk.cu`` (K1's radix-256 passes over the
-row in device memory); on a CPU tensor it runs
+tensor it launches ``csrc/fier_topk.cu``: K1's radix-256 passes over a row
+read once into shared memory, by one CTA or, for a long row, split across a
+thread-block cluster as :func:`topk_plan` says (re-read from device memory
+on every pass where 8 CTAs cannot hold a row); on a CPU tensor it runs
 :func:`fier_topk_threshold_plain`, a sort.  The index set
 { s > τ } ∪ the first (budget − m) ties is :func:`compact_indices`, plain
 torch as the reference leaves it to jnp.
@@ -20,6 +22,7 @@ torch as the reference leaves it to jnp.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -87,6 +90,53 @@ def compact_indices(
     return out[:, :budget]
 
 
+# shared memory a CTA may use on sm_90, and a bound on what the kernel keeps
+# beside its keys (one radix histogram per pass, their cluster sum and the
+# selected digit; a static_assert in the .cu holds it to this bound)
+SMEM_LIMIT = 232448
+SMEM_STATIC = 6144
+MAX_CLUSTER = 8  # CTAs per row: the portable cluster size
+# a row of more scores than this is split over a cluster: below it, the
+# cluster barrier of each radix pass (about 4 µs in all on an H100) costs
+# more than a CTA's share of the row saves (PERF.md)
+SPLIT_KEYS = 12288
+
+
+class TopkPlan(NamedTuple):
+    """How the CUDA kernel splits each score row."""
+
+    cluster: int  # CTAs per row, one thread-block cluster
+    cta_tokens: int  # scores of the row each CTA owns (a multiple of 32)
+    smem_keys: bool  # keys in shared memory; False: every pass re-reads the row
+    smem_bytes: int  # dynamic shared memory of each CTA
+
+    def ranges(self, S: int) -> list[tuple[int, int]]:
+        """The score range [t0, t1) of each CTA, in rank order."""
+        T = self.cta_tokens
+        return [(min(r * T, S), min((r + 1) * T, S)) for r in range(self.cluster)]
+
+
+def topk_plan(S: int, rows: int, n_sm: int) -> TopkPlan:
+    """The split of a row of S scores for ``rows`` rows on a card of ``n_sm``
+    SMs.  A row of at most ``SPLIT_KEYS`` scores takes one CTA; a longer one
+    the largest power of two C ≤ 8 whose grid ``rows·C`` still runs in one
+    wave of one CTA per SM.  C is then doubled (up to 8) while a CTA's keys
+    (4 bytes each, plus 16 bytes of alignment slack) do not fit its shared
+    memory; where even 8 CTAs cannot hold a row's keys, every pass re-reads
+    the row from device memory instead."""
+    chunks = -(-S // 32)
+    tokens = lambda c: -(-chunks // c) * 32
+    keys = lambda c: 4 * tokens(c) + 16
+    fits = lambda c: SMEM_STATIC + keys(c) <= SMEM_LIMIT
+    c = 1
+    while S > SPLIT_KEYS and c < MAX_CLUSTER and rows * 2 * c <= n_sm:
+        c *= 2
+    while c < MAX_CLUSTER and not fits(c):
+        c *= 2
+    smem_keys = fits(c)
+    return TopkPlan(c, tokens(c), smem_keys, keys(c) if smem_keys else 0)
+
+
 _fn = None
 
 
@@ -94,7 +144,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = build.load("fier_topk").fier_topk_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -116,11 +166,14 @@ def fier_topk_threshold(scores: torch.Tensor, budget: int):
         return fier_topk_threshold_plain(scores, budget)
     if dev.type != "cuda":
         raise ValueError(f"fier_topk_threshold runs on cuda or cpu, not {dev}")
+    n_sm = build.sm_count(dev)
+    plan = topk_plan(S, R, n_sm)
     scores = scores.contiguous()
     tau = torch.empty((R,), dtype=torch.float32, device=dev)
     m = torch.empty((R,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(scores.data_ptr(), tau.data_ptr(), m.data_ptr(), R, S, budget, stream)
+    err = _kernel()(scores.data_ptr(), tau.data_ptr(), m.data_ptr(), R, S, budget,
+                    plan.cluster, plan.cta_tokens, int(plan.smem_keys), stream)
     if err != 0:
         raise RuntimeError(f"fier_topk_threshold kernel launch failed: cudaError {err}")
     launches += 1

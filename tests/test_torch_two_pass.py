@@ -51,7 +51,9 @@ from repro_torch.core import retrieval
 from repro_torch.core.policy import CacheView, DecodePlan, PolicyConfig, decode_attention
 from repro_torch.core.quantize import QuantizedKeys
 from repro_torch.kernels import launch_counts, ops
+from repro_torch.kernels import fier_score as fs
 from repro_torch.kernels import sparse_attention as sa
+from repro_torch.kernels import topk_select as tk
 from repro_torch.kernels.fier_score import fier_score_scan
 from repro_torch.kernels.pack_quantize import fier_pack_quantize
 from repro_torch.kernels.topk_select import compact_indices, fier_topk_threshold
@@ -165,6 +167,82 @@ def test_k7_plain_matches_topk_threshold_hm(budget):
     idx = compact_indices(torch.from_numpy(s), tau, m, budget)
     j_idx = jcompact(jnp.asarray(s), j_tau, j_m, budget)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+
+
+def _topk_keys_fit(S, C):
+    """Whether a C-CTA split of an S-score row keeps its keys in shared memory."""
+    T = -(-(-(-S // 32)) // C) * 32
+    return tk.SMEM_STATIC + 4 * T + 16 <= tk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("rows", [1, 16, 64, 200])
+@pytest.mark.parametrize("S", [32, 96, 255, 8160, 8191, 8192, 12288, 12289, 65536, 452544,
+                               452576, 524288])
+def test_topk_plan_splits_rows(S, rows):
+    """K7's split of a row over a cluster: the CTAs' ranges cover [0, S) in
+    rank order without overlap or an empty CTA, each CTA's shared memory
+    fits the 232,448 bytes of sm_90, a row of at most SPLIT_KEYS scores
+    whose keys fit takes one CTA, a longer one as many CTAs (up to 8) as one
+    wave of one CTA per SM on 132 SMs allows, more than one wave only where
+    memory needs it, and the re-read path (no keys in shared memory) is
+    taken exactly when 8 CTAs cannot hold the row's keys."""
+    plan = tk.topk_plan(S, rows, 132)
+    C, T = plan.cluster, plan.cta_tokens
+    assert C in (1, 2, 4, 8) and C <= tk.MAX_CLUSTER and T % 32 == 0 and C * T >= S
+    ranges = plan.ranges(S)
+    assert ranges[0][0] == 0 and ranges[-1][1] == S
+    assert all(t0 < t1 for t0, t1 in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert tk.SMEM_STATIC + plan.smem_bytes <= 232448
+    assert plan.smem_keys == _topk_keys_fit(S, 8)
+    assert plan.smem_bytes == (4 * T + 16 if plan.smem_keys else 0)
+    if S <= tk.SPLIT_KEYS and _topk_keys_fit(S, 1):
+        assert C == 1
+    if C > 1:  # split only for a long row or for memory
+        assert S > tk.SPLIT_KEYS or not _topk_keys_fit(S, C // 2)
+    if rows * C > 132:  # more than one wave only where memory needs it
+        assert C == 1 or not _topk_keys_fit(S, C // 2)
+    if S > tk.SPLIT_KEYS and C < tk.MAX_CLUSTER:  # as wide as one wave allows
+        assert rows * 2 * C > 132
+
+
+@pytest.mark.parametrize("rows", [1, 16, 64, 200])
+@pytest.mark.parametrize("S", [32, 96, 8160, 8192, 524288])
+def test_score_plan_spreads_rows(S, rows):
+    """K6's grid: each row's runs of chunks cover [0, S) in order without
+    overlap or an empty run, the grid is at most one CTA per SM on 132 SMs
+    (so every CTA is resident at once) and walks all rows × runs units, and
+    a row is split as far as one CTA per SM allows."""
+    plan = fs.score_plan(S, rows, 132)
+    chunks = -(-S // 32)
+    ranges = plan.ranges(S)
+    assert len(ranges) == plan.parts and ranges[0][0] == 0 and ranges[-1][1] == S
+    assert all(t0 < t1 and t0 % 32 == 0 for t0, t1 in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert 1 <= plan.grid <= 132 and plan.grid == min(rows * plan.parts, 132)
+    allowed = max(1, 132 // rows)  # runs per row that keep one CTA per SM
+    assert plan.parts <= allowed and plan.parts <= chunks
+    # as short as allowed: shorter runs would need more runs than that
+    assert plan.part_chunks == 1 or -(-chunks // (plan.part_chunks - 1)) > allowed
+
+
+def test_topk_wrapper_takes_long_rows():
+    """A long_500k row (524,288 scores, beyond what 8 CTAs' shared memory
+    holds) passes K7's wrapper: here, on the CPU, through the plain version,
+    whose τ and m equal a numpy sort's; on the card the plan takes the
+    re-read path."""
+    S, budget = 524288, 4096
+    rng = np.random.default_rng(5)
+    s = (np.round(rng.standard_normal((2, S)) * 64) / 64).astype(np.float32)  # ties
+    s[1, S - 1000:] = -1e30
+    s[1, :4] = np.inf
+    tau, m = fier_topk_threshold(torch.from_numpy(s), budget)
+    assert launch_counts()["topk_threshold"] == 0
+    want = -np.sort(-s, axis=1)[:, budget - 1]
+    np.testing.assert_array_equal(tau.numpy(), want)
+    np.testing.assert_array_equal(m.numpy(), (s > want[:, None]).sum(1).astype(np.int32))
+    assert not tk.topk_plan(S, 16, 132).smem_keys
+    assert tk.topk_plan(8192, 64, 132).smem_keys
 
 
 # ---------------------------------------------------------------- K8
