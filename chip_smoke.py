@@ -101,7 +101,46 @@ result line):
    must read 0 for one_pass (slab and paged) and at least 2·4·Hq·S·B for
    two_pass.  two_pass and one_pass decode steps are then timed in turns and
    profiled (information, no gate).
-7. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+7. The paper's baselines at full width (``baselines_path``): quest (page
+   16), slm (sink 4) and FIER one_pass slab engines on phase 3's weights and
+   prompts, budget 1024, skip 2.  Quest's first decode step runs every quest
+   layer on the card and on a CPU copy of the same inputs (page sets equal
+   up to near-ties within ε of the n_pages-th score, outputs within
+   1e-4·max|out|), and its page sets equal, up to the same near-ties, a
+   plain top-k over page bounds read from the keys on the card; quest and
+   slm at budget = capacity give the ``full`` engine's first-step logits
+   within 0.015·max|logit| (quest's reading with one page planted out of
+   its choice is reported beside it); quest and slm launch
+   none of K1–K8 (their first steps counted alone, then 16 steps of each
+   engine in turns, timed, with only FIER's K1/K2 launched); the eviction
+   family (StreamingLLM mask, SnapKV, 32 steps each of H2O and TOVA) on
+   layer 2's cache of slot 0 gives equal alive sets on the card and a CPU
+   copy, keeps its budget after every step, and evicts the first of tied
+   minima on the card; each deprecated shim of ``kernels.ops`` warns once,
+   launches its K1–K4 kernels once each and equals its CacheView call bit
+   for bit (outside every counted window); a FIER plan over a card view
+   without its side-car raises.  The three engines' decode steps are
+   profiled (information).
+8. Robustness at full width (``robustness_path``): phase 5's stream again
+   with a 256-block host tier and a TTL of 4 virtual-clock units, plus one
+   late family-prefix request (phase 5's order recalls nothing), must
+   pass phase 5's gates, give phase 5's tokens, give the late request the
+   tokens it gets alone on a fresh engine without a host tier, and recall
+   blocks, each read
+   back with 0 bytes changed in every pool leaf (transfer rates, recall ms
+   per block and the share of it overlapping the commit into the pool from
+   the tier's CUDA events); a seeded chaos run (``ServingFaultInjector.
+   random(seed=0)``, five faults over the five kinds) on that engine's
+   configuration with the ladder off must fire every fault, end every
+   request with a structured outcome, give the requests that no fault names
+   and nothing preempted the fault-free run's tokens, give the preempted
+   ones that no fault names those tokens up to their first preemption, and
+   audit clean; ``Observability(introspect=
+   True)`` on phase 3's slab engine for 8 steps must give every
+   ``ProbeRecord`` in range (mean overlap and mass reported), and K1/K3 on a
+   slot that ``corrupt_slot_metadata`` scrambled must lie within ε of their
+   plain versions.
+9. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5; K6/K7: phase 6's
    generate; K5/K8: phase 6's building blocks), the card line, and as the
    last line ``{"ok": true, "device": {...}}``.
@@ -125,6 +164,7 @@ F32_FLOPS = 67e12
 SLOTS, CAPACITY, GROUP, BUDGET, SINK, RECENT = 4, 8192, 32, 1024, 4, 64
 BLOCK_SIZE = 32
 DEVICE = "cuda"
+CARD = "not read"  # the nvidia-smi card line, read in main()
 N_LAYERS, SKIP = 16, 2
 PROMPTS = (7900, 6000, 4000, 1500)
 FIFTH_PROMPT = 3000
@@ -1389,7 +1429,8 @@ def stream_requests(vocab, family=4096, own=(250, 256), distinct=(7000, 5000, 30
 
 
 def serve_stream(torch, cfg, params, *, n_slots=8, capacity=CAPACITY, pool_blocks=621,
-                 chunk_tokens=2048, requests=None):
+                 chunk_tokens=2048, requests=None, engine_kwargs=None, setup=None,
+                 finish=None, late=()):
     """``ContinuousScheduler`` over a paged engine with a tight pool: every
     request must finish, the audit must be clean with no block in use, the
     prefix cache, the full-prompt replay and copy-on-write must all have
@@ -1398,7 +1439,13 @@ def serve_stream(torch, cfg, params, *, n_slots=8, capacity=CAPACITY, pool_block
     must have launched 14 × the decode steps.  The first decode step at each
     budget the engine serves (the full one and every downshifted rung) runs
     K3 and K4 beside their plain versions on the engine's own tensors
-    (``checked_kernels``; the served tokens stay the kernels')."""
+    (``checked_kernels``; the served tokens stay the kernels').
+
+    ``engine_kwargs`` go to ``Engine.build`` (phase 8: the host tier and a
+    TTL); ``setup(eng)`` runs before the stream and ``finish(eng, sched)``
+    after its gates; the ``late`` requests are submitted once the stream
+    has drained.  Returns (launch counts, stats, K3/K4 errors, each
+    request's tokens)."""
     import dataclasses
 
     from repro_torch.kernels import fused_retrieval as fr
@@ -1412,7 +1459,10 @@ def serve_stream(torch, cfg, params, *, n_slots=8, capacity=CAPACITY, pool_block
     eng = Engine.build(
         cfg, n_slots=n_slots, capacity=capacity, obs=Observability(), device=DEVICE,
         policy=dataclasses.replace(serving_policy(layout="paged"), pool_blocks=pool_blocks),
+        **(engine_kwargs or {}),
     )
+    if setup is not None:
+        setup(eng)
     if eng.block_size != BLOCK_SIZE:
         raise AssertionError(f"the paged engine's block size is {eng.block_size}")
     sched = ContinuousScheduler(eng, params, chunk_tokens=chunk_tokens)
@@ -1448,6 +1498,12 @@ def serve_stream(torch, cfg, params, *, n_slots=8, capacity=CAPACITY, pool_block
     while sched.busy:
         if not sched.step():
             raise AssertionError("the scheduler stalled")
+    for r in late:
+        sched.submit(r)
+    while sched.busy:
+        if not sched.step():
+            raise AssertionError("the scheduler stalled")
+    reqs = list(reqs) + list(late)
     sync(torch)
     wall = time.monotonic() - wall0
     counts = launch_counts()
@@ -1502,11 +1558,13 @@ def serve_stream(torch, cfg, params, *, n_slots=8, capacity=CAPACITY, pool_block
     }
     bad = [k for k, v in checks.items() if not v]
     if bad:
-        raise AssertionError(f"phase 5 failed: {bad}")
+        raise AssertionError(f"the stream's gates failed: {bad}")
+    if finish is not None:
+        finish(eng, sched)
     del eng, sched
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
-    return counts, stats, errs
+    return counts, stats, errs, {r.rid: list(r.out) for r in reqs}
 
 
 def clone_cache(torch, cache):
@@ -1954,6 +2012,791 @@ def two_pass_path(torch, cfg, params, p3, one):
     return counts, counts_bb, errs, dict(step_ms=med, score_bytes=sb)
 
 
+# ------------------------------------------------------------ phase 7
+
+QUEST_PAGE = 16
+TURN_STEPS = 16             # phase 7's decode steps per engine, taken in turns
+EVICT_STEPS = 32
+QUEST_OUT_REL_TOL = 1e-4    # quest's f32 attention output, card vs CPU: f32 sum order
+# quest and slm at budget = capacity select every valid token, as full attention
+# reads it, but in another order: the f32 sums differ, each output rounds to bf16
+# and the layers carry it on; the same kind of gap as phase 3's kernels vs their
+# plain versions, so the same tolerance
+FULL_BUDGET_LOGIT_REL_TOL = PLAIN_LOGIT_REL_TOL
+
+
+def plain_quest_pages(torch, q, K, length, budget, page, group_reduce, reduce):
+    """Quest's page choice written out here, apart from the port: each
+    page's channel max and min read from the bf16 keys themselves, the box
+    bound Σ_d max(q_d·kmax_d, q_d·kmin_d) (or its max over d) in f32, the
+    max or sum over a kv head's query group, the pages that start at or past
+    the length left out, and the max(budget // page, 1) highest by
+    ``torch.topk``.  Returns (selected, scores), both [B, Hkv, P], the
+    left-out pages scored -inf."""
+    B, S, Hkv, D = K.shape
+    P, rep = S // page, q.shape[1] // Hkv
+    Kp = K.float().reshape(B, P, page, Hkv, D)
+    hi, lo = Kp.amax(2)[:, :, :, None], Kp.amin(2)[:, :, :, None]   # [B, P, Hkv, 1, D]
+    qf = q.float().reshape(B, 1, Hkv, rep, D)
+    per = torch.maximum(qf * hi, qf * lo)                            # [B, P, Hkv, rep, D]
+    sc = per.sum(-1) if reduce == "sum" else per.amax(-1)
+    sc = (sc.amax(-1) if group_reduce == "max" else sc.sum(-1)).permute(0, 2, 1)
+    first = torch.arange(P, device=K.device) * page
+    sc = torch.where(first[None, None] < length[:, None, None], sc,
+                     torch.full_like(sc, float("-inf")))
+    top = torch.topk(sc, max(budget // page, 1), dim=-1).indices
+    return torch.zeros(sc.shape, dtype=torch.bool, device=K.device).scatter_(-1, top, True), sc
+
+
+def checked_quest(torch, errs):
+    """A stand-in for ``quest.quest_attention_decode`` that runs it on the
+    card and on a CPU copy of the same inputs (the engine's own q, cache and
+    page metadata): the selected page sets must be equal except pages whose
+    score lies within ε of the n_pages-th (ε = D·2^-23·rep·maxΣ|q|·max|k|,
+    the f32 summation-order bound of a page score); the card's page set
+    must also equal, up to the same near-ties, the one that
+    ``plain_quest_pages`` picks on the card from the keys alone; and the f32 output of
+    every kv head whose page set is equal within QUEST_OUT_REL_TOL·max|out|
+    (compared before the cast to the activations' bf16: one bf16 rounding
+    step alone is 2^-8 of a value).  The card's output goes on down the
+    stack, and must be its f32 output rounded."""
+    from repro_torch.core import quest, retrieval
+
+    orig = quest.quest_attention_decode
+
+    def pages(q, meta, budget, length, group_reduce, reduce):
+        ps = quest.page_scores(q, meta, reduce=reduce)
+        kv = retrieval.reduce_over_query_group(ps, meta.kmax.shape[2], group_reduce)
+        idx = quest.quest_token_indices(kv, budget, meta.page, length)
+        P = kv.shape[-1]
+        sel = torch.zeros(kv.shape, dtype=torch.bool, device=kv.device)
+        sel.scatter_(-1, (idx[..., ::meta.page] // meta.page).to(torch.int64), True)
+        pos = torch.arange(P, device=kv.device) * meta.page
+        masked = torch.where(pos[None, None] < length[:, None, None], kv,
+                             torch.full_like(kv, retrieval.NEG_INF))
+        return sel, masked
+
+    def run(q, K, V, meta, budget, length=None, *, group_reduce="max", reduce="sum"):
+        sel = dict(group_reduce=group_reduce, reduce=reduce)
+        out = orig(q, K, V, meta, budget, length, **sel)
+        out32 = orig(q.float(), K, V, meta, budget, length, **sel)  # the f32 output
+        if not torch.equal(out, out32.to(out.dtype)):
+            raise AssertionError("quest's output is not its f32 output rounded")
+        c = lambda t: t.cpu()
+        meta_c = quest.PageMeta(c(meta.kmax), c(meta.kmin), meta.page)
+        out_c = orig(c(q).float(), c(K), c(V), meta_c, budget, c(length), **sel)
+        sel, _ = pages(q, meta, budget, length, group_reduce, reduce)
+        sel_c, kv_c = pages(c(q), meta_c, budget, c(length), group_reduce, reduce)
+        n_pages = max(budget // meta.page, 1)
+        kth = torch.sort(kv_c, dim=-1, descending=True).values[..., n_pages - 1:n_pages]
+        B, Hq, D = q.shape
+        Hkv = K.shape[2]
+        kmax = float(torch.maximum(meta_c.kmax.float().abs(), meta_c.kmin.float().abs()).max())
+        eps = D * 2.0**-23 * (Hq // Hkv) * float(c(q).float().abs().sum(-1).max()) * kmax
+        diff = sel.cpu() ^ sel_c
+        if bool((diff & ((kv_c - kth).abs() > eps)).any()):
+            raise AssertionError("quest's page set on the card differs from the CPU copy's "
+                                 f"beyond near-ties (eps {eps:.3g})")
+        sel_p, kv_p = plain_quest_pages(torch, q, K, length, budget, meta.page,
+                                        group_reduce, reduce)
+        kth_p = torch.sort(kv_p, dim=-1, descending=True).values[..., n_pages - 1:n_pages]
+        diff_p = (sel ^ sel_p) & torch.isfinite(kv_p)  # pages past the length attend nothing
+        if bool((diff_p & ((kv_p - kth_p).abs() > eps)).any()):
+            raise AssertionError("quest's page set on the card differs from the plain top-k "
+                                 f"over the keys' page bounds beyond near-ties (eps {eps:.3g})")
+        same = ~diff.any(-1)  # [B, Hkv]
+        heads = same.repeat_interleave(Hq // Hkv, dim=1)
+        gap = (out32.cpu() - out_c).abs()[heads]
+        err = float(gap.max()) if gap.numel() else 0.0
+        rel = err / float(out_c.float().abs().max())
+        if not rel <= QUEST_OUT_REL_TOL:
+            raise AssertionError(f"quest's output on the card differs from the CPU copy's: "
+                                 f"{err:.3g} ({rel:.3g} of max|out|)")
+        errs["calls"] += 1
+        errs["page_swaps"] += int(diff.sum())
+        errs["plain_swaps"] += int(diff_p.sum())
+        errs["pages"] += int(sel.sum())
+        errs["out_rel"] = max(errs["out_rel"], rel)
+        errs["eps"] = max(errs["eps"], eps)
+        return out
+
+    return orig, run
+
+
+def eviction_inputs(torch, K, L, seed=7):
+    """Seeded CPU inputs of ``eviction_family`` for a cache K [1, S, Hkv, D]:
+    a query and a new key/value row per step (keys at the cache's scale)
+    and SnapKV's observation-window queries."""
+    Hkv, D = K.shape[2:]
+    gen = torch.Generator().manual_seed(seed)
+    scale = float(K[0, :L].float().std())
+    new = lambda shape, s=1.0: (s * torch.randn(shape, generator=gen)).to(torch.bfloat16)
+    return dict(qs=new((EVICT_STEPS, 1, Hkv, D)), kn=new((EVICT_STEPS, Hkv, D), scale),
+                vn=new((EVICT_STEPS, Hkv, D), scale), qw=new((1, Hkv, 32, D)))
+
+
+def eviction_family(torch, K, V, L, inputs):
+    """The eviction baselines on one slot's cache (K/V [1, S, Hkv, D] on some
+    device, length L): the StreamingLLM mask, the SnapKV selection at
+    BUDGET, and from it EVICT_STEPS steps of H2O and of TOVA, each appending
+    one new token (``eviction_inputs``) and evicting one.  Returns the masks,
+    alive sets and alive counts on the CPU."""
+    from repro_torch.core import eviction as ev
+
+    dev = K.device
+    S = K.shape[1]
+    qs, kn, vn, qw = (inputs[k] for k in ("qs", "kn", "vn", "qw"))
+    length = torch.tensor([L], dtype=torch.int32, device=dev)
+    out = {"slm": ev.streaming_llm_mask(S, length, BUDGET, SINK).cpu()}
+    base = ev.snapkv_state(qw.to(dev), K, length, BUDGET, window=32)
+    out["snapkv"] = base.alive.cpu()
+    steps = {
+        "h2o": lambda st, p, ln: ev.h2o_step(st, p, ln, BUDGET, recent=32),
+        "tova": lambda st, p, ln: ev.tova_step(st, p, ln, BUDGET),
+    }
+    for name, step in steps.items():
+        K2, V2, st, ln = K.clone(), V.clone(), base, length.clone()
+        counts = []
+        for i in range(EVICT_STEPS):
+            K2[0, ln[0]] = kn[i].to(dev)
+            V2[0, ln[0]] = vn[i].to(dev)
+            st = ev.append_alive(st, ln)
+            ln = ln + 1
+            _, probs = ev.masked_attention_decode(qs[i].to(dev), K2, V2, st.alive)
+            st = step(st, probs, ln)
+            counts.append(st.alive.sum(-1).cpu())
+        out[name] = st.alive.cpu()
+        out[name + "_counts"] = torch.stack(counts)
+    return out
+
+
+def shim_checks(torch, q, K, V, qk, length):
+    """Each deprecated shim of ``kernels.ops``, called once on a FIER layer's
+    tensors (a paged pool built from the slab for the paged ones): it must
+    warn exactly once, launch its kernels once each and nothing else, and
+    equal its CacheView call bit for bit."""
+    import warnings
+
+    from repro_torch.core import policy as core_policy
+    from repro_torch.core.policy import CacheView
+    from repro_torch.core.quantize import QuantizedKeys
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+
+    pools, table, _, _, _ = paged_inputs(torch, q, K, V, qk, length, BLOCK_SIZE, 8, 11)
+    pmeta = QuantizedKeys(pools["codes"], pools["scale"], pools["zero"], qk.group)
+    kp, vp = pools["k"], pools["v"]
+    slab = CacheView.slab(K, V, qk, length)
+    paged = CacheView.paged(kp, vp, pmeta, table, length)
+    idx = ops.retrieve(q, slab, BUDGET, sink=SINK, recent=RECENT)
+    sel = dict(sink=SINK, recent=RECENT)
+    shims = {
+        "fused_retrieve": (
+            ("fier_retrieve",),
+            lambda: ops.fused_retrieve(q, qk, BUDGET, length, return_stats=True, **sel),
+            lambda: ops.retrieve(q, slab, BUDGET, return_stats=True, **sel)),
+        "fused_sparse_attention": (
+            ("fier_attend_selected",),
+            lambda: ops.fused_sparse_attention(q, K, V, idx, length),
+            lambda: ops.attend_selected(q, slab, idx)),
+        "fused_fier_attention_decode": (
+            SLAB_KERNELS,
+            lambda: ops.fused_fier_attention_decode(q, K, V, qk, BUDGET, length, **sel),
+            lambda: ops.fier_decode_one_pass(q, slab, BUDGET, **sel)),
+        "paged_fused_retrieve": (
+            ("fier_retrieve_paged",),
+            lambda: ops.paged_fused_retrieve(q, pmeta, table, BUDGET, length,
+                                             return_stats=True, **sel),
+            lambda: ops.retrieve(q, paged, BUDGET, return_stats=True, **sel)),
+        "paged_fused_sparse_attention": (
+            ("fier_attend_selected_paged",),
+            lambda: ops.paged_fused_sparse_attention(q, kp, vp, table, idx, length),
+            lambda: ops.attend_selected(q, paged, idx)),
+        "paged_fused_fier_attention_decode": (
+            PAGED_KERNELS,
+            lambda: ops.paged_fused_fier_attention_decode(q, kp, vp, pmeta, table, BUDGET,
+                                                          length, **sel),
+            lambda: ops.fier_decode_one_pass(q, paged, BUDGET, **sel)),
+    }
+    for name, (kernels, shim, new) in shims.items():
+        core_policy._warned.discard(f"kernels.ops.{name}")
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = shim()
+        sync(torch)
+        counts = launch_counts()
+        want = new()
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        n_warn = sum(issubclass(w.category, DeprecationWarning) for w in rec)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        if DEVICE == "cuda":
+            check_launches(counts, kernels, 1)
+        log(f"  shim {name}: {n_warn} warning, equal to its CacheView call: {same}, "
+            f"launched {[k for k, n in counts.items() if n]}")
+        if n_warn != 1 or not same:
+            raise AssertionError(f"the deprecated shim {name} fails: {n_warn} warnings, "
+                                 f"equal {same}")
+
+
+def planted_page_drops(torch, wide, params, tok0, cache, ref):
+    """The full-budget gate's control: quest's first step at budget =
+    capacity with one page planted out of every layer's choice (its token
+    indices moved to the last slot, past every length, so that they attend
+    nothing): the sink page 0, or the last valid page, which holds the
+    newest tokens.  Returns {fault: (max |Δlogit| against full attention,
+    top-1 agreements)}."""
+    from repro_torch.core import quest
+
+    orig = quest.quest_token_indices
+    out = {}
+    for fault in ("sink page dropped", "last valid page dropped"):
+        def planted(kv_ps, budget, page, length=None, fault=fault):
+            idx = orig(kv_ps, budget, page, length)
+            S = kv_ps.shape[-1] * page
+            drop = (torch.zeros_like(length) if fault.startswith("sink")
+                    else (length - 1) // page)
+            hit = (idx // page) == drop[:, None, None]
+            return torch.where(hit, torch.full_like(idx, S - 1), idx)
+
+        quest.quest_token_indices = planted
+        try:
+            lg, _ = wide.decode_step(params, tok0, clone_cache(torch, cache))
+        finally:
+            quest.quest_token_indices = orig
+        lg = lg[:, : ref.shape[-1]]
+        out[fault] = (float((lg - ref).abs().max()),
+                      int((lg.argmax(-1) == ref.argmax(-1)).sum()))
+    return out
+
+
+def baselines_path(torch, cfg, params, p3):
+    """Phase 7: the paper's baselines at full width on phase 3's prompts and
+    weights.  Quest (page 16), slm (sink 4) and FIER one_pass slab engines,
+    budget 1024, skip 2:
+
+    * quest's first decode step on the card against a CPU copy of every
+      quest layer's inputs (``checked_quest``);
+    * quest and slm at budget = capacity give the ``full`` engine's
+      first-step logits within FULL_BUDGET_LOGIT_REL_TOL·max|logit|;
+    * quest and slm launch none of K1–K8 (their first steps counted alone,
+      then TURN_STEPS steps of each engine in turns: only FIER's 14 K1/K2
+      launches per step);
+    * the eviction family on layer 2's cache of slot 0, on the card and on a
+      CPU copy: equal alive sets, BUDGET alive after every H2O/TOVA step,
+      and the first of tied minima evicted on the card;
+    * every deprecated shim (``shim_checks``), outside the counted runs.
+    Reports the unprofiled ms/step of the three engines taken in turns, and
+    their profiles."""
+    import dataclasses
+
+    from repro_torch.core import eviction as ev
+    from repro_torch.core import quest
+    from repro_torch.core.policy import PolicyConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import Engine, serving_policy
+
+    prompts, lengths = p3["prompts"], p3["lengths"]
+    batch = {"tokens": prompts, "lengths": lengths}
+    pols = {
+        "quest": PolicyConfig(kind="quest", budget=BUDGET, page=QUEST_PAGE, skip_layers=SKIP),
+        "slm": PolicyConfig(kind="slm", budget=BUDGET, sink=SINK, skip_layers=SKIP),
+        "fier": serving_policy(budget=BUDGET),
+    }
+    engines, caches, lg0 = {}, {}, None
+    for name, pol in pols.items():
+        engines[name] = Engine.build(cfg, n_slots=SLOTS, capacity=CAPACITY, policy=pol,
+                                     device=DEVICE)
+        lg, caches[name] = engines[name].prefill_batch(params, batch)
+        if lg0 is None:
+            lg0 = lg
+        elif not torch.equal(lg, lg0):
+            raise AssertionError(f"{name}'s prefill logits differ from quest's")
+    tok0 = torch.argmax(lg0, -1).to(torch.int32)
+
+    # ---- full budget: quest and slm at budget = capacity vs the full engine
+    full = Engine.build(cfg, n_slots=SLOTS, capacity=CAPACITY, policy=PolicyConfig(kind="full"),
+                        device=DEVICE)
+    _, cache_full = full.prefill_batch(params, batch)
+    _, lg_full, _ = full.decode(params, tok0, cache_full)
+    del cache_full, full
+    ref = lg_full[:, : cfg.vocab]
+    s_full = float(ref.abs().max())
+    reset_launch_counts()
+    for name in ("quest", "slm"):
+        wide = build_model(cfg, dataclasses.replace(pols[name], budget=CAPACITY), device=DEVICE)
+        lg, _ = wide.decode_step(params, tok0, clone_cache(torch, caches[name]))
+        gap = float((lg[:, : cfg.vocab] - ref).abs().max())
+        top1 = int((lg[:, : cfg.vocab].argmax(-1) == ref.argmax(-1)).sum())
+        log(f"  {name} at budget {CAPACITY} vs full attention, first step: max |Δlogit| "
+            f"{gap:.4g} of max |logit| {s_full:.4g} (top-1 {top1}/{SLOTS}); tolerance "
+            f"{FULL_BUDGET_LOGIT_REL_TOL}·max|logit|")
+        if not gap <= FULL_BUDGET_LOGIT_REL_TOL * s_full:
+            raise AssertionError(f"{name} at full budget differs from full attention: {gap:.4g}")
+        if name == "quest":
+            planted = planted_page_drops(torch, wide, params, tok0, caches[name], ref)
+            log(f"  the same gate read with one page planted out of quest's choice at budget "
+                f"{CAPACITY} (reported, not gated): " + ", ".join(
+                    f"{k} max |Δlogit| {g:.4g} (top-1 {t}/{SLOTS})"
+                    for k, (g, t) in planted.items()))
+    sync(torch)
+    check_launches(launch_counts(), (), 0)
+
+    # ---- the first decode steps (counted: no kernel); quest's against a CPU copy
+    errs = {"calls": 0, "page_swaps": 0, "plain_swaps": 0, "pages": 0, "out_rel": 0.0,
+            "eps": 0.0}
+    orig, checked = checked_quest(torch, errs)
+    toks, step_ms = {}, {k: [] for k in engines}
+    reset_launch_counts()
+    for name in ("quest", "slm"):
+        quest.quest_attention_decode = checked if name == "quest" else orig
+        try:
+            toks[name], lg, caches[name] = engines[name].decode(params, tok0, caches[name])
+        finally:
+            quest.quest_attention_decode = orig
+        if not torch.isfinite(lg[:, : cfg.vocab]).all():
+            raise AssertionError(f"{name}: non-finite first-step logits")
+    sync(torch)
+    check_launches(launch_counts(), (), 0)
+    log(f"  quest's first step on the card vs a CPU copy, {errs['calls']} layers: "
+        f"{errs['page_swaps']} near-tie page swaps (eps up to {errs['eps']:.3g}), max |Δout| "
+        f"{errs['out_rel']:.3g} of max|out| (tolerance {QUEST_OUT_REL_TOL}); against the plain "
+        f"top-k over the keys' page bounds on the card: {errs['plain_swaps']} near-tie swaps "
+        f"of {errs['pages']} pages selected")
+    if errs["calls"] != N_LAYERS - SKIP:
+        raise AssertionError(f"quest ran on {errs['calls']} layers, expected {N_LAYERS - SKIP}")
+    toks["fier"], _, caches["fier"] = engines["fier"].decode(params, tok0, caches["fier"])
+
+    # ---- unprofiled decode steps in turns (quest and slm launch nothing; FIER K1/K2)
+    sync(torch)
+    reset_launch_counts()
+    names = list(engines)
+    for i in range(TURN_STEPS):
+        for name in names[i % 3:] + names[: i % 3]:
+            sync(torch)
+            t0 = time.perf_counter()
+            toks[name], _, caches[name] = engines[name].decode(params, toks[name], caches[name])
+            sync(torch)
+            step_ms[name].append(1e3 * (time.perf_counter() - t0))
+    check_launches(launch_counts(), SLAB_KERNELS, (N_LAYERS - SKIP) * TURN_STEPS)
+    med = {k: median(v) for k, v in step_ms.items()}
+    log(f"  decode ms/step in turns (median of {TURN_STEPS} each, {SLOTS} slots, budget "
+        f"{BUDGET}): " + ", ".join(f"{k} {v:.2f}" for k, v in med.items()) + f"; {CARD}")
+    if DEVICE == "cuda":
+        for name in names:
+            log(f"  {name} engine:")
+            profile_decode(torch, engines[name], params, toks[name], caches[name], None)
+
+    # ---- the eviction family on layer 2's cache of slot 0, card vs a CPU copy
+    L = int(lengths[0])
+    K, V = caches["fier"]["rest"]["k"][0][:1], caches["fier"]["rest"]["v"][0][:1]
+    inputs = eviction_inputs(torch, K.cpu(), L)
+    on_dev = eviction_family(torch, K.clone(), V.clone(), L, inputs)
+    on_cpu = eviction_family(torch, K.cpu(), V.cpu(), L, inputs)
+    for name in on_dev:
+        if not torch.equal(on_dev[name], on_cpu[name]):
+            raise AssertionError(f"eviction {name}: the card's alive set differs from the CPU's")
+    for name in ("h2o", "tova"):
+        if not bool((on_dev[name + "_counts"] == BUDGET).all()):
+            raise AssertionError(f"{name} did not keep its budget {BUDGET}")
+    alive = torch.ones((1, 2, 8), dtype=torch.bool, device=DEVICE)
+    probs = torch.tensor([[[3.0, 1.0, 2.0, 1.0, 1.0, 5.0, 6.0, 7.0], [0.0] * 8]],
+                         device=DEVICE)
+    st = ev.tova_step(ev.EvictionState(alive, torch.zeros_like(probs)), probs,
+                      torch.tensor([8], device=DEVICE), 6)
+    if (~st.alive).nonzero().tolist() != [[0, 0, 1], [0, 1, 0]]:
+        raise AssertionError("the eviction step does not evict the first of tied minima")
+    log(f"  eviction family on layer {SKIP}'s cache of slot 0 (length {L}), card vs CPU: "
+        f"StreamingLLM mask, SnapKV set and {EVICT_STEPS} steps each of H2O and TOVA equal; "
+        f"{BUDGET} alive after every step; ties evict the first index")
+
+    # ---- the deprecated shims, outside every counted window
+    rest = caches["fier"]["rest"]
+    q = torch.randn((SLOTS, cfg.n_heads, cfg.d_head), device=DEVICE).to(torch.bfloat16)
+    shim_checks(torch, q, rest["k"][0], rest["v"][0], rest["meta"].layer(0),
+                caches["fier"]["length"])
+    if DEVICE == "cuda":  # on the CPU such a view attends densely, as the reference's does
+        from repro_torch.core.policy import CacheView, DecodePlan, UnsupportedPlanError, \
+            decode_attention
+
+        try:
+            decode_attention(q, CacheView.slab(rest["k"][0], rest["v"][0], None,
+                                               caches["fier"]["length"]),
+                             DecodePlan.build(pols["fier"], capacity=CAPACITY))
+        except UnsupportedPlanError:
+            log("  a FIER plan over a card view without its side-car raises")
+        else:
+            raise AssertionError("a FIER plan over a card view without its side-car did not "
+                                 "raise")
+    del caches, engines
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return dict(step_ms=med, quest_errs=errs)
+
+
+# ------------------------------------------------------------ phase 8
+
+OFFLOAD_BLOCKS = 256
+PREFIX_TTL = 4.0      # virtual-clock units (tokens prefilled or decoded)
+
+
+def late_family_request(reqs, vocab):
+    """Phase 8's one late request: phase 5's family prefix (P's first 4096
+    tokens) + 256 tokens of its own, submitted once the stream has drained.
+    Phase 5's order gives no recall (the family prefix is in use until the
+    stream's end), so this request is the one that recalls it from the
+    host tier, where the TTL sweep has moved it by then."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    own = np.random.default_rng(12).integers(1, vocab, size=256).tolist()
+    return Request(rid=len(reqs), tokens=reqs[0].tokens[:4096] + own, max_new=32)
+
+
+def solo_tokens(torch, cfg, params, req):
+    """``req`` served alone on a fresh paged engine of phase 5's shape with
+    no host tier: its whole prompt is prefilled in the same 2048-token
+    chunks as the stream's first request prefilled the family prefix.
+    Returns its tokens."""
+    import dataclasses
+    import warnings
+
+    from repro_torch.serving import ContinuousScheduler, Engine, Request, serving_policy
+
+    eng = Engine.build(cfg, n_slots=8, capacity=CAPACITY, device=DEVICE, policy=dataclasses.replace(
+        serving_policy(layout="paged"), pool_blocks=621))
+    sched = ContinuousScheduler(eng, params, chunk_tokens=2048)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = sched.run([Request(rid=req.rid, tokens=list(req.tokens), max_new=req.max_new)])
+    eng.audit()
+    toks = [int(t) for t in res[req.rid]]
+    del eng, sched
+    return toks
+
+
+def intervals_measure(xs):
+    """Total length of the union of intervals [(a, b)]."""
+    total, end = 0.0, None
+    for a, b in sorted(xs):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def intersect_measure(xs, ys):
+    """Length of (∪xs) ∩ (∪ys)."""
+    return intervals_measure(xs) + intervals_measure(ys) - intervals_measure(list(xs) + list(ys))
+
+
+def offload_stream(torch, cfg, params, outs_p5):
+    """Phase 5's stream again with a host tier of OFFLOAD_BLOCKS blocks and
+    a TTL: phase 5's gates, its tokens, blocks recalled > 0, and every block
+    saved and then recalled reads back with 0 bytes changed in every pool leaf
+    (K, V, codes, scale, zero); the tier's CUDA events give the transfer
+    rates, the recall time per block and the share of it that overlaps the
+    commit into the pool."""
+    snaps, rt = {}, {"blocks": 0, "bytes_off": 0, "per_leaf": None}
+    res = {}
+
+    def setup(eng):
+        tier = eng.offload
+        tier.timing = DEVICE == "cuda"
+        save0, recall0 = tier.save, eng._recall_extension
+
+        def save(key, parent_key, leaves, reason="lru"):
+            snap = [t.clone() for t in leaves]
+            ok = save0(key, parent_key, leaves, reason)
+            if ok:
+                snaps[key] = snap
+            return ok
+
+        def recall(cache, keys, blocks, L, slot):
+            n0 = len(blocks)
+            cache = recall0(cache, keys, blocks, L, slot)
+            for j in range(n0, len(blocks)):
+                diffs = [byte_diff(torch, a, b) for a, b in
+                         zip(eng._read_block(cache, blocks[j]), snaps.pop(keys[j]))]
+                rt["per_leaf"] = diffs if rt["per_leaf"] is None else [
+                    x + y for x, y in zip(rt["per_leaf"], diffs)]
+                rt["bytes_off"] += sum(diffs)
+                rt["blocks"] += 1
+            return cache
+
+        tier.save, eng._recall_extension = save, recall
+
+    def finish(eng, sched):
+        tier = eng.offload
+        res.update(recalled=eng.blocks_recalled, tokens_recalled=eng.tokens_recalled,
+                   recomputed=eng.tokens_recomputed, **tier.stats(),
+                   ttl_evictions=eng.allocator.stats()["pool_ttl_evictions"])
+        if DEVICE != "cuda" or tier._host is None:
+            return
+        per_block = tier._host.shape[1]  # one host row: every leaf of a block
+        t = tier.transfer_times()
+        dur = lambda xs: sum(b - a for a, b in xs)
+        span = intervals_measure(t["h2d"] + t["commit"])
+        res.update(
+            block_bytes=per_block, d2h_copies=len(t["d2h"]), h2d_copies=len(t["h2d"]),
+            d2h_gb_s=per_block * len(t["d2h"]) / dur(t["d2h"]) / 1e6 if t["d2h"] else None,
+            h2d_gb_s=per_block * len(t["h2d"]) / dur(t["h2d"]) / 1e6 if t["h2d"] else None,
+            recall_ms_per_block=span / len(t["h2d"]) if t["h2d"] else None,
+            commit_ms_per_block=dur(t["commit"]) / len(t["commit"]) if t["commit"] else None,
+            overlap_share=intersect_measure(t["h2d"], t["commit"]) / span if span else None,
+        )
+
+    late = late_family_request(stream_requests(cfg.vocab), cfg.vocab)
+    counts, stats, errs, outs = serve_stream(
+        torch, cfg, params, engine_kwargs=dict(offload_blocks=OFFLOAD_BLOCKS,
+                                               prefix_ttl=PREFIX_TTL),
+        setup=setup, finish=finish, late=[late])
+    solo = solo_tokens(torch, cfg, params, late)
+    same = {rid: outs[rid] == outs_p5[rid] for rid in outs_p5}
+    log(f"  offload stream: {json.dumps(res)}")
+    log(f"  the late request's tokens, its prefix recalled from the host tier, equal to the "
+        f"same request served alone on a fresh engine without one: {outs[late.rid] == solo}")
+    log(f"  round trip: {rt['blocks']} recalled blocks compared, bytes changed per leaf "
+        f"(front K, V, rest K, V, codes, scale, zero) {rt['per_leaf']}; {CARD}")
+    log(f"  tokens equal to phase 5's (no host tier): {sum(same.values())}/{len(same)}")
+    checks = {
+        "blocks recalled > 0": res["recalled"] > 0,
+        "every recalled block compared": rt["blocks"] == res["recalled"],
+        "0 bytes changed in the round trip": rt["bytes_off"] == 0,
+        "tokens equal to phase 5's": all(same.values()),
+        "the late request's tokens equal to its run without a host tier": outs[late.rid] == solo,
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"the offload stream failed: {bad}")
+    return counts, stats, res
+
+
+def chaos_requests(vocab):
+    """Phase 8's chaos trace: a family prefix + 250 tokens and its repeat,
+    3000- and 1500-token prompts, two family + 256 prompts; 16 tokens each.
+    Under ``ServingFaultInjector.random(0)`` its allocation burst preempts
+    two requests that no fault names (2 and 4)."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(6)
+    toks = lambda n: rng.integers(1, vocab, size=n).tolist()
+    fam = toks(4096)
+    P = fam + toks(250)
+    specs = [P, P, toks(3000), toks(1500), fam + toks(256), fam + toks(256)]
+    return [Request(rid=i, tokens=list(t), max_new=16) for i, t in enumerate(specs)]
+
+
+def preempt_marks(sched, reqs):
+    """Hook ``sched`` so that the returned dict fills, for each request
+    preempted (or whose chunked prefill was aborted), with the number of
+    tokens it had generated at the first such event."""
+    marks, byid, start = {}, {r.rid: r for r in reqs}, sched.start
+
+    def start_hooked():
+        start()
+        record = sched.health.record_event
+
+        def hooked(kind, **kw):
+            if kind in ("preempt", "prefill_abort"):
+                marks.setdefault(kw["rid"], len(byid[kw["rid"]].out))
+            return record(kind, **kw)
+
+        sched.health.record_event = hooked
+
+    sched.start = start_hooked
+    return marks
+
+
+def gemm_rows_by_shape(torch, cfg):
+    """Whether a row of a decode-shaped GEMM (8 rows, one per slot) equals
+    the same row of a prefill-chunk GEMM (2048 rows) bit for bit, at the
+    model's width in bf16: a preempted request recomputes in prefill chunks
+    the K/V that decode steps first wrote, and this tells whether the GEMMs'
+    rounding can be why its tokens change.  Returns (equal, max |Δ|)."""
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    x = torch.randn((2048, cfg.d_model), generator=g, device=DEVICE).to(torch.bfloat16)
+    w = (torch.randn((cfg.d_model, cfg.d_model), generator=g, device=DEVICE)
+         / cfg.d_model ** 0.5).to(torch.bfloat16)
+    small = torch.nn.functional.linear(x[:8], w)
+    big = torch.nn.functional.linear(x, w)[:8]
+    return torch.equal(small, big), float((small.float() - big.float()).abs().max())
+
+
+def chaos_run(torch, cfg, params):
+    """One seeded chaos run (``ServingFaultInjector.random(seed=0)``, five
+    faults drawn over the five kinds) on the offload engine's configuration
+    (8 slots × 8192, 621 blocks, OFFLOAD_BLOCKS host blocks, PREFIX_TTL) with
+    the degradation ladder off (floor = budget, as the reference's chaos
+    tests run it: a halved budget would change every running request's
+    tokens), beside the same trace without faults: every fault fires, every
+    request ends with a structured outcome, the requests that no fault
+    names and nothing preempted give the fault-free tokens, the audit is
+    clean with no block in use, and K3/K4 launch 14 × the decode steps.  A
+    request that no fault names but that the injected allocation failures
+    preempted (or whose chunked prefill they aborted) must give the
+    fault-free tokens up to its first preemption.  After it, it recomputes
+    its generated tokens' K/V in prefill chunks, which attend densely where
+    the decode steps that first wrote them attended to the selected tokens:
+    its later tokens are reported, as is whether a decode-shaped and a
+    chunk-shaped GEMM agree bit for bit.
+    (On the CPU, at reduced width with this trace, the JAX scheduler's own
+    preempted request 2 leaves its fault-free tokens after preemption:
+    ``tests/test_torch_preemption.py``.)"""
+    import dataclasses
+    import warnings
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import (FAULT_KINDS, ContinuousScheduler, Engine,
+                                     ServingFaultInjector, serving_policy)
+    from repro_torch.serving.health import STATUSES
+
+    pol = dataclasses.replace(serving_policy(layout="paged"), pool_blocks=621)
+    bundle = build_model(cfg, pol, device=DEVICE)
+    n_fier = cfg.n_layers - pol.skip_layers
+    runs = {}
+    for name in ("fault-free", "chaos"):
+        eng = Engine(bundle, n_slots=8, capacity=CAPACITY, offload_blocks=OFFLOAD_BLOCKS,
+                     prefix_ttl=PREFIX_TTL, degrade_floor=BUDGET)
+        reqs = chaos_requests(cfg.vocab)
+        inj = None
+        if name == "chaos":
+            inj = ServingFaultInjector.random(0, rids=[r.rid for r in reqs], n_faults=5,
+                                              step_lo=1, step_hi=8)
+        sched = ContinuousScheduler(eng, params, chunk_tokens=2048, injector=inj, audit_every=4)
+        marks = preempt_marks(sched, reqs)
+        reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            res = sched.run(reqs)
+        sync(torch)
+        check_launches(launch_counts(), PAGED_KERNELS, n_fier * sched.steps)
+        eng.audit()
+        runs[name] = (res, inj, eng.allocator.n_in_use, sched.steps, marks)
+        del eng, sched
+    ff, _, _, _, _ = runs["fault-free"]
+    res, inj, in_use, steps, marks = runs["chaos"]
+    named = {s.rid for s in inj.specs}
+    untargeted = sorted(set(res) - named - set(marks))
+    same = {rid: list(res[rid]) == list(ff[rid]) for rid in untargeted}
+    hit = sorted(set(marks) - named)
+    before = {rid: list(res[rid])[: marks[rid]] == list(ff[rid])[: marks[rid]] for rid in hit}
+    after = {rid: list(res[rid]) == list(ff[rid]) for rid in hit}
+    gemm_equal, gemm_gap = gemm_rows_by_shape(torch, cfg)
+    log(f"  chaos (seed 0): faults {[(s.kind, s.step, s.rid, s.count) for s in inj.specs]}, "
+        f"fired {inj.fired_log}; outcomes "
+        f"{ {rid: oc.status for rid, oc in sorted(res.outcomes.items())} }; {steps} steps; "
+        f"untargeted requests {untargeted} equal to the fault-free run: {same}; "
+        f"preempted or aborted with tokens generated then {marks}: those no fault names "
+        f"equal to the fault-free run up to then {before}, to the end (reported) {after}")
+    log(f"  rows of a decode-shaped GEMM (8 × {cfg.d_model}) equal to the same rows of a "
+        f"2048-row chunk's, bf16: {gemm_equal} (max |Δ| {gemm_gap:.4g}); {CARD}")
+    checks = {
+        "every fault fired": inj.all_fired,
+        "all five kinds drawn": {s.kind for s in inj.specs} == set(FAULT_KINDS),
+        "every request has a structured outcome": sorted(res.outcomes) == sorted(res)
+        and all(oc.status in STATUSES for oc in res.outcomes.values()),
+        "untargeted requests give the fault-free tokens": bool(untargeted) and all(same.values()),
+        "preempted requests no fault names give the fault-free tokens up to the preemption":
+            all(before.values()),
+        "fault-free run finished": all(oc.status == "finished" for oc in ff.outcomes.values()),
+        "no block in use at the end": in_use == 0 and runs["fault-free"][2] == 0,
+        "the fault-free run preempted nothing": not runs["fault-free"][4],
+    }
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"the chaos run failed: {bad}")
+    return dict(marks=marks, before=before, after=after, gemm_equal=gemm_equal)
+
+
+def corrupted_slot_kernels(torch, eng, cache, cfg):
+    """K1 and K3 on a slot that ``corrupt_slot_metadata`` scrambled (codes ^
+    0xA5, negative bf16 scales, zeros pushed far from the keys), every FIER
+    layer: each within ε of its plain version (``checked_kernels``)."""
+    slot = 1
+    before = cache["rest"]["meta"].scale[:, slot].clone()
+    ok, cache = eng.corrupt_slot_metadata(cache, slot)
+    if not ok or not bool((cache["rest"]["meta"].scale[:, slot] == -before - 1).all()):
+        raise AssertionError("corrupt_slot_metadata did not scramble the slot")
+    errs = new_errs()
+    retrieve, _ = checked_kernels(torch, errs, keep_plain=False)
+    length = cache["length"]
+    sel = dict(group=GROUP, group_reduce="max", sink=SINK, recent=RECENT)
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    rest = cache["rest"]
+    for i in range(rest["k"].shape[0]):
+        qk = rest["meta"].layer(i)
+        q = torch.randn((SLOTS, cfg.n_kv_heads, 1, cfg.d_head), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        retrieve(q, qk.codes, qk.scale, qk.zero, length, BUDGET, **sel)
+        pools, table, _, _, _ = paged_inputs(torch, q.reshape(SLOTS, -1, cfg.d_head), None,
+                                             None, qk, length, BLOCK_SIZE, 8, 20 + i)
+        retrieve(q, pools["codes"], pools["scale"], pools["zero"], length, BUDGET,
+                 block_table=table, **sel)
+    log(f"  K1/K3 on slot {slot} after corrupt_slot_metadata (scale min "
+        f"{float(rest['meta'].scale[:, slot].float().min()):.3g}), {errs['calls']} calls, "
+        f"each within eps of its plain version: {errs['k1_swaps']} near-tau swaps, max tau "
+        f"err {errs['k1_tau']:.3g}")
+
+
+def introspect_run(torch, cfg, params, p3):
+    """``Observability(introspect=True)`` on phase 3's slab engine and prompts
+    for 8 decode steps: every ``ProbeRecord`` in range (utilisation, overlap
+    and mass in [0, 1], τ finite), K1/K2 launched 14 × the steps; then K1/K3
+    on a corrupted slot of the same cache (``corrupted_slot_kernels``).
+    Reports the mean oracle overlap and recaptured mass (random weights:
+    reported, not gated)."""
+    import math
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Observability
+    from repro_torch.serving import ContinuousScheduler, Engine, Request
+
+    obs = Observability(introspect=True)
+    eng = Engine.build(cfg, n_slots=SLOTS, capacity=CAPACITY, obs=obs, device=DEVICE)
+    prompts, lengths = p3["prompts"], p3["lengths"]
+    # 9 decode steps: the introspector probes the 8 after which requests still run
+    reqs = [Request(rid=i, tokens=prompts[i, : int(lengths[i])].tolist(), max_new=10)
+            for i in range(SLOTS)]
+    sched = ContinuousScheduler(eng, params)
+    reset_launch_counts()
+    sched.run(reqs)
+    sync(torch)
+    check_launches(launch_counts(), SLAB_KERNELS, (N_LAYERS - SKIP) * sched.steps)
+    recs = obs.introspector.records
+    inside = lambda v: 0.0 <= v <= 1.0
+    ok = len(recs) == SLOTS * (sched.steps - 1) > 0 and all(
+        inside(r.budget_utilization) and inside(r.oracle_overlap)
+        and inside(r.recaptured_mass) and math.isfinite(r.tau) for r in recs)
+    mean = lambda k: sum(getattr(r, k) for r in recs) / max(len(recs), 1)
+    log(f"  introspector: {len(recs)} probe records over {sched.steps} decode steps x {SLOTS} "
+        f"slots at budget {BUDGET}: mean oracle overlap {mean('oracle_overlap'):.4f}, "
+        f"recaptured mass {mean('recaptured_mass'):.4f}, budget utilization "
+        f"{mean('budget_utilization'):.3f}, tau {mean('tau'):.4g} (random weights: reported)")
+    if not ok:
+        raise AssertionError("a ProbeRecord lies out of range")
+    corrupted_slot_kernels(torch, eng, sched._cache, cfg)
+    del eng, sched
+    return dict(overlap=mean("oracle_overlap"), mass=mean("recaptured_mass"))
+
+
+def robustness_path(torch, cfg, params, p3, outs_p5):
+    """Phase 8: the host tier, the faults and the introspector at full width."""
+    counts, stats, off = offload_stream(torch, cfg, params, outs_p5)
+    chaos = chaos_run(torch, cfg, params)
+    intro = introspect_run(torch, cfg, params, p3)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return dict(offload=off, stream=stats, chaos=chaos, introspect=intro)
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1972,7 +2815,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls stay f32
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     log(f"[setup] {card}")
     log(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -2029,7 +2873,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[serving] ContinuousScheduler, chunk 2048, 8 slots x 8192, pool 621 blocks")
-    counts_p5, stream, errs_p5 = serve_stream(torch, cfg, params)
+    counts_p5, stream, errs_p5, outs_p5 = serve_stream(torch, cfg, params)
     counts.update({k: counts_p5[k] for k in PAGED_KERNELS})
 
     log("[two_pass] the two_pass pipeline at full width, the unfused building blocks")
@@ -2038,6 +2882,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts.update({k: counts_p6[k] for k in ("fier_score", "topk_threshold")})
     counts.update({k: counts_bb[k] for k in ("pack_quantize", "sparse_attention")})
+
+    log("[baselines] quest, slm and FIER one_pass at full width; the eviction family; the "
+        "deprecated shims")
+    baselines_path(torch, cfg, params, p3)
+
+    log("[robustness] the host tier with a TTL on phase 5's stream; a seeded chaos run; the "
+        "introspector; K1/K3 on a corrupted slot")
+    robustness_path(torch, cfg, params, p3, outs_p5)
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {

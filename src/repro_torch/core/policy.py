@@ -1,7 +1,10 @@
 """Decode-attention backend registry: ``CacheView`` + ``DecodePlan``.
 
 Port of ``repro.core.policy`` for the slab and paged layouts.  The registry
-holds the ``full`` and ``fier`` backends; ``fier`` runs the ``one_pass``
+holds the ``full``, ``fier``, ``quest`` and ``slm`` backends; ``quest``
+(page-level retrieval) and ``slm`` (StreamingLLM's sink ∪ recent window)
+are the paper's baselines, plain PyTorch on the slab layout only, as in
+the reference.  ``fier`` runs the ``one_pass``
 pipeline (the CUDA retrieval kernel chained into the CUDA select-and-attend
 kernel; on a paged cache their block-table variants), the slab-only
 ``two_pass`` pipeline (the CUDA score scan and threshold search, then the
@@ -11,25 +14,24 @@ the CUDA score scan)::
 
     plan = DecodePlan.build(cfg, capacity=capacity)
     meta = build_metadata(K, cfg)                 # after prefill
+    meta = update_metadata(meta, K, pos, cfg)     # after an appended token
     out  = decode_attention(q, view, plan)
 
-Modes this slice does not carry raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+Mesh-sharded plans raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable
 
 import torch
 
-from . import quantize, retrieval
+from . import quantize, quest, retrieval
 
 PIPELINES = ("reference", "two_pass", "one_pass")
 LAYOUTS = ("slab", "paged")
-
-# kinds the JAX package registers that this slice does not port yet
-_NOT_PORTED_KINDS = {"quest": "ROADMAP Queue 1 item 7b", "slm": "ROADMAP Queue 1 item 7b"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -43,6 +45,7 @@ class PolicyConfig:
     kind: str = "full"
     budget: int = 1024
     group: int = 32            # FIER group size g
+    page: int = 16             # Quest page size L
     group_reduce: str = "max"  # GQA query-group score reduction
     sink: int = 0              # forced sink tokens (0 = paper-faithful)
     recent: int = 0            # forced recent window (0 = paper-faithful)
@@ -57,8 +60,6 @@ class PolicyConfig:
                                # 0 → worst-case default n_slots·capacity/bs+1
 
     def __post_init__(self):
-        if self.kind in _NOT_PORTED_KINDS:
-            raise _not_ported(f"policy {self.kind!r}", _NOT_PORTED_KINDS[self.kind])
         if self.kind not in _REGISTRY:
             raise ValueError(
                 f"unknown policy {self.kind!r}; registered: {tuple(_REGISTRY)}"
@@ -80,9 +81,9 @@ class CacheView:
     [B, S, Hkv, D] and ``block_table`` is None.  ``layout='paged'``:
     ``k``/``v`` are the shared block pool [N, bs, Hkv, D] and
     ``block_table`` [B, n_btab] maps logical blocks to pool rows.
-    ``meta`` is the policy side-car (``QuantizedKeys`` for fier, None for
-    full) in the matching layout; ``length`` [B] int32 masks unwritten
-    positions (None = all valid)."""
+    ``meta`` is the policy side-car (``QuantizedKeys`` for fier,
+    ``PageMeta`` for quest, None for full and slm) in the matching layout;
+    ``length`` [B] int32 masks unwritten positions (None = all valid)."""
 
     __slots__ = ("k", "v", "meta", "block_table", "length", "layout")
 
@@ -119,10 +120,7 @@ class CacheView:
         def g(a):
             return None if a is None else gather_block_rows(a, self.block_table)
 
-        meta = None
-        if self.meta is not None:
-            m = self.meta
-            meta = quantize.QuantizedKeys(g(m.codes), g(m.scale), g(m.zero), m.group)
+        meta = None if self.meta is None else map_meta(self.meta, g)
         return g(self.k), g(self.v), meta
 
     def __repr__(self):
@@ -132,6 +130,12 @@ class CacheView:
             f"meta={type(self.meta).__name__ if self.meta is not None else None}, "
             f"block_table={sh(self.block_table)})"
         )
+
+
+def map_meta(meta: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
+    """A side-car (``QuantizedKeys`` or ``PageMeta``) with ``fn`` applied to
+    each of its tensors."""
+    return dataclasses.replace(meta, **{f: fn(getattr(meta, f)) for f in meta.FIELDS})
 
 
 # ----------------------------------------------------------- backend registry
@@ -144,13 +148,22 @@ class UnsupportedPlanError(ValueError):
 @dataclasses.dataclass(frozen=True)
 class AttentionBackend:
     """One registered decode-attention policy: its (layout, pipeline)
-    capability matrix, the side-car builder ``(K, cfg) -> meta`` and the
-    decode ``(q, view, plan) -> out [B, Hq, D]``."""
+    capability matrix, the side-car builder ``(K, cfg) -> meta``, its
+    in-place refresh ``(meta, K, pos, cfg) -> meta`` and the decode
+    ``(q, view, plan) -> out [B, Hq, D]``.  ``needs_metadata``: a view
+    without a side-car falls back to dense attention on the CPU and raises
+    on the card; ``skip_layers_fallback``:
+    ``decode_attention(..., layer=l)`` with ``l < skip_layers`` attends
+    densely (False for backends that are their own full-attention
+    substitute: full, slm)."""
 
     name: str
     supports: frozenset
     build_metadata: Callable[[torch.Tensor, PolicyConfig], Any]
+    update_metadata: Callable[[Any, torch.Tensor, Any, PolicyConfig], Any]
     decode: Callable[[torch.Tensor, CacheView, "DecodePlan"], torch.Tensor]
+    needs_metadata: bool = True
+    skip_layers_fallback: bool = True
 
     def supports_str(self) -> str:
         return ", ".join(f"{lo}×{pi}" for lo, pi in sorted(self.supports))
@@ -253,6 +266,15 @@ def build_metadata(K: torch.Tensor, cfg: PolicyConfig) -> Any:
     return get_backend(cfg.kind).build_metadata(K, cfg)
 
 
+def update_metadata(meta: Any, K: torch.Tensor, pos, cfg: PolicyConfig) -> Any:
+    """Refresh, in place, the metadata block (FIER group / Quest page) that
+    holds position ``pos`` (scalar or [B]) from the slab ``K``, which
+    already holds the appended token.  Returns ``meta``."""
+    if meta is None:
+        return None
+    return get_backend(cfg.kind).update_metadata(meta, K, pos, cfg)
+
+
 # ------------------------------------------------------------------ dispatch
 
 def _dense_decode(q: torch.Tensor, view: CacheView) -> torch.Tensor:
@@ -260,22 +282,47 @@ def _dense_decode(q: torch.Tensor, view: CacheView) -> torch.Tensor:
     return retrieval.full_attention_decode(q, K, V, view.length)
 
 
-def decode_attention(q: torch.Tensor, view: CacheView, plan: DecodePlan) -> torch.Tensor:
-    """The single decode-attention entry point.  The skip layers do not
-    come here with a ``fier`` plan: the model's decode step gives them a
-    ``full`` plan (``models/transformer.py``)."""
+def decode_attention(
+    q: torch.Tensor, view: CacheView, plan: DecodePlan, layer: int | None = None
+) -> torch.Tensor:
+    """The single decode-attention entry point.  The model's decode step
+    gives the skip layers a ``full`` plan (``models/transformer.py``) and
+    passes no ``layer``; a caller that passes ``layer < skip_layers`` gets
+    dense attention from backends with ``skip_layers_fallback``, as the
+    reference's ``layer`` argument does.  On the CPU a view without the
+    side-car its backend needs attends densely; on the card it raises, so
+    that a missing side-car never runs in place of the kernels."""
     if plan.layout != view.layout:
         raise UnsupportedPlanError(
             f"plan layout {plan.layout!r} does not match view layout "
             f"{view.layout!r}"
         )
-    return plan.backend.decode(q, view, plan)
+    backend = plan.backend
+    if backend.needs_metadata and view.meta is None:
+        if q.is_cuda:
+            raise UnsupportedPlanError(
+                f"the {backend.name!r} backend needs its side-car metadata on the "
+                f"card; the view has none"
+            )
+        return _dense_decode(q, view)
+    if (layer is not None and backend.skip_layers_fallback
+            and layer < plan.policy.skip_layers):
+        return _dense_decode(q, view)
+    return backend.decode(q, view, plan)
 
 
 # ---------------------------------------------------------- builtin backends
 
 def _fier_build_metadata(K, cfg):
     return quantize.quantize(K, cfg.group)
+
+
+def _append_metadata(meta, K, pos, cfg):
+    # one refresh for both kinds: the cache's per-row append
+    from repro_torch.kvcache.cache import append_token_metadata  # cache imports this module
+
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=K.device), (K.shape[0],))
+    return append_token_metadata(meta, K, pos, cfg)
 
 
 def _fier_decode(q, view, plan):
@@ -293,11 +340,50 @@ def _fier_decode(q, view, plan):
     )
 
 
+def _quest_build_metadata(K, cfg):
+    return quest.build_page_meta(K, cfg.page)
+
+
+def _quest_decode(q, view, plan):
+    cfg = plan.policy
+    K, V, meta = view.logical()
+    return quest.quest_attention_decode(
+        q, K, V, meta, cfg.budget, view.length, group_reduce=cfg.group_reduce
+    )
+
+
+def _slm_decode(q, view, plan):
+    """StreamingLLM as a policy: the sink ∪ recent window, selected by
+    ``select_topk`` over an all-zero score row (its guard-rails pick the
+    window; ties go to the lower position)."""
+    cfg = plan.policy
+    K, V, _ = view.logical()
+    B, Hkv, S = q.shape[0], K.shape[2], K.shape[1]
+    sink = max(cfg.sink, 4)
+    zeros = torch.zeros((B, Hkv, S), dtype=torch.float32, device=q.device)
+    idx = retrieval.select_topk(
+        zeros, cfg.budget, view.length, sink=sink, recent=cfg.budget - sink
+    )
+    Ksel, Vsel = retrieval.gather_kv(K, V, idx)
+    return retrieval.sparse_attention(q, Ksel, Vsel, idx, view.length)
+
+
+def _no_metadata(K, cfg):
+    return None
+
+
+def _keep_metadata(meta, K, pos, cfg):
+    return meta
+
+
 register_backend(AttentionBackend(
     name="full",
     supports=frozenset({("slab", "reference"), ("paged", "reference")}),
-    build_metadata=lambda K, cfg: None,
+    build_metadata=_no_metadata,
+    update_metadata=_keep_metadata,
     decode=lambda q, view, plan: _dense_decode(q, view),
+    needs_metadata=False,
+    skip_layers_fallback=False,  # decode *is* dense attention
 ))
 
 register_backend(AttentionBackend(
@@ -307,5 +393,64 @@ register_backend(AttentionBackend(
         ("paged", "reference"), ("paged", "one_pass"),
     }),
     build_metadata=_fier_build_metadata,
+    update_metadata=_append_metadata,
     decode=_fier_decode,
 ))
+
+register_backend(AttentionBackend(
+    name="quest",
+    supports=frozenset({("slab", "reference")}),
+    build_metadata=_quest_build_metadata,
+    update_metadata=_append_metadata,
+    decode=_quest_decode,
+))
+
+# slm: StreamingLLM as a *policy* (sink ∪ recent window — the strongest
+# eviction baseline that needs no per-step state)
+register_backend(AttentionBackend(
+    name="slm",
+    supports=frozenset({("slab", "reference")}),
+    build_metadata=_no_metadata,
+    update_metadata=_keep_metadata,
+    decode=_slm_decode,
+    needs_metadata=False,
+    skip_layers_fallback=False,  # its own full-attention substitute
+))
+
+
+# ---------------------------------------------------------------- deprecation
+
+_warned: set[str] = set()
+
+
+def _warn_deprecated(old: str, new: str) -> None:
+    """One DeprecationWarning per deprecated entry point per process."""
+    if old in _warned:
+        return
+    _warned.add(old)
+    warnings.warn(
+        f"{old} is deprecated; use {new} (DESIGN.md §Backend registry & DecodePlan)",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def decode_attention_paged(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    meta: Any,
+    block_table: torch.Tensor,
+    cfg: PolicyConfig,
+    length: torch.Tensor,
+    layer: int = 0,
+) -> torch.Tensor:
+    """Deprecated: build a paged ``CacheView`` + ``DecodePlan`` and call
+    :func:`decode_attention` (``layer < cfg.skip_layers`` attends densely,
+    as the reference's does)."""
+    _warn_deprecated(
+        "decode_attention_paged(q, k_pool, v_pool, meta, block_table, cfg, length)",
+        "decode_attention(q, CacheView.paged(...), DecodePlan.build(cfg, layout='paged'))",
+    )
+    view = CacheView.paged(k_pool, v_pool, meta, block_table, length)
+    return decode_attention(q, view, DecodePlan.build(cfg, layout="paged"), layer)

@@ -26,6 +26,8 @@ class QuantizedKeys:
     zero: torch.Tensor
     group: int
 
+    FIELDS = ("codes", "scale", "zero")
+
     @property
     def seq_len(self) -> int:
         return self.codes.shape[-3] * 8

@@ -49,6 +49,16 @@ def approx_scores(q: torch.Tensor, qk: QuantizedKeys) -> torch.Tensor:
     return s.permute(0, 2, 3, 1, 4).reshape(B, Hq, S)
 
 
+def exact_scores(q: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Ground-truth scores q·Kᵀ in f32 (no softmax scaling — ranking only):
+    q [B, Hq, D], K [B, S, Hkv, D] → [B, Hq, S]."""
+    B, Hq, D = q.shape
+    Hkv = K.shape[2]
+    qf = q.to(torch.float32).reshape(B, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bhrd,bshd->bhrs", qf, K.to(torch.float32))
+    return s.reshape(B, Hq, -1)
+
+
 def reduce_over_query_group(
     scores: torch.Tensor, n_kv: int, mode: str = "max"
 ) -> torch.Tensor:

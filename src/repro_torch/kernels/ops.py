@@ -8,7 +8,11 @@ blocks the JAX package exports.
   ``compact_indices``) and their chain into K2, ``fier_decode_two_pass``,
   the slab-only ``two_pass`` pipeline;
 * ``sparse_attention`` (K8 over pre-gathered rows), ``pack_quantize`` (K5)
-  and the deprecated unfused chain ``fier_attention_decode``.
+  and the deprecated unfused chain ``fier_attention_decode``;
+* the deprecated pre-registry shims (``fused_retrieve``,
+  ``fused_sparse_attention``, ``fused_fier_attention_decode`` and their
+  ``paged_`` variants): thin forwards onto the ``CacheView`` entry points
+  above (K1–K4), each warning once per process.
 
 Port of ``repro.kernels.ops``.  The kernels read the seq-major cache and
 side-car directly (paged: through the block table), so no layout
@@ -21,7 +25,7 @@ import warnings
 import torch
 
 from repro_torch.core import retrieval
-from repro_torch.core.policy import CacheView
+from repro_torch.core.policy import CacheView, _warn_deprecated
 from repro_torch.core.quantize import QuantizedKeys
 
 from .fier_score import fier_score_scan
@@ -197,3 +201,134 @@ def fier_attention_decode(
     idx = retrieval.select_topk(kv_scores, budget, length)
     k_sel, v_sel = retrieval.gather_kv(K, V, idx)
     return sparse_attention(q, k_sel, v_sel, idx, length)
+
+
+# ---------------------------------------------------------- deprecated shims
+# Pre-registry entry points: thin forwards onto the CacheView-based API,
+# kept for external callers.  Each warns (DeprecationWarning) once per
+# process, on its first call.
+
+def fused_sparse_attention(
+    q: torch.Tensor,
+    K: torch.Tensor,
+    V: torch.Tensor,
+    idx: torch.Tensor,
+    length: torch.Tensor | None,
+) -> torch.Tensor:
+    """Deprecated: ``attend_selected(q, CacheView.slab(K, V), idx)`` (K2)."""
+    _warn_deprecated(
+        "kernels.ops.fused_sparse_attention",
+        "kernels.ops.attend_selected(q, CacheView.slab(K, V, length=length), idx)",
+    )
+    return attend_selected(q, CacheView.slab(K, V, length=length), idx)
+
+
+def fused_retrieve(
+    q: torch.Tensor,
+    qk: QuantizedKeys,
+    budget: int,
+    length: torch.Tensor | None = None,
+    *,
+    group_reduce: str = "max",
+    sink: int = 0,
+    recent: int = 0,
+    return_stats: bool = False,
+):
+    """Deprecated: ``retrieve(q, view, budget, ...)`` on a slab view (K1)."""
+    _warn_deprecated(
+        "kernels.ops.fused_retrieve",
+        "kernels.ops.retrieve(q, CacheView.slab(..., meta=qk, length=length), budget)",
+    )
+    return retrieve(
+        q, CacheView.slab(None, None, qk, length), budget, group_reduce=group_reduce,
+        sink=sink, recent=recent, return_stats=return_stats,
+    )
+
+
+def fused_fier_attention_decode(
+    q: torch.Tensor,
+    K: torch.Tensor,
+    V: torch.Tensor,
+    qk: QuantizedKeys,
+    budget: int,
+    length: torch.Tensor | None = None,
+    *,
+    group_reduce: str = "max",
+    sink: int = 0,
+    recent: int = 0,
+    one_pass: bool = True,
+) -> torch.Tensor:
+    """Deprecated: ``fier_decode_one_pass`` (K1 + K2) or, with
+    ``one_pass=False``, ``fier_decode_two_pass`` on a slab ``CacheView``."""
+    _warn_deprecated(
+        "kernels.ops.fused_fier_attention_decode",
+        "kernels.ops.fier_decode_one_pass / fier_decode_two_pass, or "
+        "policy.decode_attention(q, view, plan)",
+    )
+    fn = fier_decode_one_pass if one_pass else fier_decode_two_pass
+    return fn(q, CacheView.slab(K, V, qk, length), budget, group_reduce=group_reduce,
+              sink=sink, recent=recent)
+
+
+def paged_fused_retrieve(
+    q: torch.Tensor,
+    meta: QuantizedKeys,
+    block_table: torch.Tensor,
+    budget: int,
+    length: torch.Tensor | None = None,
+    *,
+    group_reduce: str = "max",
+    sink: int = 0,
+    recent: int = 0,
+    return_stats: bool = False,
+):
+    """Deprecated: ``retrieve(q, view, budget, ...)`` on a paged view (K3)."""
+    _warn_deprecated(
+        "kernels.ops.paged_fused_retrieve",
+        "kernels.ops.retrieve(q, CacheView.paged(..., meta, block_table, length), budget)",
+    )
+    return retrieve(
+        q, CacheView.paged(None, None, meta, block_table, length), budget,
+        group_reduce=group_reduce, sink=sink, recent=recent, return_stats=return_stats,
+    )
+
+
+def paged_fused_sparse_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,
+    idx: torch.Tensor,
+    length: torch.Tensor | None,
+) -> torch.Tensor:
+    """Deprecated: ``attend_selected`` on a paged view (K4)."""
+    _warn_deprecated(
+        "kernels.ops.paged_fused_sparse_attention",
+        "kernels.ops.attend_selected(q, CacheView.paged(k, v, None, block_table, length), idx)",
+    )
+    return attend_selected(q, CacheView.paged(k_pool, v_pool, None, block_table, length), idx)
+
+
+def paged_fused_fier_attention_decode(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    meta: QuantizedKeys,
+    block_table: torch.Tensor,
+    budget: int,
+    length: torch.Tensor | None = None,
+    *,
+    group_reduce: str = "max",
+    sink: int = 0,
+    recent: int = 0,
+) -> torch.Tensor:
+    """Deprecated: ``fier_decode_one_pass`` on a paged ``CacheView`` (K3 + K4)."""
+    _warn_deprecated(
+        "kernels.ops.paged_fused_fier_attention_decode",
+        "kernels.ops.fier_decode_one_pass(q, CacheView.paged(...), budget) "
+        "or policy.decode_attention(q, view, plan)",
+    )
+    return fier_decode_one_pass(
+        q, CacheView.paged(k_pool, v_pool, meta, block_table, length), budget,
+        group_reduce=group_reduce, sink=sink, recent=recent,
+    )

@@ -3,7 +3,7 @@
 Caches are dicts of stacked tensors [L, B, S, Hkv, D] bf16 (+ the FIER
 side-car).  Unlike the JAX package, whose arrays are immutable, the port
 updates a cache in place: an append writes one row of the slab and one
-group of the side-car, and never copies a slab.  Positions beyond
+group (FIER) or page (Quest) of the side-car, and never copies a slab.  Positions beyond
 ``length`` hold garbage that every consumer masks.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.quantize import QuantizedKeys
+from repro_torch.core.quest import PageMeta
 
 
 def _check_capacity(capacity: int, group: int, *, what: str = "capacity") -> None:
@@ -37,9 +38,12 @@ def init_layer_cache(
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cuda",
 ) -> dict[str, Any]:
-    """Stacked [L, B, S, Hkv, D] K/V slabs (+ the fier side-car)."""
+    """Stacked [L, B, S, Hkv, D] K/V slabs (+ the fier side-car or the
+    quest page metadata)."""
     if cfg is not None and cfg.kind == "fier":
         _check_capacity(capacity, cfg.group)
+    elif cfg is not None and cfg.kind == "quest" and capacity % cfg.page:
+        raise ValueError(f"capacity {capacity} not divisible by quest page {cfg.page}")
     shape = (n_layers, B, capacity, n_kv, d_head)
     kv = dict(
         k=torch.zeros(shape, dtype=dtype, device=device),
@@ -56,6 +60,12 @@ def init_layer_cache(
             side(capacity // g, torch.bfloat16),
             g,
         )
+    elif cfg is not None and cfg.kind == "quest":
+        L = cfg.page
+        pages = lambda: torch.zeros(
+            (n_layers, B, capacity // L, n_kv, d_head), dtype=torch.bfloat16, device=device
+        )
+        kv["meta"] = PageMeta(pages(), pages(), L)
     return kv
 
 
@@ -81,34 +91,55 @@ def append_kv(
     return k_cache, v_cache
 
 
+def _put_rows(t: torch.Tensor, index: tuple, new: torch.Tensor, ok: torch.Tensor | None) -> None:
+    """``t[index] = new`` on the committing rows (batch axis 0 of ``new``);
+    the rows ``ok`` leaves False keep their old values."""
+    if ok is not None:
+        new = torch.where(ok.reshape(-1, *([1] * (new.dim() - 1))), new, t[index])
+    t[index] = new
+
+
 def append_token_metadata(
-    meta: Any, k_slab: torch.Tensor, length: torch.Tensor, cfg: PolicyConfig
+    meta: Any,
+    k_slab: torch.Tensor,
+    length: torch.Tensor,
+    cfg: PolicyConfig,
+    commit_mask: torch.Tensor | None = None,
 ) -> Any:
-    """Refresh, in place, the side-car group that holds position ``length``
-    of each sequence after a 1-token append (each sequence may sit in a
-    different group).  Only that group is recomputed from the slab."""
+    """Refresh, in place, the side-car block (FIER group / Quest page) that
+    holds position ``length`` of each sequence after a 1-token append (each
+    sequence may sit in a different block; the start is clamped to
+    [0, S-block], as ``dynamic_slice`` clamps it).  Only that block is
+    recomputed from the slab.  With ``commit_mask`` [B] bool, the rows it
+    leaves False keep their old block."""
     if meta is None or cfg.kind == "full":
         return meta
-    if cfg.kind != "fier":
-        raise NotImplementedError(f"metadata for policy {cfg.kind!r} is not ported")
-    g = cfg.group
+    if cfg.kind not in ("fier", "quest"):
+        raise ValueError(cfg.kind)
+    n = cfg.group if cfg.kind == "fier" else cfg.page
     B, S = k_slab.shape[:2]
     dev = k_slab.device
-    start = torch.clamp((length.to(torch.int64) // g) * g, 0, S - g)
+    start = torch.clamp((length.to(torch.int64) // n) * n, 0, S - n)
     rows = torch.arange(B, device=dev)[:, None]
-    blk = k_slab[rows, start[:, None] + torch.arange(g, device=dev)[None, :]]  # [B,g,H,D]
+    blk = k_slab[rows, start[:, None] + torch.arange(n, device=dev)[None, :]]  # [B,n,H,D]
     kmax, kmin = blk.amax(dim=1), blk.amin(dim=1)
+    cell = start // n
+    if cfg.kind == "quest":
+        for t, val in ((meta.kmax, kmax), (meta.kmin, kmin)):
+            _put_rows(t, (rows[:, 0], cell), val.to(t.dtype), commit_mask)
+        return meta
     # Bit for bit as repro/kvcache/cache.py:128-130: midpoint and half-range
     # in the slab dtype (bf16 add, rounded, then the exact halving), and the
     # sign test against that bf16 midpoint.
+    g = n
     z, s = (kmax + kmin) * 0.5, (kmax - kmin) * 0.5
     bits = (blk >= z[:, None].to(blk.dtype)).to(torch.uint8)
     shifts = torch.arange(8, dtype=torch.uint8, device=dev).reshape(1, 1, 8, 1, 1)
     packed = (bits.reshape(B, g // 8, 8, *bits.shape[2:]) << shifts).sum(dim=2)
     crow = (start // 8)[:, None] + torch.arange(g // 8, device=dev)[None, :]
-    meta.codes[rows, crow] = packed.to(torch.uint8)
-    meta.scale[rows[:, 0], start // g] = s.to(meta.scale.dtype)
-    meta.zero[rows[:, 0], start // g] = z.to(meta.zero.dtype)
+    _put_rows(meta.codes, (rows, crow), packed.to(torch.uint8), commit_mask)
+    _put_rows(meta.scale, (rows[:, 0], cell), s.to(meta.scale.dtype), commit_mask)
+    _put_rows(meta.zero, (rows[:, 0], cell), z.to(meta.zero.dtype), commit_mask)
     return meta
 
 

@@ -29,8 +29,8 @@ the slab decode on the same logical cache contents.
 
 Host side, :class:`BlockAllocator` (a copy of the JAX package's: pure
 Python) owns the free list, the ref counts and the radix-trie prefix cache;
-see its docstring.  Its eviction records are kept although the host-DRAM
-tier that consumes them is not ported yet (ROADMAP Queue 1 item 8).
+see its docstring.  Its eviction records feed the engine's host-DRAM
+offload tier (:mod:`repro_torch.kvcache.offload`).
 """
 from __future__ import annotations
 
@@ -262,7 +262,7 @@ class AllocatorAuditError(AssertionError):
 class EvictedBlock:
     """One block demoted out of the device prefix cache (LRU pressure or
     TTL expiry) while its contents were still valid — the record the
-    engine's host-offload hook consumes (not ported yet).
+    engine's host-offload hook consumes.
     ``parent_key`` preserves the trie linkage so a recall re-inserts the
     node under its original prefix parent."""
 
@@ -290,9 +290,8 @@ class BlockAllocator:
 
     Evictions of still-valid cached blocks are observable: with
     ``record_evictions`` set, every LRU/TTL demotion lands in an internal
-    log drained via :meth:`take_evicted` (the JAX package's host offload
-    tier consumes it; in the port that tier waits, ROADMAP Queue 1 item 8,
-    and the engine leaves recording off).
+    log drained via :meth:`take_evicted`, which the engine's host offload
+    tier consumes (the engine turns recording on only with a tier).
     """
 
     def __init__(self, n_blocks: int, block_size: int,

@@ -30,8 +30,8 @@ parent/child structure on top:
 
 The trie never touches device memory: it is host-side bookkeeping owned
 by :class:`~repro_torch.kvcache.paged.BlockAllocator`, and the eviction log it
-feeds (``BlockAllocator.take_evicted``) is what a host-DRAM offload tier
-consumes (not ported yet: ROADMAP Queue 1 item 8).
+feeds (``BlockAllocator.take_evicted``) is what the engine's host-DRAM
+offload tier (:mod:`repro_torch.kvcache.offload`) consumes.
 
 A copy of ``repro.kvcache.prefix_tree`` (standard library only).
 """

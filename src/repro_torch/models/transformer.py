@@ -3,8 +3,9 @@
 
 * Layer params are stacked along a leading L axis; depth is a Python loop.
 * Prefill runs blocked flash attention over the prompt, zero-pads each
-  layer's K/V to ``capacity`` and quantizes the whole padded slab of every
-  layer past ``skip_layers`` into the FIER side-car.  It always returns a
+  layer's K/V to ``capacity`` and builds the policy's side-car (the FIER
+  codes or the Quest page min/max) over the whole padded slab of every
+  layer past ``skip_layers``.  It always returns a
   slab cache; a paged engine scatters it into its block pool.
 * Chunked prefill (``prefill_chunk``) runs one chunk of one slot's prompt
   against the batched cache of either layout.
@@ -146,14 +147,14 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
             stack["k"][i, :, :S] = k.to(torch.bfloat16)
             stack["v"][i, :, :S] = v.to(torch.bfloat16)
         if "meta" in cache["rest"]:
-            # the side-car covers the whole zero-padded slab, prompt padding
-            # rows included, as _assemble_cache quantizes it
+            # the side-car (FIER codes or Quest pages) covers the whole
+            # zero-padded slab, prompt padding rows included, as
+            # _assemble_cache builds it
             meta = cache["rest"]["meta"]
             for i in range(L - skip):
                 mv = build_metadata(cache["rest"]["k"][i], pol)
-                meta.codes[i].copy_(mv.codes)
-                meta.scale[i].copy_(mv.scale)
-                meta.zero[i].copy_(mv.zero)
+                for name in meta.FIELDS:
+                    getattr(meta, name)[i].copy_(getattr(mv, name))
         rows = torch.arange(B, device=h.device)
         last = apply_norm(h[rows, lengths.to(torch.int64) - 1], params["final_norm"], cfg.norm)
         return _masked_logits(last, _head(params), cfg.vocab, Vp), cache
@@ -262,7 +263,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
             put(vp, Vz)
             if "meta" in stack:
                 meta, mv = stack["meta"], build_metadata(Kz, pol)
-                for name in ("codes", "scale", "zero"):
+                for name in meta.FIELDS:
                     put(getattr(meta, name)[i], getattr(mv, name))
         if not final:
             return None, cache

@@ -1,15 +1,19 @@
-"""Observability: metrics registry + span tracing (port of ``repro.obs``).
+"""Observability: metrics registry + span tracing + retrieval introspection
+(port of ``repro.obs``).
 
 One :class:`Observability` bundle travels with a serving session: the
 engine and the scheduler share its :class:`~repro_torch.obs.metrics.MetricsRegistry`
 and its :class:`~repro_torch.obs.tracing.Tracer` (request-lifecycle spans
 and scheduler events on the virtual token clock).  ``metrics.py`` and
 ``tracing.py`` are copies of the JAX package's (standard library only).
+``introspect=True`` additionally attaches a
+:class:`~repro_torch.obs.introspect.RetrievalIntrospector` that samples the
+FIER retrieval stage per decode step (budget utilization, τ thresholds,
+oracle overlap, recaptured attention mass) into the same registry.
 
 The default is **disabled**: ``Observability.disabled()`` (what an engine
 constructs when none is passed) hands out no-op instruments and the null
-tracer.  The retrieval introspector (``introspect=True``) is not ported
-yet and raises.
+tracer.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ __all__ = [
     "MetricsRegistry",
     "NULL_TRACER",
     "Observability",
+    "ProbeRecord",
+    "RetrievalIntrospector",
     "Series",
     "Snapshot",
     "Tracer",
@@ -49,30 +55,48 @@ __all__ = [
 ]
 
 
-class Observability:
-    """The per-session observability bundle: ``metrics`` + ``tracer``.
+# the introspector needs numpy and torch; metrics/tracing are stdlib-only,
+# so it loads lazily
+_INTROSPECT_NAMES = {"ProbeRecord", "RetrievalIntrospector"}
 
-    ``enabled`` turns both the registry and the tracer on; ``metrics``
-    shares an existing registry between sessions.  ``introspector`` is
-    always None in the port (the scheduler checks it).
+
+def __getattr__(name: str):
+    if name in _INTROSPECT_NAMES:
+        from . import introspect
+
+        return getattr(introspect, name)
+    raise AttributeError(f"module 'repro_torch.obs' has no attribute {name!r}")
+
+
+class Observability:
+    """The per-session observability bundle: ``metrics`` + ``tracer``
+    (+ optional ``introspector``).
+
+    ``enabled`` turns both the registry and the tracer on; pass
+    ``introspect=True`` (it needs ``enabled``) to attach the
+    retrieval-quality debug probe.  ``metrics`` shares an existing registry
+    between sessions.
     """
 
     def __init__(self, enabled: bool = True, *, introspect: bool = False,
+                 probe_layer: int = 0, probe_every: int = 1,
                  metrics: MetricsRegistry | None = None):
-        if introspect:
-            raise NotImplementedError(
-                "the retrieval introspector is not ported yet "
-                "(ROADMAP Queue 1 item 8)"
-            )
         self.enabled = enabled
         self.metrics = (metrics if metrics is not None
                         else MetricsRegistry(enabled=enabled))
         self.tracer: Tracer = Tracer() if enabled else NULL_TRACER
         self.introspector = None
+        if enabled and introspect:
+            from .introspect import RetrievalIntrospector
+
+            self.introspector = RetrievalIntrospector(
+                self.metrics, self.tracer, probe_layer=probe_layer, every=probe_every,
+            )
 
     @classmethod
     def disabled(cls) -> "Observability":
         return cls(enabled=False)
 
     def __repr__(self) -> str:
-        return f"Observability(enabled={self.enabled})"
+        return (f"Observability(enabled={self.enabled}, "
+                f"introspect={self.introspector is not None})")

@@ -20,12 +20,19 @@ cached first-token logits and skip prefill, copy-on-write on shared tails),
 and insertion scatters the prefilled slab block-wise into the pool, so
 device memory is bounded by tokens resident, not slots × capacity.  Under
 pool pressure the budget-degradation ladder halves the retrieval budget
-and sheds middle blocks.  The host-DRAM offload tier, TTL expiry and the
-fault hooks wait for ROADMAP Queue 1 item 8; mesh sharding for item 10.
+and sheds middle blocks.  Two-tier KV reuse: parked prefix blocks age out
+by TTL (``prefix_ttl``, on the scheduler's virtual clock) and, with
+``offload_blocks > 0``, every evicted block is saved to a pinned host tier
+(``kvcache.offload``) and recalled bit-identically when a later prompt's
+prefix walk runs off the device trie.  ``corrupt_slot_metadata`` is the
+fault injector's side-car scrambler.  The paper's baselines (``quest``,
+``slm``) serve through ``Engine.build(..., policy=...)`` on the slab
+layout.  Mesh sharding waits for ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from collections import Counter, OrderedDict
 
@@ -33,6 +40,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import DecodePlan, PolicyConfig
+from repro_torch.core.quantize import QuantizedKeys
+from repro_torch.kvcache.offload import HostOffloadTier
 from repro_torch.kvcache.paged import (
     NULL_BLOCK,
     AllocatorAuditError,
@@ -49,6 +58,9 @@ MAX_CACHED_PROMPT_LOGITS = 1024  # LRU bound on the full-prompt logits cache
 # comes back once the free pool recovers past RESTORE_FREE_FRAC of it
 DEGRADE_FLOOR = 64
 RESTORE_FREE_FRAC = 0.5
+# virtual-clock units a host-tier recall of one block costs (a prefill of the
+# block would cost block_size units)
+RECALL_COST = 1.0
 
 __all__ = [
     "AllocatorAuditError", "Engine", "PoolExhausted", "SamplingConfig",
@@ -107,11 +119,12 @@ def sample_token(
 
 
 def _pool_leaves(part: dict) -> list[torch.Tensor]:
-    """Every stacked pool tensor [L, N, pb, ...] of one cache part."""
+    """Every stacked pool tensor [L, N, pb, ...] of one cache part (K, V and
+    the side-car's tensors)."""
     leaves = [part["k"], part["v"]]
     if "meta" in part:
         m = part["meta"]
-        leaves += [m.codes, m.scale, m.zero]
+        leaves += [getattr(m, name) for name in m.FIELDS]
     return leaves
 
 
@@ -128,9 +141,9 @@ class Engine:
         seed: int = 0,
         obs: Observability | None = None,
         offload_blocks: int = 0,
+        prefix_ttl: float | None = None,
+        degrade_floor: int | None = None,
     ):
-        if offload_blocks > 0:
-            raise _not_ported("the host-DRAM offload tier (offload_blocks > 0)", "8")
         self.bundle = bundle
         self.device = bundle.device
         # observability bundle: shared metrics registry + tracer; the default
@@ -149,6 +162,9 @@ class Engine:
 
         self.base_budget = pol.budget if pol is not None else 0
         self.current_budget = self.base_budget
+        # the ladder's floor (None: DEGRADE_FLOOR); a floor at the budget
+        # turns the ladder off, so pool pressure preempts instead
+        self.degrade_floor = degrade_floor
         self.downshifts = 0
         self.restores = 0
         self.blocks_shed = 0
@@ -174,12 +190,28 @@ class Engine:
                     f"requests outgrowing the pool will be retired as "
                     f"rejected instead of running to capacity"
                 )
-            self.allocator = BlockAllocator(self.pool_blocks, self.block_size)
+            # two-tier KV reuse: the trie-backed allocator is tier 1 (free-
+            # but-cached device blocks, TTL-aged on the scheduler's virtual
+            # clock); an optional host tier receives LRU/TTL-evicted blocks
+            # and recalls them bit-identically at admission time
+            self.prefix_ttl = prefix_ttl
+            self.recall_cost = RECALL_COST
+            self.allocator = BlockAllocator(
+                self.pool_blocks, self.block_size, park_ttl=prefix_ttl)
+            self.offload: HostOffloadTier | None = (
+                HostOffloadTier(offload_blocks) if offload_blocks > 0 else None
+            )
+            self.allocator.record_evictions = self.offload is not None
             self._pool_clock = None
             self.prefix_partial_hits = 0
+            self.blocks_recalled = 0
+            self.tokens_recalled = 0
             self.tokens_recomputed = 0
+            self._recall_units = 0.0
             self._seq: dict[int, SeqBlocks] = {}
             self._prompt_logits: OrderedDict[int, torch.Tensor] = OrderedDict()
+        else:
+            self.offload = None
 
     @classmethod
     def build(
@@ -193,6 +225,7 @@ class Engine:
         layout: str | None = None,
         obs: Observability | None = None,
         offload_blocks: int = 0,
+        prefix_ttl: float | None = None,
         mesh=None,
         device="cuda",
         seed: int = 0,
@@ -202,8 +235,11 @@ class Engine:
         budget clamped to ``capacity``.  ``layout='paged'`` switches the
         cache to the block pool; its block size and pool size are the
         policy's (``PolicyConfig.block_size`` / ``pool_blocks``, where 0
-        keeps the worst-case pool).  ``device`` defaults to CUDA;
-        a machine without a card raises unless ``device='cpu'`` is passed."""
+        keeps the worst-case pool).  ``offload_blocks`` attaches a host tier
+        of that many blocks and ``prefix_ttl`` ages parked prefix blocks out
+        after that many virtual-clock units (paged layout).  ``device``
+        defaults to CUDA; a machine without a card raises unless
+        ``device='cpu'`` is passed."""
         dev = resolve_device(device)
         if mesh is not None:
             raise _not_ported("mesh-sharded serving", "10")
@@ -217,7 +253,7 @@ class Engine:
         bundle = build_model(cfg, pol, device=dev)
         return cls(
             bundle, n_slots=n_slots, capacity=capacity, sampling=sampling, seed=seed,
-            obs=obs, offload_blocks=offload_blocks,
+            obs=obs, offload_blocks=offload_blocks, prefix_ttl=prefix_ttl,
         )
 
     # ------------------------------------------------------------ lifecycle
@@ -231,10 +267,17 @@ class Engine:
             # a degraded budget never outlives its serving session
             self.restore_budget()
         if self.paged:
-            # the pool restarts empty: a fresh allocator, no prompt caches
-            self.allocator = BlockAllocator(self.pool_blocks, self.block_size)
+            # the pool restarts empty: a fresh allocator, no prompt caches; the
+            # host tier restarts empty too (a session must not see KV made
+            # under another session's params), keeping its pinned buffers
+            self.allocator = BlockAllocator(
+                self.pool_blocks, self.block_size, park_ttl=self.prefix_ttl)
+            if self.offload is not None:
+                self.offload.clear()
+            self.allocator.record_evictions = self.offload is not None
             if self._pool_clock is not None:
                 self.set_pool_clock(self._pool_clock)
+            self._recall_units = 0.0
             self._seq = {}
             self._prompt_logits = OrderedDict()
         return self.bundle.init_cache(self.n_slots, self.capacity, length)
@@ -273,7 +316,7 @@ class Engine:
             for name in ("k", "v"):
                 dst[name][:, slot] = src[name][:, 0]
             if "meta" in dst:
-                for name in ("codes", "scale", "zero"):
+                for name in dst["meta"].FIELDS:
                     getattr(dst["meta"], name)[:, slot] = getattr(src["meta"], name)[:, 0]
         batched_cache["length"][slot] = length
         return logits, batched_cache
@@ -321,21 +364,114 @@ class Engine:
             for pool in _pool_leaves(cache[part]):
                 pool[:, bid].zero_()
 
+    def _read_block(self, cache, bid: int) -> list[torch.Tensor]:
+        """A copy of block ``bid``'s rows in every pool leaf (front then rest:
+        K/V and the side-car), each [L, bs, …] — the payload layout of the
+        host tier."""
+        return [pool[:, bid].clone() for part in ("front", "rest")
+                for pool in _pool_leaves(cache[part])]
+
+    def _block_views(self, cache, bid: int) -> list[torch.Tensor]:
+        return [pool[:, bid] for part in ("front", "rest") for pool in _pool_leaves(cache[part])]
+
+    def _write_block(self, cache, payload, bid: int):
+        """Commit a block payload (``_read_block``'s layout) into pool row
+        ``bid`` — the device half of a recall; a round trip is bit-identical."""
+        for dst, src in zip(self._block_views(cache, bid), payload):
+            dst.copy_(src)
+        return cache
+
+    # ----------------------------------------------------- host offload tier
     def _drain_evictions(self, cache):
-        """Snapshot just-evicted prefix blocks into the host tier.  The port
-        has no host tier yet (ROADMAP Queue 1 item 8), so this does nothing,
-        as the JAX package's does without one."""
+        """Save just-evicted prefix blocks into the host tier.  Runs after
+        the allocator operation that evicted and *before* any device write
+        to the reclaimed rows: the rows still hold the evicted contents, and
+        the tier's copy is ordered before any later write (``kvcache.offload``)."""
+        if self.offload is None:
+            return cache
+        for ev in self.allocator.take_evicted():
+            if self.allocator.key_resident(ev.key):
+                continue  # single ownership: a key resident on the device stays there
+            self.offload.save(ev.key, ev.parent_key, self._block_views(cache, ev.bid),
+                              reason=ev.reason)
+            if self.obs.enabled:
+                self.obs.metrics.counter(
+                    "offload_saves_total", "blocks demoted to the host tier").inc()
         return cache
 
     def sweep_parked(self, cache):
-        """TTL sweep of parked prefix blocks into the host tier."""
-        raise _not_ported("the TTL sweep of parked prefix blocks (sweep_parked)", "8")
+        """TTL sweep of tier-1 parked blocks — the scheduler calls this once
+        per step on its virtual clock.  Expired blocks go to the host tier
+        (when attached) before their rows become reusable.  Returns
+        (n_expired, cache)."""
+        if not self.paged or self.allocator.park_ttl is None:
+            return 0, cache
+        n = self.allocator.expire_parked()
+        if n:
+            cache = self._drain_evictions(cache)
+        return n, cache
+
+    def _recall_extension(self, cache, keys, blocks, L: int, slot: int):
+        """Extend a device prefix match through the host tier: allocate a
+        fresh device block per resident host key (capped so the final chunk
+        still computes ≥ 1 token), stream the payloads back two-deep, and
+        re-register each block under its original parent linkage.  Partial
+        recall is fine: an alloc failure mid-walk keeps what was recalled and
+        recomputes the rest.  Mutates ``blocks``; returns the cache."""
+        if self.offload is None:
+            return cache
+        max_blocks = (L - 1) // self.block_size
+        ext = self.offload.match_extension(keys, len(blocks))
+        ext = ext[: max_blocks - len(blocks)]
+        if not ext:
+            return cache
+        fresh: list[int] = []
+        for _ in ext:
+            bid = self.allocator.alloc()
+            if bid is None:
+                break
+            fresh.append(bid)
+        # evictions caused by the recall allocations themselves are saved
+        # before the reclaimed rows receive recalled payloads
+        cache = self._drain_evictions(cache)
+        if not fresh:
+            return cache
+        hbs = [self.offload.pop(k) for k in ext[: len(fresh)]]
+
+        def commit(bid, payload):
+            self._write_block(cache, payload, bid)
+
+        t0 = time.monotonic()
+        n_done = self.offload.recall(zip(fresh, hbs), commit)
+        for bid, hb in zip(fresh, hbs):
+            self.allocator.register(bid, hb.key, parent_key=hb.parent_key)
+            blocks.append(bid)
+        wall = time.monotonic() - t0
+        self.offload.recall_wall_s += wall
+        self.blocks_recalled += n_done
+        self.tokens_recalled += n_done * self.block_size
+        self._recall_units += self.recall_cost * n_done
+        if self.obs.enabled:
+            self.obs.tracer.instant("blocks_recalled", cat="offload", blocks=n_done)
+            self.obs.metrics.histogram(
+                "offload_recall_seconds", "wall time of host-tier block recalls").observe(wall)
+        return cache
 
     def set_pool_clock(self, clock) -> None:
-        """Point the allocator trie at an external monotone clock (the
-        scheduler's virtual token clock); remembered across ``new_cache``."""
+        """Point the allocator trie and the host tier at an external
+        monotone clock (the scheduler's virtual token clock); remembered
+        across ``new_cache``."""
         self._pool_clock = clock
         self.allocator.set_clock(clock)
+        if self.offload is not None:
+            self.offload.set_clock(clock)
+
+    def take_recall_units(self) -> float:
+        """Drain the virtual-clock cost of recalls since the last call: a
+        recalled block costs ``recall_cost`` units against the
+        ``block_size`` prefill-token units it saved."""
+        u, self._recall_units = self._recall_units, 0.0
+        return u
 
     def _remember_logits(self, key: int, logits: torch.Tensor) -> None:
         self._prompt_logits[key] = logits.detach().to("cpu", copy=True)
@@ -427,7 +563,14 @@ class Engine:
         # least one token to produce logits): drop tail hits
         while flags and len(flags) * self.block_size >= L:
             flags.pop()
-        end = min(len(flags) * self.block_size + chunk_tokens, L)
+        # host-tier extension: each recalled block needs a fresh device
+        # block (counted in nb - len(flags), since the resume point moves)
+        n_host = 0
+        if self.offload is not None:
+            ext = self.offload.match_extension(keys, len(flags))
+            cap = (L - 1) // self.block_size - len(flags)
+            n_host = min(len(ext), max(0, cap))
+        end = min((len(flags) + n_host) * self.block_size + chunk_tokens, L)
         nb = -(-end // self.block_size)
         return (nb - len(flags)) + sum(flags)
 
@@ -461,6 +604,9 @@ class Engine:
             blocks.append(bid)
         while blocks and len(blocks) * self.block_size >= L:
             self.allocator.free(blocks.pop())
+        # where the device trie runs out, the host tier may extend the match:
+        # recalled blocks push the resume point further right
+        cache = self._recall_extension(cache, keys, blocks, L, slot)
         resume = len(blocks) * self.block_size
         if resume:
             self.prefix_partial_hits += 1
@@ -598,6 +744,8 @@ class Engine:
         if self.paged:
             out.update(
                 engine_prefix_partial_hits=self.prefix_partial_hits,
+                engine_blocks_recalled=self.blocks_recalled,
+                engine_tokens_recalled=self.tokens_recalled,
                 engine_tokens_recomputed=self.tokens_recomputed,
             )
         return out
@@ -615,15 +763,17 @@ class Engine:
         m = self.obs.metrics
         if self.paged:
             m.set_gauges(self.allocator.stats())
+            if self.offload is not None:
+                m.set_gauges(self.offload.stats())
         m.set_gauges(self.engine_stats())
 
     # --------------------------------------------- graceful budget degradation
     @property
     def degradable(self) -> bool:
         """Whether this engine's policy has a retrieval budget the ladder
-        can downshift ('full' reads everything by definition)."""
+        can downshift (fier/quest; 'full' reads everything by definition)."""
         pol = self.bundle.policy
-        return pol is not None and pol.kind == "fier"
+        return pol is not None and pol.kind in ("fier", "quest")
 
     def _swap_budget(self, budget: int) -> None:
         """Point decode at a bundle rebuilt with ``budget``: the policy goes
@@ -640,11 +790,12 @@ class Engine:
         self.current_budget = budget
 
     def downshift_budget(self) -> bool:
-        """One rung down the ladder (halve, floored at ``DEGRADE_FLOOR``).
+        """One rung down the ladder (halve, floored at ``degrade_floor``).
         False when already at the floor / not degradable."""
         if not self.degradable:
             return False
-        new = max(DEGRADE_FLOOR, self.current_budget // 2)
+        floor = DEGRADE_FLOOR if self.degrade_floor is None else self.degrade_floor
+        new = max(floor, self.current_budget // 2)
         if new >= self.current_budget:
             return False
         prev = self.current_budget
@@ -713,14 +864,50 @@ class Engine:
         return freed, cache
 
     # ----------------------------------------------------- faults & auditing
+    def _corrupt_meta(self, cache, idx: int):
+        """Scramble the FIER side-car at axis-1 index ``idx`` of the rest
+        pool — a physical block id (paged) or a slot's batch row (slab), in
+        place: codes ^ 0xA5, scale → -scale - 1, zero → -zero + 1 (bf16).
+        Everything stays finite (silent retrieval-quality corruption, not
+        the NaN watchdog's).  A cache without a FIER side-car is left as
+        it is."""
+        meta = cache["rest"].get("meta")
+        if not isinstance(meta, QuantizedKeys):
+            return cache
+        meta.codes[:, idx] ^= 0xA5
+        meta.scale[:, idx] = -meta.scale[:, idx] - 1.0
+        meta.zero[:, idx] = -meta.zero[:, idx] + 1.0
+        return cache
+
     def corrupt_slot_metadata(self, cache, slot: int):
-        """Chaos hook of the fault injector."""
-        raise _not_ported("the serving fault hooks (corrupt_slot_metadata)", "8")
+        """Chaos hook: corrupt the FIER metadata backing ``slot``.
+
+        Paged mode targets a *privately held, unregistered* block (ref 1, no
+        prefix-cache hash) so the corruption cannot bleed into prefix-sharing
+        requests or future prefix hits; when the slot holds no such block yet,
+        nothing happens and the caller retries later.  Slab mode scrambles
+        the slot's own batch row.  Returns (corrupted?, cache)."""
+        if not self.paged:
+            if 0 <= slot < self.n_slots:
+                return True, self._corrupt_meta(cache, slot)
+            return False, cache
+        seq = self._seq.get(slot)
+        if seq is None:
+            return False, cache
+        for b in reversed(seq.blocks):
+            if (
+                b != NULL_BLOCK
+                and self.allocator.ref[b] == 1
+                and self.allocator.key_of(b) is None
+            ):
+                return True, self._corrupt_meta(cache, b)
+        return False, cache
 
     def audit(self) -> None:
         """Cross-check the allocator against the engine's live sequences:
         every block reference the engine holds must be counted exactly by
-        the allocator, on top of its internal invariants.  Raises
+        the allocator, on top of its internal invariants, and (with a host
+        tier) the tier's own invariants and host ∩ device = ∅.  Raises
         ``AllocatorAuditError``; no-op for slab engines."""
         if not self.paged:
             return
@@ -729,7 +916,13 @@ class Engine:
             for b in seq.blocks:
                 if b != NULL_BLOCK:
                     owners[b] += 1
-        self.allocator.audit(dict(owners))
+        host_keys = None
+        if self.offload is not None:
+            errs = self.offload.audit()
+            if errs:
+                raise AllocatorAuditError("host tier audit failed: " + "; ".join(errs))
+            host_keys = self.offload.keys()
+        self.allocator.audit(dict(owners), host_keys=host_keys)
 
     def decode(self, params, tokens, cache, active=None, generator=None):
         """One decode step for all slots; inactive slots don't advance (their

@@ -37,9 +37,11 @@ token prefilled or token decoded); a per-step NaN/Inf watchdog
 quarantines poisoned slots without touching the rest of the batch; and
 under pool pressure the scheduler walks the engine's budget-degradation
 ladder (downshift retrieval budget + shed middle blocks) before falling
-back to preemption.  The fault injector that drives all of this in the
-JAX package's chaos tests is not ported yet (ROADMAP Queue 1 item 8):
-``injector`` must be None.
+back to preemption.  ``serving.faults.ServingFaultInjector`` drives all of
+this deterministically in the chaos tests.  On a paged engine each step
+also runs the TTL sweep of parked prefix blocks and charges host-tier
+recalls to the virtual clock; ``Observability(introspect=True)`` probes
+the retrieval stage after every decode step.
 """
 from __future__ import annotations
 
@@ -104,15 +106,13 @@ class ContinuousScheduler:
         self_preempt_limit: int = 4,
         watchdog: bool = True,
     ):
-        if injector is not None:
-            raise NotImplementedError(
-                "the serving fault injector is not ported yet (ROADMAP Queue 1 item 8)"
-            )
         self.engine = engine
         self.params = params
         self.pad = pad_prompt_to
-        # fault tolerance: allocator-audit cadence, livelock retirement
-        # threshold, and the per-step non-finite-logits watchdog
+        # fault tolerance: deterministic chaos injector (serving.faults),
+        # allocator-audit cadence, livelock retirement threshold, and the
+        # per-step non-finite-logits watchdog
+        self.injector = injector
         self.health = HealthMonitor(audit_every)
         self.self_preempt_limit = self_preempt_limit
         self.watchdog = watchdog
@@ -125,8 +125,9 @@ class ContinuousScheduler:
         self.obs = engine.obs
         self.obs.tracer.set_clock(lambda: self.vtime)
         if engine.paged:
-            # the prefix trie's park timestamps ride the same virtual clock:
-            # deterministic functions of the trace, not of wall time
+            # two-tier KV reuse rides the same virtual clock: parked-block TTL
+            # aging and host-tier timestamps are deterministic functions of
+            # the trace, not of wall time
             engine.set_pool_clock(lambda: self.vtime)
         self._step_tokens: list[tuple[int, int]] = []   # (rid, token)
         self.outcomes: dict[int, RequestOutcome] = {}
@@ -659,10 +660,22 @@ class ContinuousScheduler:
         be admitted (stall)."""
         self._step_retired = []
         progressed = False
+        if self.injector is not None:
+            self.injector.on_step_begin(self)
+        progressed |= bool(self._step_retired)  # injected cancels count
         progressed |= self._expire_deadlines()
         # pressure cleared? step back up the degradation ladder
         if self.engine.paged and self.engine.maybe_restore_budget():
             progressed = True
+        if self.engine.paged and self._cache is not None:
+            # TTL sweep on the virtual clock *before* admission, so blocks
+            # freed by aging are available to this step's admission work
+            swept, self._cache = self.engine.sweep_parked(self._cache)
+            if swept and self.obs.enabled:
+                self.obs.tracer.instant("ttl_sweep", cat="pool", expired=swept)
+                self.obs.metrics.counter(
+                    "pool_ttl_evictions_total",
+                    "parked prefix blocks expired by TTL").inc(swept)
         if self.chunk_tokens is None:
             before = (len(self.running), len(self._queue), self.insert_retries)
             self._cache = self._admit(self._queue, self._cache, self._cur)
@@ -672,6 +685,15 @@ class ContinuousScheduler:
             )
         else:
             progressed |= self._chunk_admission_step()
+        if self.engine.paged:
+            # host-tier recalls made by this step's admission work charge the
+            # virtual clock (far less than the block_size prefill tokens each
+            # recalled block saved)
+            units = self.engine.take_recall_units()
+            if units:
+                self.vtime += units
+                if self.obs.enabled:
+                    self.obs.tracer.instant("recall_charge", cat="offload", units=units)
         if self.running:
             if self.engine.paged:
                 self._cache = self._ensure_append_capacity(self._queue, self._cache)
@@ -689,8 +711,11 @@ class ContinuousScheduler:
             self.steps += 1
             self.occupancy.append(len(self.running))
             self.vtime += len(self.running)
-            if self.watchdog:
+            if self.watchdog or self.injector is not None:
                 lg = logits.float().cpu().numpy()
+                if self.injector is not None:
+                    lg = self.injector.poison_logits(self, lg)
+            if self.watchdog:
                 for slot in nonfinite_slots(lg, list(self.running)):
                     # quarantine ONLY the poisoned slot: its sampled token is
                     # garbage (drawn from non-finite logits), so it is
@@ -724,6 +749,10 @@ class ContinuousScheduler:
                     del self.running[slot]
                     self._cache = self._release(self._cache, slot)
             progressed = True
+            if self.obs.introspector is not None and self.running:
+                self.obs.introspector.probe(
+                    self.engine, self._cache, list(self.running), self.steps
+                )
         if self.obs.enabled:
             self._flush_step_obs()
         self.health.maybe_audit(self.engine, self.steps)
@@ -747,6 +776,8 @@ class ContinuousScheduler:
             track = {"in_use": a.n_in_use,
                      "free": len(a._free),
                      "cached": a.n_parked}
+            if self.engine.offload is not None:
+                track["host"] = len(self.engine.offload)
             tr.counter("pool", track)
         self.engine.sample_pool_gauges()
         self.obs.metrics.set_gauges(dict(

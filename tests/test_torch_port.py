@@ -64,15 +64,20 @@ def test_modes_not_ported_raise():
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         DecodePlan.build(PolicyConfig(kind="fier", layout="paged"), shard=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Engine.build(reduced_config("olmo-1b"), n_slots=1, capacity=64, layout="paged",
-                     offload_blocks=4, device="cpu")
+    # the host tier and TTL (ROADMAP Queue 1 item 8) are ported: they build
+    eng = Engine.build(reduced_config("olmo-1b"), n_slots=1, capacity=64, layout="paged",
+                       offload_blocks=4, prefix_ttl=8.0, device="cpu")
+    assert eng.offload.capacity_blocks == 4 and eng.allocator.park_ttl == 8.0
     # two_pass builds on a slab; the paged layout lacks it, as in the JAX matrix
     assert DecodePlan.build(PolicyConfig(kind="fier", pipeline="two_pass")).pipeline == "two_pass"
     with pytest.raises(UnsupportedPlanError, match="two_pass"):
         DecodePlan.build(PolicyConfig(kind="fier", pipeline="two_pass", layout="paged"))
-    with pytest.raises(NotImplementedError, match="quest.*item 7b"):
-        PolicyConfig(kind="quest")
+    # the baselines (item 7b) are ported, on the slab layout only, as in the
+    # JAX matrix
+    assert DecodePlan.build(PolicyConfig(kind="quest")).policy.kind == "quest"
+    assert DecodePlan.build(PolicyConfig(kind="slm")).policy.kind == "slm"
+    with pytest.raises(UnsupportedPlanError, match="quest"):
+        DecodePlan.build(PolicyConfig(kind="quest", layout="paged"))
     with pytest.raises(NotImplementedError, match="item 9"):
         Engine.build(reduced_config("granite-moe-1b-a400m"), n_slots=1, capacity=64,
                      device="cpu")

@@ -288,11 +288,14 @@ def test_paged_entry_points_default_to_cuda_and_not_ported_hooks():
             Engine.build(cfg, n_slots=1, capacity=64, layout="paged")
     eng = Engine.build(cfg, n_slots=1, capacity=64, layout="paged", device="cpu")
     assert eng.paged and eng.pool_blocks == 64 // 32 + 1
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ContinuousScheduler(eng, {}, injector=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Observability(introspect=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.corrupt_slot_metadata({}, 0)
+    # the fault hooks and the introspector (ROADMAP Queue 1 item 8) are ported
+    from repro_torch.serving import ServingFaultInjector
+
+    inj = ServingFaultInjector([])
+    assert ContinuousScheduler(eng, {}, injector=inj).injector is inj
+    assert Observability(introspect=True).introspector is not None
+    cache = eng.new_cache()
+    ok, same = eng.corrupt_slot_metadata(cache, 0)
+    assert not ok and same is cache  # the slot holds no block yet
     with pytest.raises(NotImplementedError, match="item 10"):
         Engine.build(cfg, n_slots=1, capacity=64, layout="paged", mesh=object(), device="cpu")
