@@ -53,11 +53,16 @@ result line):
    (one CTA per row; rows off a 16-byte boundary), and split over a
    cluster at 64 rows of 16,384, 16 rows of 65,536 and 4 rows of 65,533,
    budgets 1, 1024 and S: τ and m exactly its plain version's.  K2, K4 and
-   K8 then run at every rep the kernel admits (1, 2, 4, 8), at the ladder's budget 512, at budget 1000
+   K8 then run at every (d_head, rep) the kernel admits (64 and 128 x 1, 2,
+   4, 8, 12, 16), at the ladder's budget 512, at budget 1000
    (no multiple of the plan's 64-slot step) and at budget 8192 (a CTA finds
    its rows in two chunks): K2 within 1e-4·max|out| of its plain version,
    two K2 launches on the same inputs equal bit for bit, K4 = K2 and K8 =
-   K2 bit for bit, each timed.
+   K2 bit for bit, each timed.  Then K1–K8 at the kernel shapes of the
+   transformer-family configs (``FAMILY_SHAPES``: granite-moe's Hkv 8 x rep
+   2 and minicpm's 36 x 1 at d_head 64, starcoder2's 2 x 12 and
+   qwen3-moe's 4 x 16 at 128), with the gates and timings of the main
+   path's shape.
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
@@ -140,10 +145,34 @@ result line):
    ``ProbeRecord`` in range (mean overlap and mass reported), and K1/K3 on a
    slot that ``corrupt_slot_metadata`` scrambled must lie within ε of their
    plain versions.
-9. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+9. The transformer families at full width (``families_path``), random
+   weights from a seeded ``torch.Generator``, ``Engine.build``'s default
+   policy (fier / one_pass / budget 1024 / skip 2), each model freed before
+   the next: granite-moe-1b-a400m (24 layers, 32 experts top-8, d_head 64,
+   rep 2), minicpm-2b (40 layers, d_head 64, 36 kv heads) and starcoder2-3b
+   (30 layers, rep 12), 4 slots x 8192, prompts 8100/6000/3000/1500, and
+   llava-next-mistral-7b (32 layers, rep 4) at 2 slots x 8192 with 576
+   seeded vision embeddings before 7000/3000 text tokens.  Each: the first
+   decode step with the kernels within 0.017·max|logit| of the step with
+   their plain versions (``FAMILY_LOGIT_REL_TOL``, set between the sound
+   and the planted faults' readings as phase 3's gates were; every
+   layer's K1/K2 inputs compared on the way; granite's expert choices
+   replayed from the plain run where a near-tied router swapped one, the
+   unpinned gap and the swaps reported), and two planted faults (K2 fed
+   idx+1; K1's first-FIER-layer selection on the next kv head) above it;
+   ``generate`` of 32 (granite) or 16 greedy tokens with K1/K2 launched
+   (layers − 2) x decode steps and no other FIER kernel (llava: 8
+   ``decode`` steps after the bundle's ``prefill``); granite's prefill
+   logits identical to the reference pipeline's, and its prompts through a
+   paged engine (``paged_vs_slab``: tokens and first-step logits equal, K3/K4
+   per step).  Reported, not gated: unprofiled decode ms/step (median of 8),
+   TTFT, device-busy ms and launches per step under the profiler, peak
+   memory above what was allocated before the model.
+10. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5; K6/K7: phase 6's
-   generate; K5/K8: phase 6's building blocks), the card line, and as the
-   last line ``{"ok": true, "device": {...}}``.
+   generate; K5/K8: phase 6's building blocks; phase 9's per config beside
+   them), the card line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
@@ -511,7 +540,7 @@ def check_long_rows(torch, timer):
             raise AssertionError(f"K1 disagrees with its plain version on {name}: {ndiff} "
                                  f"differing indices, eps {eps:.3g}")
         del idx_p, tau_p, m_p
-        plan = fr.retrieval_plan(S, B * Hkv, n_sm)
+        plan = fr.retrieval_plan(S, B * Hkv, n_sm, d_head=D, rep=rep)
         log(f"  K1 {name} B={B} Hkv={Hkv} S={S} lengths {lens} ({plan}): index sets agree "
             f"({ndiff} near-tau swaps, eps {eps:.3g}), tau err {tau_err:.3g}")
 
@@ -524,7 +553,7 @@ def check_long_rows(torch, timer):
         if not (torch.equal(idx3, idx1) and torch.equal(tau3, tau1) and torch.equal(m3, m1)):
             raise AssertionError(f"K3 differs from K1 on the gathered slab on {name}")
         log(f"  K3 {name}: idx, tau, m bitwise equal to K1 on the gathered slab "
-            f"({fr.retrieval_plan(S, B * Hkv, n_sm, BLOCK_SIZE)})")
+            f"({fr.retrieval_plan(S, B * Hkv, n_sm, BLOCK_SIZE, d_head=D, rep=rep)})")
         del sqk
         topk = lambda: torch.topk(kv_rows, budget, dim=-1)
         t1 = in_turns(timer, lambda: fr.fier_retrieve_plain(*args, **sel),
@@ -587,8 +616,8 @@ TOPK_ROWS = (
 
 
 def check_score_topk_variants(torch, timer):
-    """K6 at the most query heads per kv head the kernel takes (rep 8,
-    ``fier_score.KERNEL_MAX_REP``) within ε of its plain version, and K7 on
+    """K6 at rep 8 (the most query heads of the serving instantiation; reps
+    12 and 16 run in ``FAMILY_SHAPES``) within ε of its plain version, and K7 on
     ``TOPK_ROWS`` at budgets 1, 1024 and S: τ and m exactly its plain
     version's; each timed (K7 at budget 1024).  Returns {kernel: {name: row}}."""
     from repro_torch.kernels import fier_score as fs
@@ -596,7 +625,7 @@ def check_score_topk_variants(torch, timer):
 
     out = {"fier_score": {}, "topk_threshold": {}}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    B, Hkv, rep, D, S = SLOTS, 2, fs.KERNEL_MAX_REP, 128, CAPACITY
+    B, Hkv, rep, D, S = SLOTS, 2, 8, 128, CAPACITY
     q, _, _, qk, _ = make_inputs(torch, B, Hkv, rep, D, S, seed=30)
     args = (q, qk.codes, qk.scale, qk.zero)
     s_k = fs.fier_score_scan(*args, group=GROUP)
@@ -987,20 +1016,40 @@ def check_unfused_kernels(torch, timer, shapes, baseline=None):
     return finish_rows(rows)
 
 
-# K2/K4/K8 beyond the main path's shape: name, (B, Hkv, rep), budget.  Every
-# rep the kernel admits (sparse_attention.KERNEL_REPS), the ladder's budget
-# 512, a budget no multiple of the plan's step (1000), and the budget of a
-# whole row (8192: a CTA's 4096 slots exceed MAX_CHUNK, so it finds its rows
-# in two chunks).
+# K2/K4/K8 beyond the main path's shape: name, (B, Hkv, rep, D), budget.
+# Every (d_head, rep) the kernel admits (sparse_attention.KERNEL_HEAD_DIMS x
+# KERNEL_REPS), the ladder's budget 512, a budget no multiple of the plan's
+# step (1000), and the budget of a whole row (8192: a CTA's 4096 slots exceed
+# MAX_CHUNK, so it finds its rows in two chunks).
 ATTEND_VARIANTS = (
-    ("serving", (SLOTS, 16, 1), BUDGET),
-    ("budget_512", (SLOTS, 16, 1), 512),
-    ("budget_1000", (SLOTS, 16, 1), 1000),
-    ("budget_8192", (SLOTS, 16, 1), CAPACITY),
-    ("rep2", (SLOTS, 8, 2), BUDGET),
-    ("gqa_rep4", (SLOTS, 4, 4), BUDGET),
-    ("rep8", (SLOTS, 2, 8), BUDGET),
+    ("serving", (SLOTS, 16, 1, 128), BUDGET),
+    ("budget_512", (SLOTS, 16, 1, 128), 512),
+    ("budget_1000", (SLOTS, 16, 1, 128), 1000),
+    ("budget_8192", (SLOTS, 16, 1, 128), CAPACITY),
+    ("rep2", (SLOTS, 8, 2, 128), BUDGET),
+    ("gqa_rep4", (SLOTS, 4, 4, 128), BUDGET),
+    ("rep8", (SLOTS, 2, 8, 128), BUDGET),
+    ("rep12", (SLOTS, 2, 12, 128), BUDGET),
+    ("rep16", (SLOTS, 4, 16, 128), BUDGET),
+    ("rep16_budget_8192", (SLOTS, 4, 16, 128), CAPACITY),
+    ("d64_rep1", (SLOTS, 36, 1, 64), BUDGET),
+    ("d64_rep2", (SLOTS, 8, 2, 64), BUDGET),
+    ("d64_rep4", (SLOTS, 4, 4, 64), 1000),
+    ("d64_rep8", (SLOTS, 2, 8, 64), BUDGET),
+    ("d64_rep12", (SLOTS, 2, 12, 64), 512),
+    ("d64_rep16", (SLOTS, 4, 16, 64), CAPACITY),
 )
+
+# The kernel shapes of the transformer-family configs that phase 9 serves
+# (S 8192, g 32, budget 1024, lengths 8192/5003/2100/700): (B, Hkv, rep, D,
+# S, group reduction) -> config.  Phase 2 holds K1-K8 to their plain versions
+# at each, as at the main path's.
+FAMILY_SHAPES = {
+    "granite-moe-1b-a400m": (SLOTS, 8, 2, 64, CAPACITY, "max"),
+    "minicpm-2b": (SLOTS, 36, 1, 64, CAPACITY, "max"),
+    "starcoder2-3b": (SLOTS, 2, 12, 128, CAPACITY, "max"),
+    "qwen3-moe-235b-a22b": (SLOTS, 4, 16, 128, CAPACITY, "max"),
+}
 
 
 def attend_inputs(torch, B, Hkv, rep, D, S, budget, seed):
@@ -1117,10 +1166,10 @@ def check_attend_variants(torch, timer, baseline=None):
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name, (B, Hkv, rep), budget in ATTEND_VARIANTS:
-        D, S = 128, CAPACITY
+    for name, (B, Hkv, rep, D), budget in ATTEND_VARIANTS:
+        S = CAPACITY
         q, K, V, lengths, idx = attend_inputs(torch, B, Hkv, rep, D, S, budget, seed=budget + rep)
-        plan = sa.attend_plan(budget, B * Hkv, n_sm, rep)
+        plan = sa.attend_plan(budget, B * Hkv, n_sm, rep, D)
         out2 = sa.fier_attend_selected(q, K, V, idx, lengths)
         again = sa.fier_attend_selected(q, K, V, idx, lengths)
         want = sa.fier_attend_selected_plain(q, K, V, idx, lengths)
@@ -1157,7 +1206,8 @@ def check_attend_variants(torch, timer, baseline=None):
         row["k4_ms"] = timer(lambda: sa.fier_attend_selected(
             q, pools["k"], pools["v"], idx, lengths, block_table=table))
         row["k8_ms"] = timer(lambda: sa.fier_attend_gathered(q, ks, vs, mask))
-        line = (f"  K2/K4/K8 {name} B={B} Hkv={Hkv} rep={rep} budget={budget} (C={plan.cluster}): "
+        line = (f"  K2/K4/K8 {name} B={B} Hkv={Hkv} rep={rep} D={D} budget={budget} "
+                f"(C={plan.cluster}): "
                 f"two launches equal, K4 = K2 and K8 = K2 bit for bit, vs plain max |err| "
                 f"{err:.3g} (<= {K2_REL_TOL * scale:.3g}); K2 {row['ms']:.4f} K4 "
                 f"{row['k4_ms']:.4f} K8 {row['k8_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms "
@@ -2797,6 +2847,322 @@ def robustness_path(torch, cfg, params, p3, outs_p5):
     return dict(offload=off, stream=stats, chaos=chaos, introspect=intro)
 
 
+# ------------------------------------------------------------ phase 9
+
+# The transformer-family configs served at full width and depth: (config,
+# slots, prompt lengths, greedy tokens).  The longest prompt leaves room in
+# the 8192-token slab for the generated, timed and profiled steps.
+FAMILY_PROMPTS = (8100, 6000, 3000, 1500)
+FAMILY_RUNS = (
+    ("granite-moe-1b-a400m", SLOTS, FAMILY_PROMPTS, 32),
+    ("minicpm-2b", SLOTS, FAMILY_PROMPTS, 16),
+    ("starcoder2-3b", SLOTS, FAMILY_PROMPTS, 16),
+)
+VLM = "llava-next-mistral-7b"
+VLM_SLOTS, VLM_TEXT, VLM_STEPS = 2, (7000, 3000), 8
+TIMED_STEPS = 8
+# Phase 9's first-step gate as a fraction of max|logit|, set as phase 3's
+# were: between the largest sound reading and the smallest planted fault's
+# (PERF.md, PR 18).  Sound: minicpm-2b 0.01566 (38 FIER layers; above phase
+# 3's 0.015, which olmo-1b's 14 set), llava 0.01425, starcoder2 0.01013,
+# granite-moe 0.006946 with its expert choices replayed.  Faults: starcoder2
+# 0.01837 and 0.02025, the rest 0.053 and above.
+FAMILY_LOGIT_REL_TOL = 0.017
+
+
+def family_first_step(torch, eng, params, tok0, cache, vocab):
+    """The first decode step with the kernels and with their plain versions
+    (``checked_kernels``: every layer's K1/K2 inputs also go through the
+    kernel and are compared there), each from a copy of ``cache``, and with
+    two planted faults (K2 fed idx+1; K1's selection of the first FIER layer
+    handed to the next kv head, an error that runs through every later
+    layer as the kernels' rounding does).  The kernel step's logits must
+    lie within FAMILY_LOGIT_REL_TOL·max|logit| of the plain step's, and
+    each fault's must not.  In a moe model a router's top-k is
+    discontinuous: a last-bit difference upstream can swap a near-tied
+    expert and move the logits by far more than the kernels' error.  So
+    each MoE layer's expert choices are recorded in both runs; where any
+    differ, the kernel step is run again with the plain run's choices
+    replayed (gates from its own router logits), and that step is the one
+    gated; the unpinned gap and the number of swapped choices are reported.
+    Returns (errs, gap, max|logit|, unpinned gap, swapped routings)."""
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.models import moe as moe_mod
+
+    route = moe_mod._route
+
+    def step(retrieve=fr.fier_retrieve, attend=sa.fier_attend_selected, record=None,
+             replay=None):
+        calls = iter(replay) if replay is not None else None
+
+        def routed(x, p, k):
+            logits, eidx, gates = route(x, p, k)
+            if calls is not None:
+                eidx = next(calls)
+                gates = torch.softmax(logits.gather(1, eidx), dim=-1)
+            if record is not None:
+                record.append(eidx)
+            return logits, eidx, gates
+
+        ops.fier_retrieve, ops.fier_attend_selected = retrieve, attend
+        moe_mod._route = routed
+        try:
+            _, lg, _ = eng.decode(params, tok0, clone_cache(torch, cache))
+            sync(torch)
+        finally:
+            ops.fier_retrieve, ops.fier_attend_selected = fr.fier_retrieve, sa.fier_attend_selected
+            moe_mod._route = route
+        return lg[:, :vocab]
+
+    def shifted_attend(q, K, V, idx, lengths=None, **k):
+        return sa.fier_attend_selected(q, K, V, (idx + 1) % K.shape[1], lengths, **k)
+
+    n_calls = [0]
+
+    def rolled_retrieve(*a, **k):
+        idx, tau, m = fr.fier_retrieve(*a, **k)
+        n_calls[0] += 1
+        if n_calls[0] == 1:  # the first FIER layer only: its error runs through the rest
+            idx = torch.roll(idx, 1, dims=1)
+        return idx, tau, m
+
+    errs = new_errs()
+    plain_routes, kernel_routes = [], []
+    lg1_plain = step(*checked_kernels(torch, errs, keep_plain=True), record=plain_routes)
+    lg1 = step(record=kernel_routes)
+    s1 = float(lg1_plain.abs().max())
+    tol = FAMILY_LOGIT_REL_TOL
+    gap = unpinned = float((lg1 - lg1_plain).abs().max())
+    swaps = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(plain_routes, kernel_routes))
+    top1 = int((lg1.argmax(-1) == lg1_plain.argmax(-1)).sum())
+    log_errs(errs, "K1", "K2")
+    line = (f"  first decode step (max |logit| {s1:.4g}): max |Δlogit| vs plain versions "
+            f"{gap:.4g} = {gap / s1:.4g} of max|logit| (top-1 {top1}/{lg1.shape[0]}; gate "
+            f"{tol})")
+    if plain_routes:
+        line += (f"; expert choices swapped in {swaps} of {len(plain_routes) * lg1.shape[0]} "
+                 f"(token, MoE layer) routings")
+    if swaps:
+        lg1 = step(replay=plain_routes)
+        gap = float((lg1 - lg1_plain).abs().max())
+        line += (f"; with the plain run's expert choices replayed: max |Δlogit| {gap:.4g} = "
+                 f"{gap / s1:.4g} of max|logit|")
+    log(line)
+    faults = {"K2 fed idx+1": step(attend=shifted_attend),
+              "K1's first-layer selection on the next kv head": step(retrieve=rolled_retrieve)}
+    faults = {name: float((lg - lg1_plain).abs().max()) for name, lg in faults.items()}
+    for name, fgap in faults.items():
+        log(f"  planted fault, {name}: max |Δlogit| vs plain versions {fgap:.4g} = "
+            f"{fgap / s1:.4g} of max|logit|")
+    for name, fgap in faults.items():
+        if not fgap > tol * s1:
+            raise AssertionError(f"the first-step gate does not see the planted fault ({name}): "
+                                 f"{fgap:.4g} <= {tol:.4g} · {s1:.4g}")
+    if not (torch.isfinite(lg1).all() and gap <= tol * s1):
+        raise AssertionError(f"first step vs plain versions: {gap:.4g} > {tol:.4g} · {s1:.4g}")
+    return errs, gap, s1, unpinned, swaps
+
+
+def peak_base(torch) -> int:
+    """Bytes allocated before a model is built, with the peak reset: a
+    model's peak memory is reported above it."""
+    if DEVICE != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def timed_steps(torch, eng, params, tok, cache, steps):
+    """Median host-clock ms of ``steps`` decode steps (synchronized), and
+    the last token and cache."""
+    ms = []
+    for _ in range(steps):
+        sync(torch)
+        t0 = time.perf_counter()
+        tok, _, cache = eng.decode(params, tok, cache)
+        sync(torch)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return median(ms), tok, cache
+
+
+def family_drive(torch, arch, n_slots, prompts, max_new):
+    """One config at full width through ``Engine.build``'s default policy
+    (fier / one_pass / slab / budget 1024 / skip 2), random weights from a
+    seeded ``torch.Generator``: the first decode step with the kernels vs
+    their plain versions, then ``generate`` of ``max_new`` greedy tokens
+    with K1/K2 launched (layers − 2) × (max_new − 1) times and no other FIER
+    kernel, then timed and profiled decode steps.  granite-moe also checks
+    the reference pipeline's prefill logits (identical) and runs the same
+    prompts through a paged engine (``paged_vs_slab``: tokens equal, K3/K4
+    per step).  Returns a dict of what it measured."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, serving_policy
+
+    cfg = get_config(arch)
+    base = peak_base(torch)
+    eng = Engine.build(cfg, n_slots=n_slots, capacity=CAPACITY, device=DEVICE)
+    pol = eng.bundle.policy
+    if (pol.kind, pol.pipeline, pol.layout, pol.budget, pol.skip_layers) != (
+            "fier", "one_pass", "slab", BUDGET, SKIP):
+        raise AssertionError(f"Engine.build's default policy is {pol}")
+    n_fier = cfg.n_layers - SKIP
+    params = eng.compute_params(eng.bundle.init(torch.Generator(device=DEVICE).manual_seed(0)))
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n_slots, max(prompts)))).to(DEVICE)
+    lengths = torch.tensor(prompts, dtype=torch.int32, device=DEVICE)
+    batch = {"tokens": toks, "lengths": lengths}
+    out = dict(arch=arch, layers=cfg.n_layers, d_head=cfg.d_head,
+               rep=cfg.n_heads // cfg.n_kv_heads, kv_heads=cfg.n_kv_heads)
+
+    sync(torch)
+    t0 = time.perf_counter()
+    lg0, cache = eng.prefill_batch(params, batch)
+    tok0 = torch.argmax(lg0, -1).to(torch.int32)
+    sync(torch)
+    out["ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+    if cfg.family == "moe":
+        ref = Engine.build(cfg, n_slots=n_slots, capacity=CAPACITY, device=DEVICE,
+                           policy=serving_policy(budget=BUDGET, pipeline="reference"))
+        lg_ref, cache_ref = ref.prefill_batch(params, batch)
+        if not torch.equal(lg_ref, lg0):
+            raise AssertionError(f"{arch}: prefill logits differ between one_pass and reference")
+        del ref, cache_ref, lg_ref
+        log("  prefill logits identical to the reference pipeline")
+    errs, gap, s1, unpinned, swaps = family_first_step(torch, eng, params, tok0, cache,
+                                                       cfg.vocab)
+    out.update(first_step_gap=gap, max_logit=s1, k1_tau_err=errs["k1_tau"],
+               k1_swaps=errs["k1_swaps"], k2_err=errs["k2"], unpinned_gap=unpinned,
+               expert_swaps=swaps)
+    del cache
+
+    reset_launch_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    gen, cache = eng.generate(params, toks, lengths, max_new, return_cache=True)
+    sync(torch)
+    t_gen = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(counts, SLAB_KERNELS, n_fier * (max_new - 1))
+    if not torch.equal(gen[:, 0], tok0):
+        raise AssertionError(f"{arch}: generate's first token differs from prefill's argmax")
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        raise AssertionError(f"{arch}: generated tokens out of range")
+    out["launches"] = {k: counts[k] for k in SLAB_KERNELS}
+    out["ms_step"], tok, cache = timed_steps(torch, eng, params, gen[:, -1].clone(), cache,
+                                             TIMED_STEPS)
+    lens = cache["length"].tolist()
+    want = [p + max_new - 1 + TIMED_STEPS for p in prompts]
+    if lens != want:
+        raise AssertionError(f"{arch}: cache lengths {lens}, expected {want}")
+    log(f"  launches {out['launches']}: {n_fier} x {max_new - 1} decode steps; generate "
+        f"{max_new} tokens {t_gen:.3f} s; TTFT (prefill + sample) {out['ttft_ms']:.1f} ms; "
+        f"decode median {out['ms_step']:.2f} ms/step (unprofiled, {TIMED_STEPS} steps)")
+    if DEVICE == "cuda":
+        profile_decode(torch, eng, params, tok, cache, None)
+    del cache
+    if cfg.family == "moe":
+        log(f"  paged vs slab on the same prompts (bs {BLOCK_SIZE}, default pool)")
+        out["launches_paged"] = {k: v for k, v in paged_vs_slab(
+            torch, cfg, params, eng, prompts=prompts, steps=max_new).items()
+            if k in PAGED_KERNELS}
+    if DEVICE == "cuda":
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  peak memory {out['peak_gib']:.2f} GiB")
+    del eng, params
+    return out
+
+
+def vlm_drive(torch):
+    """llava-next-mistral-7b at full width, 2 slots: the bundle's prefill of
+    576 vision embeddings (seeded ``torch.Generator``) before the text, the
+    lengths counting them; the first decode step with the kernels vs their
+    plain versions; then VLM_STEPS greedy ``decode`` steps with K1/K2
+    launched (layers − 2) × VLM_STEPS times."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine
+
+    cfg = get_config(VLM)
+    base = peak_base(torch)
+    eng = Engine.build(cfg, n_slots=VLM_SLOTS, capacity=CAPACITY, device=DEVICE)
+    n_fier = cfg.n_layers - SKIP
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = eng.compute_params(eng.bundle.init(gen))
+    nv = cfg.n_vision_tokens
+    vision = (torch.randn((VLM_SLOTS, nv, cfg.d_model), generator=gen, device=DEVICE)
+              * cfg.d_model**-0.5).to(torch.bfloat16)
+    rng = np.random.default_rng(10)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (VLM_SLOTS, max(VLM_TEXT)))).to(DEVICE)
+    lengths = torch.tensor([n + nv for n in VLM_TEXT], dtype=torch.int32, device=DEVICE)
+    out = dict(arch=VLM, layers=cfg.n_layers, d_head=cfg.d_head,
+               rep=cfg.n_heads // cfg.n_kv_heads, kv_heads=cfg.n_kv_heads, vision_tokens=nv)
+    sync(torch)
+    t0 = time.perf_counter()
+    lg0, cache = eng.bundle.prefill(params, {"tokens": toks, "lengths": lengths,
+                                             "vision_embeds": vision}, CAPACITY)
+    tok = torch.argmax(lg0, -1).to(torch.int32)
+    sync(torch)
+    out["ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+    if cache["length"].tolist() != lengths.tolist() or not torch.isfinite(lg0).all():
+        raise AssertionError(f"{VLM}: prefill lengths {cache['length'].tolist()} or logits wrong")
+    errs, gap, s1, _, _ = family_first_step(torch, eng, params, tok, cache, cfg.vocab)
+    out.update(first_step_gap=gap, max_logit=s1, k1_tau_err=errs["k1_tau"],
+               k1_swaps=errs["k1_swaps"], k2_err=errs["k2"])
+    reset_launch_counts()
+    ms = []
+    for _ in range(VLM_STEPS):
+        sync(torch)
+        t0 = time.perf_counter()
+        tok, lg, cache = eng.decode(params, tok, cache)
+        sync(torch)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = launch_counts()
+    check_launches(counts, SLAB_KERNELS, n_fier * VLM_STEPS)
+    if cache["length"].tolist() != [n + VLM_STEPS for n in lengths.tolist()]:
+        raise AssertionError(f"{VLM}: cache lengths {cache['length'].tolist()}")
+    if not torch.isfinite(lg[:, :cfg.vocab]).all():
+        raise AssertionError(f"{VLM}: non-finite decode logits")
+    out["launches"] = {k: counts[k] for k in SLAB_KERNELS}
+    out["ms_step"] = median(ms)
+    log(f"  {nv} vision embeddings + text {VLM_TEXT}: TTFT {out['ttft_ms']:.1f} ms; launches "
+        f"{out['launches']}: {n_fier} x {VLM_STEPS} decode steps; decode median "
+        f"{out['ms_step']:.2f} ms/step")
+    if DEVICE == "cuda":
+        profile_decode(torch, eng, params, tok, cache, None)
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  peak memory {out['peak_gib']:.2f} GiB")
+    del eng, params, cache
+    return out
+
+
+def families_path(torch):
+    """Phase 9: granite-moe-1b-a400m, minicpm-2b, starcoder2-3b and
+    llava-next-mistral-7b at full width, each freed before the next."""
+    import gc
+
+    runs = {}
+    for arch, n_slots, prompts, max_new in FAMILY_RUNS:
+        log(f"  [{arch}] {n_slots} slots x {CAPACITY}, prompts {prompts}, {max_new} tokens")
+        runs[arch] = family_drive(torch, arch, n_slots, prompts, max_new)
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    log(f"  [{VLM}] {VLM_SLOTS} slots x {CAPACITY}")
+    runs[VLM] = vlm_drive(torch)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return runs
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2859,6 +3225,11 @@ def main() -> int:
     if "--baseline-attend" in sys.argv:
         baseline = baseline_attend(torch, sys.argv[sys.argv.index("--baseline-attend") + 1])
     attend_variants = check_attend_variants(torch, timer, baseline)
+    log("[kernels] K1-K8 at the transformer-family shapes (d_head 64, rep 12 and 16)")
+    family = list(FAMILY_SHAPES.values())
+    family_rows = check_kernels(torch, timer, family)
+    family_rows.update(check_paged_kernels(torch, timer, family))
+    family_rows.update(check_unfused_kernels(torch, timer, family))
     del timer
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv:  # a quick build-and-check call; no result line
@@ -2890,6 +3261,12 @@ def main() -> int:
     log("[robustness] the host tier with a TTL on phase 5's stream; a seeded chaos run; the "
         "introspector; K1/K3 on a corrupted slot")
     robustness_path(torch, cfg, params, p3, outs_p5)
+    del params, p3, outs_p5
+    torch.cuda.empty_cache()
+
+    log("[families] granite-moe-1b-a400m, minicpm-2b, starcoder2-3b and "
+        "llava-next-mistral-7b at full width")
+    fam = families_path(torch)
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
@@ -2938,9 +3315,20 @@ def main() -> int:
         for lname, lr in long_rows.get(name, {}).items():
             row[lname] = {k: lr[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by", "max_abs_err")}
+        row["families"] = {
+            arch: {k: fr_[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}
+            for arch, fr_ in zip(FAMILY_SHAPES, family_rows[name])
+        }
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [x["max_abs_err"] for x in family_rows[name]])
         if name in PAGED_KERNELS:
             # launches above: the serving run (phase 5); the paged-vs-slab run too
             row["launches_paged_vs_slab"] = counts_p4[name]
+        # phase 9's drives, each counted from 0 (paged: granite-moe's paged engine)
+        fam_key = "launches_paged" if name in PAGED_KERNELS else "launches"
+        row["launches_families"] = {a: r[fam_key][name] for a, r in fam.items()
+                                    if name in r.get(fam_key, {})}
         if name == "fier_attend_selected":
             row["launches_two_pass"] = counts_p6[name]
         if name in ("fier_attend_selected", "fier_attend_selected_paged", "sparse_attention"):

@@ -29,17 +29,31 @@ def _convert(tree, device):
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda") -> dict:
-    """The dense-transformer parameter tree (embed, stacked layers,
-    final_norm[, lm_head]) as torch tensors on ``device`` (the card unless
-    ``device='cpu'``)."""
+    """The parameter tree of a transformer family — dense, moe or vlm —
+    (embed, stacked layers, final_norm[, lm_head]; a moe layer holds ``moe``
+    {router [L, d, E], w1/w3 [L, E, d, ff], w2 [L, E, ff, d]} where a dense
+    one holds ``mlp``) as torch tensors on ``device`` (the card unless
+    ``device='cpu'``).  Other families raise."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)"
+        )
     params = _convert(tree, resolve_device(device))
     Vp = padded_vocab(cfg)
     if tuple(params["embed"].shape) != (Vp, cfg.d_model):
         raise ValueError(
             f"embed is {tuple(params['embed'].shape)}, expected ({Vp}, {cfg.d_model})"
         )
-    wq = params["layers"]["attn"]["wq"]
-    if tuple(wq.shape) != (cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.d_head):
-        raise ValueError(f"layers.attn.wq is {tuple(wq.shape)}: not a stacked "
-                         f"[{cfg.n_layers}, {cfg.d_model}, {cfg.n_heads * cfg.d_head}] tree")
+    L, d = cfg.n_layers, cfg.d_model
+    want = {("attn", "wq"): (L, d, cfg.n_heads * cfg.d_head)}
+    if cfg.family == "moe":
+        E, ff = cfg.n_experts, cfg.d_ff
+        want.update({("moe", "router"): (L, d, E), ("moe", "w1"): (L, E, d, ff),
+                     ("moe", "w3"): (L, E, d, ff), ("moe", "w2"): (L, E, ff, d)})
+    for (block, leaf), shape in want.items():
+        got = params["layers"].get(block, {}).get(leaf)
+        if got is None or tuple(got.shape) != shape:
+            raise ValueError(f"layers.{block}.{leaf} is "
+                             f"{None if got is None else tuple(got.shape)}: not a stacked "
+                             f"{list(shape)} tree")
     return params

@@ -60,6 +60,22 @@
 // Why groups and not the whole CTA: a CTA-wide step (scores, one warp's
 // softmax, p . v, three barriers) measured 2 us per 32 KiB at rep 1 and
 // 5 us at rep 4, slower than the memory delivers them (PERF.md).
+//
+// d_head and rep.  d_head (64 or 128) is a template parameter: a row takes
+// kLPR = D/8 lanes of 8 channels each, so at 64 a CTA has 32 lane groups of
+// 8 lanes and takes 128 slots a step; the ring keeps 96 KiB of K/V rows in
+// flight at either.  rep is a template parameter up to 8 as above.  At rep
+// 12 and 16 (starcoder2-3b, qwen3-moe) a lane holding every query head would
+// keep 16 x 8 q values and as many accumulators, with the running maxima,
+// denominators and a step's scores: over 255 registers, so it would spill.
+// There the query heads are split instead: the two lane groups of a warp
+// half form one slot group that shares its K/V rows in the ring (the lower
+// group copies the K row, the upper the V row, and a __syncwarp after the
+// copies land makes each half's copies visible to the other), and each
+// lane group keeps rep/2 query heads: the registers of rep 6 or 8.  A slot
+// group then takes half as many slots per step, so the ring is twice as
+// deep (6 steps) to keep the same 96 KiB of rows in flight.  The rows are
+// read once for all rep heads; the merges run over slot groups in order.
 
 // K4 differs only where a slot's row is found (address policy kPaged): the
 // logical index t becomes the pool row table[b, t / bs] * bs + t % bs of the
@@ -82,23 +98,34 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kD = 128;              // d_head: the only one a model of the port has
-constexpr int kLPR = kD / 8;         // lanes per row (each lane holds 8 channels = 16 bytes)
-constexpr int kGroups = kThreads / kLPR;  // row groups of 16 lanes
-constexpr int kBatch = 4;            // slots a group takes per step
-constexpr int kRing = 3;             // steps of a group in shared memory
-constexpr int kStep = kGroups * kBatch;   // slots the CTA takes per step
+constexpr int kBatch = 4;            // slots a slot group takes per step
 constexpr int kMaxCluster = 8;
 constexpr int kMaxChunk = 2048;      // slots whose rows a CTA holds at once (4 bytes each)
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kMasked = -1e30f;    // a masked slot's score, as the reference masks
-// the ring: K rows [kRing][kGroups][kBatch] of kLPR 16-byte chunks, then V rows alike
-constexpr int kRingChunks = kRing * kGroups * kBatch * kLPR;
-constexpr int kRingBytes = 2 * kRingChunks * 16;  // sparse_attention.RING_BYTES
-static_assert(kGroups * 8 * (kD + 2) * 4 <= kRingBytes, "the group merge reuses the ring");
+constexpr int kRingBytes = 98304;    // sparse_attention.RING_BYTES, at every (D, rep)
+
+// How an instantiation (d_head kD, rep kRep) lays a CTA out.
+template <int kD, int kRep>
+struct Layout {
+  static constexpr int kLPR = kD / 8;                // lanes per row (8 channels = 16 bytes each)
+  static constexpr int kGroups = kThreads / kLPR;    // lane groups of kLPR lanes
+  static constexpr int kSplit = kRep > 8 ? 2 : 1;    // lane groups sharing a slot's rows
+  static constexpr int kRepL = kRep / kSplit;        // query heads per lane group
+  static constexpr int kSlotGroups = kGroups / kSplit;
+  static constexpr int kRing = 3 * kSplit;           // steps of a slot group in shared memory
+  static constexpr int kStep = kSlotGroups * kBatch;  // slots the CTA takes per step
+  // the ring: K rows [kRing][kSlotGroups][kBatch] of kLPR 16-byte chunks, then V rows alike
+  static constexpr int kRingChunks = kRing * kSlotGroups * kBatch * kLPR;
+  static_assert(kRep % kSplit == 0 && kRepL <= 8, "a lane group keeps at most 8 query heads");
+  static_assert(2 * kRingChunks * 16 == kRingBytes, "the ring is 96 KiB at every (D, rep)");
+  static_assert(kSlotGroups * kRep * (kD + 2) * 4 <= kRingBytes, "the merge reuses the ring");
+  static_assert(kSplit * kLPR <= 32, "a slot group's lane groups share one warp");
+};
+
 // dynamic shared memory: the ring, rank 0's receive slots, the chunk's rows
 // (sparse_attention.AttendPlan.smem_bytes)
-template <int kRep>
+template <int kD, int kRep>
 constexpr size_t smem_bytes(int C, int chunk) {
   return kRingBytes + (size_t)C * kRep * (kD + 2) * 4 + (size_t)chunk * 4;
 }
@@ -147,7 +174,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // when bs is a power of two, else -1.  kAddr = kGathered (K8): K/V
 // [B, budget, Hkv, D] with element strides (sb, st, sh), mask
 // [B, Hkv, budget]; table, idx and lengths unused.
-template <int kAddr, int kRep>
+template <int kAddr, int kD, int kRep>
 __global__ void __launch_bounds__(kThreads)
 fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D] bf16 or f32
                    const __nv_bfloat16* __restrict__ K,
@@ -159,10 +186,13 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
                    float* __restrict__ out,                  // [B, Hkv, rep, D]
                    int S, int Hkv, int budget, float scale, int bs, int bsh,
                    long long sb, long long st, long long sh, int chunk, int q_bf16) {
+  using L = Layout<kD, kRep>;
   constexpr int D = kD;
+  constexpr int kLPR = L::kLPR, kSplit = L::kSplit, kRepL = L::kRepL;
+  constexpr int kSlotGroups = L::kSlotGroups, kRing = L::kRing, kStep = L::kStep;
   extern __shared__ __align__(16) unsigned char dyn[];
-  uint4* kring = reinterpret_cast<uint4*>(dyn);  // [kRing][kGroups][kBatch][kLPR]
-  uint4* vring = kring + kRingChunks;             // the same for V
+  uint4* kring = reinterpret_cast<uint4*>(dyn);  // [kRing][kSlotGroups][kBatch][kLPR]
+  uint4* vring = kring + L::kRingChunks;          // the same for V
 
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -175,18 +205,20 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
   const int b = bh / Hkv;
   const int h = bh - b * Hkv;
   const int tid = threadIdx.x;
-  const int gid = tid / kLPR;  // row group
-  const int sl = tid % kLPR;   // lane within the row: channels 8*sl .. 8*sl+7
+  const int gid = tid / kLPR;       // lane group
+  const int sl = tid % kLPR;        // lane within the row: channels 8*sl .. 8*sl+7
+  const int sg = gid / kSplit;      // slot group
+  const int h0 = gid % kSplit * kRepL;  // this lane group's first query head
   const int s0 = (int)((long long)rank * budget / C);  // this CTA's slots [s0, s1)
   const int s1 = (int)((long long)(rank + 1) * budget / C);
   // Every CTA of the cluster must have started before any writes into rank
   // 0's shared memory: arrive now, wait (long since complete) before the push.
   cluster_arrive_relaxed();
 
-  float qr[kRep][8];  // bf16 q converts exactly; no cast kernel before the launch
+  float qr[kRepL][8];  // bf16 q converts exactly; no cast kernel before the launch
 #pragma unroll
-  for (int r = 0; r < kRep; ++r) {
-    const size_t e = ((size_t)bh * kRep + r) * D + sl * 8;
+  for (int r = 0; r < kRepL; ++r) {
+    const size_t e = ((size_t)bh * kRep + h0 + r) * D + sl * 8;
     if (q_bf16) {
       bf16x8_to_float(*reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(q) + e),
                       qr[r]);
@@ -212,9 +244,9 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
 
   // the group's running softmax: the same values in all 16 lanes (a xor
   // butterfly gives every lane the same sums)
-  float m_run[kRep], den_run[kRep], acc[kRep][8];
+  float m_run[kRepL], den_run[kRepL], acc[kRepL][8];
 #pragma unroll
-  for (int r = 0; r < kRep; ++r) {
+  for (int r = 0; r < kRepL; ++r) {
     m_run[r] = kMasked;
     den_run[r] = 0.0f;
 #pragma unroll
@@ -251,14 +283,17 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
     }
     __syncthreads();
 
-    // Group g takes slots g, g + kGroups, ... of the chunk, kBatch per step.
-    // Each thread copies, and later reads, only its own 16-byte chunk of
-    // its group's rows, so waiting for its own copies is enough: the steps
-    // need no barrier.  Slots past the chunk or masked are zero-filled
-    // (source size 0: nothing is read).
-    auto slot = [&](int step, int u) { return gid + kGroups * (step * kBatch + u); };
+    // Slot group g takes slots g, g + kSlotGroups, ... of the chunk, kBatch
+    // per step.  Without a head split each thread copies, and later reads,
+    // only its own 16-byte chunk of its group's rows, so waiting for its
+    // own copies is enough: the steps need no barrier.  With the split the
+    // lower lane group copies the K chunks and the upper the V chunks, and
+    // a __syncwarp after the wait shows each half the other's (and tells
+    // the copier that the slot it refills was read).  Slots past the chunk
+    // or masked are zero-filled (source size 0: nothing is read).
+    auto slot = [&](int step, int u) { return sg + kSlotGroups * (step * kBatch + u); };
     auto ring_at = [&](int step, int u) {
-      return (((step % kRing) * kGroups + gid) * kBatch + u) * kLPR + sl;
+      return (((step % kRing) * kSlotGroups + sg) * kBatch + u) * kLPR + sl;
     };
     auto issue = [&](int step) {
 #pragma unroll
@@ -267,8 +302,8 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
         const int row = i < m ? rows_s[i] : -1;
         const size_t e = head_off + (size_t)max(row, 0) * row_elems + sl * 8;
         const int nb = row >= 0 ? 16 : 0;
-        cp_async16(kring + ring_at(step, u), K + e, nb);
-        cp_async16(vring + ring_at(step, u), V + e, nb);
+        if (kSplit == 1 || h0 == 0) cp_async16(kring + ring_at(step, u), K + e, nb);
+        if (kSplit == 1 || h0 != 0) cp_async16(vring + ring_at(step, u), V + e, nb);
       }
     };
 
@@ -280,11 +315,12 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
     }
     for (int step = 0; step < n_steps; ++step) {
       cp_async_wait<kRing - 2>();  // this thread's copies of the step have landed
+      if constexpr (kSplit > 1) __syncwarp();  // and the other half's; the last step's reads done
       if (step + kRing - 1 < n_steps) issue(step + kRing - 1);  // into the previous step's slot
       cp_async_commit();
 
       // ---- scores s = (q . k) * scale of the step's kBatch rows, masked
-      float sc[kRep][kBatch];
+      float sc[kRepL][kBatch];
       bool ok[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -293,7 +329,7 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
         float kf[8];
         bf16x8_to_float(kring[ring_at(step, u)], kf);
 #pragma unroll
-        for (int r = 0; r < kRep; ++r) {
+        for (int r = 0; r < kRepL; ++r) {
           float part = 0.0f;
 #pragma unroll
           for (int k = 0; k < 8; ++k) part += qr[r][k] * kf[k];
@@ -303,13 +339,13 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
 #pragma unroll
       for (int o = kLPR / 2; o >= 1; o >>= 1)
 #pragma unroll
-        for (int r = 0; r < kRep; ++r)
+        for (int r = 0; r < kRepL; ++r)
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) sc[r][u] += __shfl_xor_sync(kFull, sc[r][u], o);
 
       // ---- online softmax per query head: rescale by exp(m_old - m_new)
 #pragma unroll
-      for (int r = 0; r < kRep; ++r) {
+      for (int r = 0; r < kRepL; ++r) {
         float mb = kMasked;
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
@@ -336,7 +372,7 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
         float vf[8];
         bf16x8_to_float(vring[ring_at(step, u)], vf);
 #pragma unroll
-        for (int r = 0; r < kRep; ++r)
+        for (int r = 0; r < kRepL; ++r)
 #pragma unroll
           for (int k = 0; k < 8; ++k) acc[r][k] = fmaf(sc[r][u], vf[k], acc[r][k]);
       }
@@ -345,18 +381,22 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
   }
   __syncthreads();  // every group is done with the ring: it holds the merge next
 
-  // ---- the CTA's (m, den, o): its groups merged in group order, pushed
+  // ---- the CTA's (m, den, o): its slot groups merged in order, pushed
   // into rank 0's receive slot for this rank
-  float* red = reinterpret_cast<float*>(dyn);  // [kGroups][kRep][D] accumulators
-  float* red_m = red + kGroups * kRep * D;     // [kGroups][kRep] maxima
-  float* red_den = red_m + kGroups * kRep;     // [kGroups][kRep] denominators
+  float* red = reinterpret_cast<float*>(dyn);    // [kSlotGroups][kRep][D] accumulators
+  float* red_m = red + kSlotGroups * kRep * D;   // [kSlotGroups][kRep] maxima
+  float* red_den = red_m + kSlotGroups * kRep;   // [kSlotGroups][kRep] denominators
+  // the merge over slot groups unrolled whole up to 16 of them; 8 at a time
+  // for d_head 64's 32 (whole, ptxas spilled at rep 1)
+  constexpr int kMergeUnroll = kSlotGroups > 16 ? 8 : kSlotGroups;
 #pragma unroll
-  for (int r = 0; r < kRep; ++r) {
+  for (int r = 0; r < kRepL; ++r) {
+    const int hr = sg * kRep + h0 + r;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) red[(gid * kRep + r) * D + sl * 8 + k] = acc[r][k];
+    for (int k = 0; k < 8; ++k) red[hr * D + sl * 8 + k] = acc[r][k];
     if (sl == 0) {
-      red_m[gid * kRep + r] = m_run[r];
-      red_den[gid * kRep + r] = den_run[r];
+      red_m[hr] = m_run[r];
+      red_den[hr] = den_run[r];
     }
   }
   __syncthreads();
@@ -366,11 +406,11 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
   for (int i = tid; i < kRep * D; i += kThreads) {
     const int r = i / D;
     float M = kMasked;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) M = fmaxf(M, red_m[g * kRep + r]);
+#pragma unroll kMergeUnroll
+    for (int g = 0; g < kSlotGroups; ++g) M = fmaxf(M, red_m[g * kRep + r]);
     float o = 0.0f, den = 0.0f;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
+#pragma unroll kMergeUnroll
+    for (int g = 0; g < kSlotGroups; ++g) {
       const float w = expf(red_m[g * kRep + r] - M);
       o += red[g * kRep * D + i] * w;
       den += red_den[g * kRep + r] * w;
@@ -400,23 +440,23 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
   }
 }
 
-template <int kAddr, int kRep>
+template <int kAddr, int kD, int kRep>
 cudaError_t launch(const void* q, const void* K, const void* V, const void* table,
                    const void* idx, const void* lengths, const void* mask, void* out, int B,
                    int S, int Hkv, int budget, float scale, int bs, long long sb, long long st,
                    long long sh, int C, int chunk, int q_bf16, cudaStream_t stream) {
-  auto kernel = fier_attend_kernel<kAddr, kRep>;
+  auto kernel = fier_attend_kernel<kAddr, kD, kRep>;
   // the ring is above the 48 KiB default: raise the limit once per
   // instantiation, to the most any chunk needs
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<kRep>(kMaxCluster, kMaxChunk));
+      (int)smem_bytes<kD, kRep>(kMaxCluster, kMaxChunk));
   if (attr != cudaSuccess) return attr;
   const int bsh = (bs & (bs - 1)) == 0 ? __builtin_ctz(bs) : -1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * Hkv * C);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes<kRep>(C, chunk);
+  cfg.dynamicSmemBytes = smem_bytes<kD, kRep>(C, chunk);
   cfg.stream = stream;
   cudaLaunchAttribute attr_c[1];
   attr_c[0].id = cudaLaunchAttributeClusterDimension;
@@ -435,21 +475,30 @@ cudaError_t launch(const void* q, const void* K, const void* V, const void* tabl
   return cudaGetLastError();
 }
 
-// The instantiation for rep (1, 2, 4 or 8; sparse_attention.KERNEL_REPS).
+// The instantiation for rep (1, 2, 4, 8, 12 or 16; sparse_attention.KERNEL_REPS)
+// at d_head kD.
+template <int kAddr, int kD>
+decltype(&launch<kAddr, kD, 1>) pick_rep(int rep) {
+  switch (rep) {
+    case 1: return &launch<kAddr, kD, 1>;
+    case 2: return &launch<kAddr, kD, 2>;
+    case 4: return &launch<kAddr, kD, 4>;
+    case 8: return &launch<kAddr, kD, 8>;
+    case 12: return &launch<kAddr, kD, 12>;
+    case 16: return &launch<kAddr, kD, 16>;
+    default: return nullptr;
+  }
+}
+
+// The instantiation for d_head D (64 or 128; sparse_attention.KERNEL_HEAD_DIMS) and rep.
 template <int kAddr>
 cudaError_t launch_rep(const void* q, const void* K, const void* V, const void* table,
                        const void* idx, const void* lengths, const void* mask, void* out, int B,
-                       int S, int Hkv, int rep, int budget, float scale, int bs, long long sb,
-                       long long st, long long sh, int C, int chunk, int q_bf16,
+                       int S, int Hkv, int rep, int D, int budget, float scale, int bs,
+                       long long sb, long long st, long long sh, int C, int chunk, int q_bf16,
                        cudaStream_t stream) {
-  decltype(&launch<kAddr, 1>) go;
-  switch (rep) {
-    case 1: go = &launch<kAddr, 1>; break;
-    case 2: go = &launch<kAddr, 2>; break;
-    case 4: go = &launch<kAddr, 4>; break;
-    case 8: go = &launch<kAddr, 8>; break;
-    default: return cudaErrorInvalidValue;
-  }
+  auto go = D == 128 ? pick_rep<kAddr, 128>(rep) : D == 64 ? pick_rep<kAddr, 64>(rep) : nullptr;
+  if (go == nullptr) return cudaErrorInvalidValue;
   return go(q, K, V, table, idx, lengths, mask, out, B, S, Hkv, budget, scale, bs, sb, st, sh,
             C, chunk, q_bf16, stream);
 }
@@ -471,13 +520,13 @@ extern "C" int fier_attend_launch(const void* q, const void* K, const void* V,
                                   int budget, float scale, int cluster, int chunk, int q_bf16,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != kD || budget <= 0 || !plan_ok(cluster, chunk)) return (int)cudaErrorInvalidValue;
+  if (budget <= 0 || !plan_ok(cluster, chunk)) return (int)cudaErrorInvalidValue;
   if (table == nullptr)
     return (int)launch_rep<kSlab>(q, K, V, nullptr, idx, lengths, nullptr, out, B, S, Hkv, rep,
-                                  budget, scale, 1, 0, 0, 0, cluster, chunk, q_bf16, st);
+                                  D, budget, scale, 1, 0, 0, 0, cluster, chunk, q_bf16, st);
   if (bs < 1 || S % bs) return (int)cudaErrorInvalidValue;
   return (int)launch_rep<kPaged>(q, K, V, table, idx, lengths, nullptr, out, B, S, Hkv, rep,
-                                 budget, scale, bs, 0, 0, 0, cluster, chunk, q_bf16, st);
+                                 D, budget, scale, bs, 0, 0, 0, cluster, chunk, q_bf16, st);
 }
 
 // K8: k_sel/v_sel [B, budget, Hkv, D] gathered rows with element strides
@@ -488,9 +537,9 @@ extern "C" int fier_attend_gathered_launch(const void* q, const void* k_sel, con
                                            int Hkv, int rep, int D, long long sb, long long st,
                                            long long sh, float scale, int cluster, int chunk,
                                            int q_bf16, void* stream) {
-  if (D != kD || budget <= 0 || !plan_ok(cluster, chunk) || sb % 8 || st % 8 || sh % 8)
+  if (budget <= 0 || !plan_ok(cluster, chunk) || sb % 8 || st % 8 || sh % 8)
     return (int)cudaErrorInvalidValue;
   return (int)launch_rep<kGathered>(q, k_sel, v_sel, nullptr, nullptr, nullptr, mask, out, B,
-                                    budget, Hkv, rep, budget, scale, 1, sb, st, sh, cluster,
+                                    budget, Hkv, rep, D, budget, scale, 1, sb, st, sh, cluster,
                                     chunk, q_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -9,11 +9,17 @@
 //     tau and m.
 // The scoring warp keeps no array in local memory: a chunk is held in
 // registers as its raw loads (Chunk: code words and bf16 scale/zero), each
-// lane looks its 32 partial sums up in a 16-entry shared-memory table of its
+// lane looks its 32 partial sums up in a shared-memory table of its
 // channels' sums, and the reduce-scatter is unrolled at compile time.  The
 // arithmetic, and the order of every f32 sum, are those of the first K1
 // (a select-and-add per token and channel), so scores and selections are
 // the same bit for bit.
+//
+// d_head is a template parameter kD (64 or 128; fier::kHeadDims): lane l
+// owns kD/32 consecutive channels, so at 128 a byte-row's code bytes of a
+// lane are one uint32 and its scale/zero 4 bf16 (a uint2), at 64 a uint16
+// and 2 bf16 (a uint32); the table has 2^(kD/32) entries (16 or 4).  The
+// warp, the butterfly and the order of the sums are the same at both.
 
 #pragma once
 
@@ -24,10 +30,31 @@ namespace fier {
 
 constexpr int kRadix = 256;
 constexpr int kPasses = 4;       // radix-256 digits of a uint32 key
-constexpr int kMaxRep = 8;
-constexpr int kD = 128;          // d_head: the only one a model of the port has
-constexpr int kDPL = kD / 32;    // channels per lane
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// What a lane of the scoring warp loads per byte-row (Code: its kD/32 code
+// bytes) and per group (Pair: its kD/32 bf16 scale or zero values).
+template <int kD>
+struct LaneLoads;
+template <>
+struct LaneLoads<128> {
+  using Code = uint32_t;
+  using Pair = uint2;
+};
+template <>
+struct LaneLoads<64> {
+  using Code = uint16_t;
+  using Pair = uint32_t;
+};
+
+// The query heads per kv head (kMaxRep) of the K1/K6 instantiation that
+// takes d_head D and rep query heads: 8 at d_head 128 up to rep 8 (the
+// instantiation that served before reps 12 and 16 came, its shared memory
+// unchanged), else 16 (fused_retrieval.smem_static counts the same).
+__host__ __device__ constexpr int rep_slots(int D, int rep) {
+  return D == 128 && rep <= 8 ? 8 : 16;
+}
+constexpr int kMaxRepAll = 16;
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
@@ -35,6 +62,18 @@ __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The kD/32 bf16 values of a lane's Pair, in channel order.
+__device__ __forceinline__ void unpack_bf16(const uint2& p, float (&v)[4]) {
+  v[0] = bf16_bits_to_float(p.x & 0xFFFFu);
+  v[1] = bf16_bits_to_float(p.x >> 16);
+  v[2] = bf16_bits_to_float(p.y & 0xFFFFu);
+  v[3] = bf16_bits_to_float(p.y >> 16);
+}
+__device__ __forceinline__ void unpack_bf16(uint32_t p, float (&v)[2]) {
+  v[0] = bf16_bits_to_float(p & 0xFFFFu);
+  v[1] = bf16_bits_to_float(p >> 16);
 }
 
 __device__ __forceinline__ uint32_t sortable_key(float s) {
@@ -48,13 +87,15 @@ __device__ __forceinline__ float unsortable(uint32_t key) {
 }
 
 // One 32-token chunk (4 byte-rows) as lane l loaded it: the code bytes of
-// its kDPL = 4 channels per byte-row (one word each) and the bf16 scale and
-// zero of the groups (4 bf16 values per uint2).  kGroups = 1 when the group
-// spans the whole chunk (group % 32 == 0), else 4: one entry per byte-row.
-template <int kGroups>
+// its kD/32 channels per byte-row (one word each) and the bf16 scale and
+// zero of the groups (kD/32 bf16 values per Pair).  kGroups = 1 when the
+// group spans the whole chunk (group % 32 == 0), else 4: one entry per
+// byte-row.
+template <int kGroups, int kD>
 struct Chunk {
+  using Pair = typename LaneLoads<kD>::Pair;
   uint32_t word[4];
-  uint2 sc[kGroups], zr[kGroups];
+  Pair sc[kGroups], zr[kGroups];
 };
 
 // Load chunk c.  codes_h/scale_h/zero_h point at this lane's channels of the
@@ -62,25 +103,27 @@ struct Chunk {
 // units of row_stride elements) of byte-row i and of the group holding token
 // t: the address policy (slab or paged) is the caller's.  Byte-rows past S8
 // load as zeros.
-template <int kGroups, class CodeRow, class GroupRow>
-__device__ __forceinline__ void load_chunk(Chunk<kGroups>& ch, int c, int S8,
+template <int kGroups, int kD, class CodeRow, class GroupRow>
+__device__ __forceinline__ void load_chunk(Chunk<kGroups, kD>& ch, int c, int S8,
                                            const uint8_t* codes_h,
                                            const __nv_bfloat16* scale_h,
                                            const __nv_bfloat16* zero_h, size_t row_stride,
                                            CodeRow code_row, GroupRow group_row) {
+  using Code = typename LaneLoads<kD>::Code;
+  using Pair = typename LaneLoads<kD>::Pair;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int i = c * 4 + j;  // byte-row: tokens 8i .. 8i+7
     if (i < S8) {
-      ch.word[j] = *reinterpret_cast<const uint32_t*>(codes_h + code_row(i) * row_stride);
+      ch.word[j] = *reinterpret_cast<const Code*>(codes_h + code_row(i) * row_stride);
       if (j < kGroups) {
         const size_t gr = group_row(i * 8) * row_stride;
-        ch.sc[j] = *reinterpret_cast<const uint2*>(scale_h + gr);
-        ch.zr[j] = *reinterpret_cast<const uint2*>(zero_h + gr);
+        ch.sc[j] = *reinterpret_cast<const Pair*>(scale_h + gr);
+        ch.zr[j] = *reinterpret_cast<const Pair*>(zero_h + gr);
       }
     } else {
       ch.word[j] = 0;
-      if (j < kGroups) ch.sc[j] = ch.zr[j] = make_uint2(0u, 0u);
+      if (j < kGroups) ch.sc[j] = ch.zr[j] = Pair{};
     }
   }
 }
@@ -105,31 +148,36 @@ __device__ __forceinline__ void reduce_step_swapped(float (&v)[32]) {
   for (int i = 0; i < O; ++i) v[i] = v[i] + __shfl_xor_sync(kFull, v[i + O], O);
 }
 
-// The 4 (channel) x 8 (token) code bits of one byte-row word -> the channel
-// nibble of token b: bit k of the result is bit b of byte k.
+// The kD/32 (channel) x 8 (token) code bits of one byte-row word -> the
+// channel index of token b: bit k of the result is bit b of byte k (bytes
+// past the lane's kD/32 are zero, so at kD = 64 the result is below 4).
 __device__ __forceinline__ uint32_t token_nibble(uint32_t word, int b) {
   const uint32_t x = (word >> b) & 0x01010101u;  // bit b of each byte at 8k
   return (x * 0x10204080u) >> 28;                // bit 8k -> bit 28 + k, no carries
 }
 
-// Scratch a warp's score_chunk needs in shared memory: 16 sums per lane.
-constexpr int kTableFloats = 16 * 32;
+// Scratch a warp's score_chunk needs in shared memory: 2^(kD/32) sums per lane.
+template <int kD>
+__host__ __device__ constexpr int table_floats() { return (1 << (kD / 32)) * 32; }
 
 // The f32 score q_r . a of token 32c + lane for one query head q_r [kD] (f32
 // holding bf16 values), a = bf16(+-s + z) as score_block forms it.  Lane l
-// owns channels 4l .. 4l+3 and, for each of the 32 tokens, sums their exact
-// products (bf16 x bf16 in f32) in channel order starting from 0:
-// (((0 + c0) + c1) + c2) + c3 with c_k = q_k * (bit ? hi_k : lo_k).  The sum
-// depends on the token only through its 4 code bits, so the lane forms the
-// 16 possible sums once per group (`tab`, this warp's kTableFloats of shared
-// memory, laid out [nibble][lane]) and looks each token's up.  A butterfly
+// owns channels kDPL l .. kDPL l + kDPL - 1 (kDPL = kD/32: 4 at 128, 2 at
+// 64) and, for each of the 32 tokens, sums their exact products (bf16 x
+// bf16 in f32) in channel order starting from 0: (((0 + c0) + c1) + c2) + c3
+// at 128 with c_k = q_k * (bit ? hi_k : lo_k).  The sum depends on the token
+// only through its kDPL code bits, so the lane forms the 2^kDPL possible
+// sums once per group (`tab`, this warp's table_floats<kD>() of shared
+// memory, laid out [index][lane]) and looks each token's up.  A butterfly
 // reduce-scatter then leaves lane l with token l's sum; lanes whose bit 4
 // or 3 is set hold their byte-rows in swapped order, so the first two steps
 // need no select.  The arithmetic, and the order of every f32 sum, are those
 // of the plain select-and-add loop over channels the first K1 ran.
-template <int kGroups>
-__device__ __forceinline__ float score_chunk(const Chunk<kGroups>& ch, const float* q_r, int lane,
-                                             float* tab) {
+template <int kGroups, int kD>
+__device__ __forceinline__ float score_chunk(const Chunk<kGroups, kD>& ch, const float* q_r,
+                                             int lane, float* tab) {
+  constexpr int kDPL = kD / 32;  // channels per lane
+  constexpr int kEntries = 1 << kDPL;
   float qv[kDPL];
 #pragma unroll
   for (int k = 0; k < kDPL; ++k) qv[k] = q_r[lane * kDPL + k];
@@ -140,17 +188,16 @@ __device__ __forceinline__ float score_chunk(const Chunk<kGroups>& ch, const flo
   for (int jj = 0; jj < 4; ++jj) {
     const int j = jj ^ sw;
     if (jj < kGroups) {  // the sums of byte-row j's group
-      uint2 s = ch.sc[0], z = ch.zr[0];
+      auto s = ch.sc[0], z = ch.zr[0];
       if (kGroups > 1) {
 #pragma unroll
         for (int g = 1; g < kGroups; ++g)
           if (j == g) s = ch.sc[g], z = ch.zr[g];
       }
-      const float sc[kDPL] = {bf16_bits_to_float(s.x & 0xFFFFu), bf16_bits_to_float(s.x >> 16),
-                              bf16_bits_to_float(s.y & 0xFFFFu), bf16_bits_to_float(s.y >> 16)};
-      const float zr[kDPL] = {bf16_bits_to_float(z.x & 0xFFFFu), bf16_bits_to_float(z.x >> 16),
-                              bf16_bits_to_float(z.y & 0xFFFFu), bf16_bits_to_float(z.y >> 16)};
-      float t[16];
+      float sc[kDPL], zr[kDPL];
+      unpack_bf16(s, sc);
+      unpack_bf16(z, zr);
+      float t[kEntries];
 #pragma unroll
       for (int k = 0; k < kDPL; ++k) {
         const float ph = qv[k] * round_bf16(zr[k] + sc[k]);  // bf16(+1 * s + z): exact product
@@ -160,7 +207,7 @@ __device__ __forceinline__ float score_chunk(const Chunk<kGroups>& ch, const flo
           t[1] = 0.0f + ph;
         } else {
 #pragma unroll
-          for (int n = 0; n < 8; ++n) {
+          for (int n = 0; n < kEntries / 2; ++n) {
             if (n < (1 << k)) {
               t[n | (1 << k)] = t[n] + ph;
               t[n] = t[n] + pl;
@@ -169,7 +216,7 @@ __device__ __forceinline__ float score_chunk(const Chunk<kGroups>& ch, const flo
         }
       }
 #pragma unroll
-      for (int n = 0; n < 16; ++n) tl[n * 32] = t[n];
+      for (int n = 0; n < kEntries; ++n) tl[n * 32] = t[n];
     }
     uint32_t w = ch.word[0];
 #pragma unroll

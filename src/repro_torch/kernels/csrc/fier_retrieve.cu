@@ -18,6 +18,14 @@
 // sums built once per group, 32 lookups and a 31-step reduce-scatter, ~10 us
 // of issue slots over the full rows.
 //
+// d_head and rep.  d_head is a template parameter (64 or 128: the scoring
+// warp's lane owns D/32 channels, fier_common.cuh), and so is the capacity
+// kMaxRep of the query heads staged in shared memory (rep_slots: 8 for
+// d_head 128 up to rep 8, 16 otherwise, so rep 12 and 16 run: starcoder2-3b,
+// qwen3-moe).  Scoring grows with rep (one score_chunk per query head and
+// chunk), the bytes do not: at rep 12-16 the row's issue slots, not its
+// bytes, bound it.
+//
 // Design.  A row is split over a thread-block cluster of C CTAs of 512
 // threads (256 when g is not a multiple of 32; C in {1, 2, 4, 8}; fused_retrieval.py::retrieval_plan picks C and
 // the token range of each CTA from S, B x Hkv and the SM count: up to 4 CTAs
@@ -29,7 +37,7 @@
 //     [B, S/8, Hkv, D] / [B, S/g, Hkv, D] side-car; fier_common.cuh's
 //     load_chunk / score_chunk, the score_block expression, exact bf16 x bf16
 //     products summed in f32 in the order K1 has always used, looked up in a
-//     per-lane table of the 16 sums its 4 channels' code bits can select).  The next
+//     per-lane table of the 2^(D/32) sums its channels' code bits can select).  The next
 //     chunk's loads are issued before the current chunk is scored (a
 //     register double buffer), so a warp keeps two chunks in flight.  A
 //     chunk that starts at or past the row's length is not read: its keys
@@ -100,10 +108,16 @@ __host__ __device__ constexpr int threads_for() { return kGroups == 1 ? 512 : 25
 constexpr int kPerThread = 8;                   // compaction: consecutive keys per thread
 constexpr int kMaxCluster = 8;
 constexpr int kSmemLimit = 232448;              // shared memory a CTA may use on sm_90
-constexpr int kSmemStatic = 43008;              // fused_retrieval.SMEM_STATIC
-static_assert((kMaxRep * kD + 16 * kTableFloats + kPasses * kRadix + kRadix + 16 + 4) * 4 <=
-                  kSmemStatic,
-              "static shared memory outgrew the wrapper's SMEM_STATIC");
+
+// The kernel's static shared memory (q_s, 16 warps' tables, the histograms,
+// the scan scratch) rounded up to a KiB: fused_retrieval.smem_static counts
+// the same, and the plan adds the dynamic part to it.
+template <int kD, int kMaxRep>
+constexpr int smem_static() {
+  return ((kMaxRep * kD + 16 * table_floats<kD>() + kPasses * kRadix + kRadix + 16 + 4) * 4 +
+          1023) / 1024 * 1024;
+}
+static_assert(smem_static<128, 8>() == 43008, "the serving instantiation's count moved");
 
 // Block-table entries a range of T tokens (starting at a multiple of 32)
 // can touch: fused_retrieval.retrieval_plan counts the same.
@@ -121,7 +135,8 @@ __device__ __forceinline__ void cluster_wait() {
 // [N, bs/g, Hkv, D], table [B, n_btab] with S = n_btab * bs.
 // kSmemKeys = false: keys_g [B * Hkv, C * T] holds the keys (long rows).
 // kGroups: Chunk<1> when group % 32 == 0 (512 threads), else Chunk<4> (256).
-template <bool kPaged, bool kSmemKeys, int kGroups>
+// kD: d_head; kMaxRep: query heads q_s holds (rep_slots).
+template <bool kPaged, bool kSmemKeys, int kGroups, int kD, int kMaxRep>
 __global__ void __launch_bounds__(threads_for<kGroups>(), 1)
 fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
                      const uint8_t* __restrict__ codes,
@@ -136,9 +151,11 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
                      int S, int Hkv, int rep, int group, int budget,
                      int reduce_sum, int sink, int recent, int bs, int T) {
   constexpr int D = kD;
+  constexpr int kDPL = kD / 32;  // channels per lane of the scoring warp
   constexpr int kThreads = threads_for<kGroups>();
   constexpr int kWarps = kThreads / 32;
   constexpr int kTile = kThreads * kPerThread;  // keys per compaction tile
+  constexpr int kTableFloats = table_floats<kD>();
   extern __shared__ __align__(16) uint32_t dyn[];  // keys [T] (kSmemKeys), then the table range
   __shared__ float q_s[kMaxRep * kD];
   __shared__ float tabs[kWarps * kTableFloats];  // score_chunk's sums, per warp
@@ -215,7 +232,7 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
   const int c1 = n > 0 ? (t1 + 31) / 32 : 0;  // chunks [t0 / 32, c1)
   auto live = [&](int c) { return c < c1 && c * 32 < length; };  // read only below length
   int c = t0 / 32 + warp;
-  Chunk<kGroups> cur, nxt;
+  Chunk<kGroups, kD> cur, nxt;
   bool cur_live = live(c);
   if (cur_live) load_chunk(cur, c, S8, codes_h, scale_h, zero_h, row_stride, code_row, group_row);
   for (; c < c1; c += kWarps) {  // warp-uniform trip count
@@ -347,15 +364,15 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
   cluster_wait();  // no CTA leaves while another may still read its shared memory
 }
 
-template <bool kPaged, bool kSmemKeys, int kGroups>
+template <bool kPaged, bool kSmemKeys, int kGroups, int kD, int kMaxRep>
 cudaError_t launch(const void* q, const void* codes, const void* scale, const void* zero,
                    const void* table, const void* lengths, void* keys, void* idx, void* tau,
                    void* m, int B, int S, int Hkv, int rep, int group, int budget,
                    int reduce_sum, int sink, int recent, int bs, int C, int T,
                    cudaStream_t stream) {
   const size_t smem = (kSmemKeys ? (size_t)T * 4 : 0) + (kPaged ? (size_t)table_words(T, bs) * 4 : 0);
-  if (smem + kSmemStatic > (size_t)kSmemLimit) return cudaErrorInvalidValue;
-  auto kernel = fier_retrieve_kernel<kPaged, kSmemKeys, kGroups>;
+  if (smem + smem_static<kD, kMaxRep>() > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  auto kernel = fier_retrieve_kernel<kPaged, kSmemKeys, kGroups, kD, kMaxRep>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -381,20 +398,30 @@ cudaError_t launch(const void* q, const void* codes, const void* scale, const vo
   return cudaGetLastError();
 }
 
-// The instantiation for the key store (keys == nullptr: shared memory) and
-// the group size.
+// The instantiation for the key store (keys == nullptr: shared memory), the
+// group size, d_head and the query heads it holds.
+template <bool kPaged, int kD, int kMaxRep>
+decltype(&launch<kPaged, true, 1, kD, kMaxRep>) pick(bool smem_keys, bool one) {
+  if (smem_keys)
+    return one ? &launch<kPaged, true, 1, kD, kMaxRep> : &launch<kPaged, true, 4, kD, kMaxRep>;
+  return one ? &launch<kPaged, false, 1, kD, kMaxRep> : &launch<kPaged, false, 4, kD, kMaxRep>;
+}
+
 template <bool kPaged>
 cudaError_t launch_keys(const void* q, const void* codes, const void* scale, const void* zero,
                         const void* table, const void* lengths, void* keys, void* idx,
-                        void* tau, void* m, int B, int S, int Hkv, int rep, int group,
+                        void* tau, void* m, int B, int S, int Hkv, int rep, int D, int group,
                         int budget, int reduce_sum, int sink, int recent, int bs, int C, int T,
                         cudaStream_t st) {
   const bool one = group % 32 == 0;
-  decltype(&launch<kPaged, true, 1>) go;
-  if (keys == nullptr)
-    go = one ? &launch<kPaged, true, 1> : &launch<kPaged, true, 4>;
+  const bool smem_keys = keys == nullptr;
+  decltype(&launch<kPaged, true, 1, 128, 8>) go;
+  if (D == 64)
+    go = pick<kPaged, 64, 16>(smem_keys, one);
+  else if (rep_slots(D, rep) == 8)
+    go = pick<kPaged, 128, 8>(smem_keys, one);
   else
-    go = one ? &launch<kPaged, false, 1> : &launch<kPaged, false, 4>;
+    go = pick<kPaged, 128, 16>(smem_keys, one);
   return go(q, codes, scale, zero, table, lengths, keys, idx, tau, m, B, S, Hkv, rep, group,
             budget, reduce_sum, sink, recent, bs, C, T, st);
 }
@@ -414,17 +441,17 @@ extern "C" int fier_retrieve_launch(const void* q, const void* codes, const void
                                     int reduce_sum, int sink, int recent, int cluster,
                                     int cta_tokens, void* keys, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rep < 1 || rep > kMaxRep || D != kD || group <= 0 || group % 8 || S % 8)
+  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 128) || group <= 0 || group % 8 || S % 8)
     return (int)cudaErrorInvalidValue;
   if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) || cta_tokens <= 0 ||
       cta_tokens % 32 || (long long)cluster * cta_tokens < S || budget <= 0 || budget > S)
     return (int)cudaErrorInvalidValue;
   if (table == nullptr)
     return (int)launch_keys<false>(q, codes, scale, zero, nullptr, lengths, keys, idx, tau, m, B,
-                                   S, Hkv, rep, group, budget, reduce_sum, sink, recent, 8,
+                                   S, Hkv, rep, D, group, budget, reduce_sum, sink, recent, 8,
                                    cluster, cta_tokens, st);
   if (bs < 8 || bs % 8 || bs % group || S % bs) return (int)cudaErrorInvalidValue;
   return (int)launch_keys<true>(q, codes, scale, zero, table, lengths, keys, idx, tau, m, B, S,
-                                Hkv, rep, group, budget, reduce_sum, sink, recent, bs, cluster,
+                                Hkv, rep, D, group, budget, reduce_sum, sink, recent, bs, cluster,
                                 cta_tokens, st);
 }

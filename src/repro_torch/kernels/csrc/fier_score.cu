@@ -31,6 +31,10 @@
 // 256 of scale and of zero per group: every 32-byte sector it touches is
 // used whole, so a CTA keeps to one kv head (q of one head staged, the rows
 // split evenly) rather than reading whole 2 KB byte-rows of all heads.
+//
+// d_head (64 or 128) and the query heads q_s holds (rep_slots: 8 at d_head
+// 128 up to rep 8, else 16) are template parameters, instantiated as K1's
+// are, so the scores stay K1's at every shape either takes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +51,9 @@ using namespace fier;
 template <int kGroups>
 __host__ __device__ constexpr int threads_for() { return kGroups == 1 ? 512 : 256; }
 
-template <int kGroups>  // Chunk<kGroups>: 1 when group % 32 == 0, else 4
+// Chunk<kGroups, kD>: kGroups 1 when group % 32 == 0, else 4; kD d_head;
+// kMaxRep the query heads q_s holds.
+template <int kGroups, int kD, int kMaxRep>
 __global__ void __launch_bounds__(threads_for<kGroups>(), 1)
 fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
                   const uint8_t* __restrict__ codes,        // [B, S/8, Hkv, D]
@@ -56,8 +62,10 @@ fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
                   float* __restrict__ out,                  // [B, Hkv, rep, S]
                   int rows, int S, int Hkv, int rep, int group, int parts, int part_chunks) {
   constexpr int D = kD;
+  constexpr int kDPL = kD / 32;  // channels per lane of the scoring warp
   constexpr int kThreads = threads_for<kGroups>();
   constexpr int kWarps = kThreads / 32;
+  constexpr int kTableFloats = table_floats<kD>();
   __shared__ float q_s[kMaxRep * kD];
   __shared__ float tabs[kWarps * kTableFloats];  // score_chunk's sums, per warp
 
@@ -88,7 +96,7 @@ fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
     const int c0 = (u - row * parts) * part_chunks;
     const int c1 = min(n_chunks, c0 + part_chunks);
     int c = c0 + warp;
-    Chunk<kGroups> cur, nxt;
+    Chunk<kGroups, kD> cur, nxt;
     if (c < c1) load_chunk(cur, c, S8, codes_h, scale_h, zero_h, row_stride, code_row, group_row);
     for (; c < c1; c += kWarps) {  // warp-uniform trip count
       if (c + kWarps < c1)
@@ -104,6 +112,19 @@ fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
   }
 }
 
+template <int kD, int kMaxRep>
+cudaError_t launch(const void* q, const void* codes, const void* scale, const void* zero,
+                   void* out, int rows, int S, int Hkv, int rep, int group, int parts,
+                   int part_chunks, int grid, cudaStream_t stream) {
+  const bool one = group % 32 == 0;
+  auto kernel = one ? &fier_score_kernel<1, kD, kMaxRep> : &fier_score_kernel<4, kD, kMaxRep>;
+  kernel<<<grid, one ? threads_for<1>() : threads_for<4>(), 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(codes),
+      static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(zero),
+      static_cast<float*>(out), rows, S, Hkv, rep, group, parts, part_chunks);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each of the B x Hkv rows is split into `parts` runs of `part_chunks`
@@ -112,16 +133,12 @@ extern "C" int fier_score_launch(const void* q, const void* codes, const void* s
                                  const void* zero, void* out, int B, int S, int Hkv, int rep,
                                  int D, int group, int parts, int part_chunks, int grid,
                                  void* stream) {
-  if (rep < 1 || rep > kMaxRep || D != kD || group <= 0 || group % 8 || S % group)
+  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 128) || group <= 0 || group % 8 ||
+      S % group)
     return (int)cudaErrorInvalidValue;
   if (parts < 1 || part_chunks < 1 || (long long)parts * part_chunks * 32 < S || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const bool one = group % 32 == 0;
-  auto kernel = one ? &fier_score_kernel<1> : &fier_score_kernel<4>;
-  kernel<<<grid, one ? threads_for<1>() : threads_for<4>(), 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(codes),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(zero),
-      static_cast<float*>(out), B * Hkv, S, Hkv, rep, group, parts, part_chunks);
-  return (int)cudaGetLastError();
+  auto go = D == 64 ? &launch<64, 16> : rep_slots(D, rep) == 8 ? &launch<128, 8> : &launch<128, 16>;
+  return (int)go(q, codes, scale, zero, out, B * Hkv, S, Hkv, rep, group, parts, part_chunks,
+                 grid, static_cast<cudaStream_t>(stream));
 }

@@ -31,9 +31,23 @@ from . import build
 
 launches = 0  # K6 kernel launches since the last reset (the chip check reads it)
 
-# the one d_head the card has checked the kernel at (chip_smoke.py phase 2)
-KERNEL_HEAD_DIM = 128
-KERNEL_MAX_REP = 8
+# the d_heads K6's and K1/K3's CUDA kernels are instantiated for (they share
+# the scoring warp), each checked on the card by chip_smoke.py phase 2 (64:
+# granite-moe, minicpm; 128: the rest); any rep up to KERNEL_MAX_REP runs.
+# Anything else is ROADMAP Queue 2 item A.
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_MAX_REP = 16
+
+
+def check_kernel_shape(d_head: int, rep: int) -> None:
+    """Raise for a (d_head, rep) that the CUDA kernels of K1/K3 and K6 do
+    not take (the plain versions on the CPU take any)."""
+    if d_head not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIMS}, got {d_head} "
+                         f"(others: ROADMAP Queue 2 item A)")
+    if not 1 <= rep <= KERNEL_MAX_REP:
+        raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query heads per "
+                         f"kv head, got {rep} (more: ROADMAP Queue 2 item A)")
 
 
 def score_block(
@@ -146,11 +160,7 @@ def fier_score_scan(q, codes, scale, zero, *, group: int) -> torch.Tensor:
         return retrieval_scores(q, codes, scale, zero, group=group)
     if dev.type != "cuda":
         raise ValueError(f"fier_score_scan runs on cuda or cpu, not {dev}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIM}, got {D}")
-    if rep > KERNEL_MAX_REP:
-        raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query "
-                         f"heads per kv head, got {rep}")
+    check_kernel_shape(D, rep)
     n_sm = build.sm_count(dev)
     plan = score_plan(S, B * Hkv, n_sm)
     q = q.to(torch.bfloat16).contiguous()

@@ -38,26 +38,30 @@ from repro_torch.kvcache.paged import gather_block_rows
 from repro_torch.obs.flopcount import kernel_leaf
 
 from . import build
-from .fier_score import retrieval_scores
+from .fier_score import check_kernel_shape, retrieval_scores  # K1 shares K6's instantiations
 from .topk_select import compact_indices, fier_topk_threshold_plain
 
 launches = 0  # K1 kernel launches since the last reset (the chip check reads it)
 launches_paged = 0  # K3 kernel launches since the last reset
 
-# shared memory a CTA may use on sm_90, and a bound on what the kernel keeps
-# beside its keys (q in f32 for up to 8 query heads × 128 dims, each of 16
-# warps' 16 × 32 scoring sums, one radix histogram per pass and their sum,
-# scan scratch; a static_assert in the .cu holds it to this bound)
-SMEM_LIMIT = 232448
-SMEM_STATIC = 43008
+SMEM_LIMIT = 232448  # shared memory a CTA may use on sm_90
 MAX_CLUSTER = 8  # CTAs per row: the portable cluster size
 # the widest split taken only to fill the SMs: a 512-thread CTA takes a whole
 # SM, and clusters of 8 such CTAs did not all fit one wave (PERF.md)
 FILL_CLUSTER = 4
-# the one d_head the card has checked the kernel at (chip_smoke.py phase 2);
-# a slice that brings another adds it to the .cu and to that phase
-KERNEL_HEAD_DIM = 128
-KERNEL_MAX_REP = 8
+
+
+def smem_static(d_head: int, rep: int) -> int:
+    """The static shared memory of the instantiation taking (d_head, rep),
+    as ``smem_static`` in ``csrc/fier_retrieve.cu`` counts it: q in f32 for
+    the query heads it stages (``rep_slots`` in ``csrc/fier_common.cuh``: 8
+    at d_head 128 up to rep 8, the serving instantiation, else 16), each of
+    16 warps' 2^(d_head/32) × 32 scoring sums, one radix histogram per pass
+    and their sum, scan scratch, rounded up to a KiB (43,008 B at d_head
+    128, rep ≤ 8)."""
+    rep_slots = 8 if d_head == 128 and rep <= 8 else 16
+    floats = rep_slots * d_head + 16 * 32 * 2 ** (d_head // 32) + 4 * 256 + 256 + 16 + 4
+    return -(-4 * floats // 1024) * 1024
 
 
 class RetrievalPlan(NamedTuple):
@@ -74,9 +78,12 @@ class RetrievalPlan(NamedTuple):
         return [(min(r * T, S), min((r + 1) * T, S)) for r in range(self.cluster)]
 
 
-def retrieval_plan(S: int, rows: int, n_sm: int, bs: int | None = None) -> RetrievalPlan:
+def retrieval_plan(S: int, rows: int, n_sm: int, bs: int | None = None, *,
+                   d_head: int, rep: int) -> RetrievalPlan:
     """The split of a row of S tokens for ``rows`` = B·Hkv rows on a card of
-    ``n_sm`` SMs (``bs``: the pool's block size, for K3's table range).
+    ``n_sm`` SMs (``bs``: the pool's block size, for K3's table range), for
+    the instantiation taking ``d_head`` and ``rep`` (its static shared
+    memory, :func:`smem_static`, is what the keys share a CTA with).
 
     C, the CTAs per row, is the largest power of two (≤ 4) whose grid
     ``rows·C`` still runs in one wave of one CTA per SM, halved while a CTA
@@ -84,10 +91,11 @@ def retrieval_plan(S: int, rows: int, n_sm: int, bs: int | None = None) -> Retri
     each) do not fit its shared memory.  Where even 8 CTAs cannot hold a
     row's keys, the long-row path keeps them in a device scratch
     [rows, C·cta_tokens] instead."""
+    static = smem_static(d_head, rep)
     chunks = -(-S // 32)
     tokens = lambda c: -(-chunks // c) * 32
     table = lambda T: 4 * ((T + bs - 1) // bs + 1) if bs else 0
-    fits = lambda c: SMEM_STATIC + 4 * tokens(c) + table(tokens(c)) <= SMEM_LIMIT
+    fits = lambda c: static + 4 * tokens(c) + table(tokens(c)) <= SMEM_LIMIT
     c = 1
     while c < FILL_CLUSTER and rows * 2 * c <= n_sm:
         c *= 2
@@ -98,9 +106,9 @@ def retrieval_plan(S: int, rows: int, n_sm: int, bs: int | None = None) -> Retri
     T = tokens(c)
     smem_keys = fits(c)
     smem = (4 * T if smem_keys else 0) + table(T)
-    if SMEM_STATIC + smem > SMEM_LIMIT:
+    if static + smem > SMEM_LIMIT:
         raise ValueError(f"S={S}: a CTA's {T}-token range needs {smem} bytes of block "
-                         f"table in shared memory, more than {SMEM_LIMIT - SMEM_STATIC}")
+                         f"table in shared memory, more than {SMEM_LIMIT - static}")
     return RetrievalPlan(c, T, smem_keys, smem)
 
 
@@ -234,13 +242,9 @@ def fier_retrieve(
         return fier_retrieve_plain(q, codes, scale, zero, lengths, budget, **sel)
     if dev.type != "cuda":
         raise ValueError(f"fier_retrieve runs on cuda or cpu, not {dev}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIM}, got {D}")
-    if rep > KERNEL_MAX_REP:
-        raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query "
-                         f"heads per kv head, got {rep}")
+    check_kernel_shape(D, rep)
     n_sm = build.sm_count(dev)
-    plan = retrieval_plan(S, B * Hkv, n_sm, bs if paged else None)
+    plan = retrieval_plan(S, B * Hkv, n_sm, bs if paged else None, d_head=D, rep=rep)
     q = q.to(torch.bfloat16).contiguous()
     codes, scale, zero = codes.contiguous(), scale.contiguous(), zero.contiguous()
     table = block_table.contiguous() if paged else None

@@ -27,8 +27,10 @@ from . import build
 
 launches = 0  # K5 kernel launches since the last reset (the chip check reads it)
 
-# the one d_head the card has checked the kernel at (chip_smoke.py phase 2)
-KERNEL_HEAD_DIM = 128
+# the d_heads the card has checked the kernel at (chip_smoke.py phase 2; the
+# .cu walks Hkv·D channels and takes any D, anything else is ROADMAP Queue 2
+# item A)
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def fier_pack_quantize_plain(k: torch.Tensor, group: int):
@@ -77,8 +79,9 @@ def fier_pack_quantize(k: torch.Tensor, group: int):
         return fier_pack_quantize_plain(k, group)
     if dev.type != "cuda":
         raise ValueError(f"fier_pack_quantize runs on cuda or cpu, not {dev}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIM}, got {D}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIMS}, got {D} "
+                         f"(others: ROADMAP Queue 2 item A)")
     k = k.contiguous()
     codes = torch.empty((B, S // 8, H, D), dtype=torch.uint8, device=dev)
     scale = torch.empty((B, S // group, H, D), dtype=torch.bfloat16, device=dev)

@@ -12,11 +12,13 @@ out / max(den, 1e-30) in f32.
 
 On a CUDA tensor ``fier_attend_selected`` launches ``csrc/fier_attend.cu``
 once: each (b, h) row's slots are split over a thread-block cluster as
-:func:`attend_plan` says; in every CTA, 16 row groups stream their slots'
-K and V rows into shared memory with ``cp.async`` (a ring three steps
-deep, masked slots never read), each keeping an online softmax; and the
-cluster's CTAs merge their (max, denominator, output) through distributed
-shared memory in rank order.  Only ``out`` is allocated.  The kernel is bound by bytes:
+:func:`attend_plan` says; in every CTA, 2048/D lane groups (16 at D 128)
+stream their slots' K and V rows into shared memory with ``cp.async`` (a
+ring of 96 KiB, masked slots never read), each keeping an online softmax
+(above rep 8 two lane groups share a slot's rows and keep half the query
+heads each); and the cluster's CTAs merge their (max, denominator,
+output) through distributed shared memory in rank order.  Only ``out`` is
+allocated.  The kernel is bound by bytes:
 at the serving shape (B 4, Hkv 16, budget 1024, D 128, lengths
 8192/5003/2100/700) it must move 31,211,536 B, 0.00932 ms at 3.35 TB/s.
 On a CPU tensor it runs :func:`fier_attend_selected_plain`.
@@ -53,16 +55,25 @@ launches = 0  # K2 kernel launches since the last reset (the chip check reads it
 launches_paged = 0  # K4 kernel launches since the last reset
 launches_gathered = 0  # K8 kernel launches since the last reset
 
-# the one d_head the card has checked the kernel at (chip_smoke.py phase 2);
-# a slice that brings another adds it to the .cu and to that phase
-KERNEL_HEAD_DIM = 128
-# query heads per kv head: one instantiation each, all run by that phase
-KERNEL_REPS = (1, 2, 4, 8)
+# the d_heads and the query heads per kv head the CUDA kernel is
+# instantiated for (one instantiation per pair), each checked on the card by
+# chip_smoke.py phase 2; anything else is ROADMAP Queue 2 item A
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_REPS = (1, 2, 4, 8, 12, 16)
 MAX_CLUSTER = 8  # CTAs per (b, h) row: the portable cluster size
-STEP = 64  # slots a CTA takes per step: 16 row groups × 4 (kStep in the .cu)
-RING_BYTES = 3 * STEP * 2 * KERNEL_HEAD_DIM * 2  # three steps of K and V rows, bf16
+# the ring of K and V rows in shared memory: 96 KiB at every (d_head, rep)
+# (3 steps deep, 6 where the query heads are split; kRingBytes in the .cu)
+RING_BYTES = 98304
 MAX_CHUNK = 2048  # slots whose rows (4 bytes each) a CTA holds at once (kMaxChunk)
 SMEM_LIMIT = 232448  # shared memory a CTA may use on sm_90
+
+
+def step(d_head: int, rep: int) -> int:
+    """Slots a CTA takes per step (kStep in the .cu): a row takes d_head/8
+    lanes, so 256 threads hold 2048/d_head lane groups; above rep 8 two lane
+    groups share a slot's rows (each keeps half the query heads); 4 slots per
+    slot group and step.  64 at d_head 128 up to rep 8."""
+    return 4 * (2048 // d_head) // (2 if rep > 8 else 1)
 
 
 class AttendPlan(NamedTuple):
@@ -79,31 +90,30 @@ class AttendPlan(NamedTuple):
         return [(r * budget // C, (r + 1) * budget // C) for r in range(C)]
 
 
-def attend_plan(budget: int, rows: int, n_sm: int, rep: int) -> AttendPlan:
+def attend_plan(budget: int, rows: int, n_sm: int, rep: int, d_head: int) -> AttendPlan:
     """The split of ``budget`` slots for ``rows`` = B·Hkv rows on a card of
-    ``n_sm`` SMs, for ``rep`` query heads per kv head.
+    ``n_sm`` SMs, for ``rep`` query heads per kv head of ``d_head``.
 
     C, the CTAs per row, is the largest power of two (≤ 8) whose grid
     ``rows·C`` still runs in one wave of one CTA per SM and whose CTAs each
-    get at least one whole 64-slot step.  Two CTAs per SM (they would fit:
-    the 96 KiB ring and at most 8 KiB of rows each) were measured slower:
+    get at least one whole step (:func:`step` slots).  Two CTAs per SM
+    (they would fit: the 96 KiB ring and at most 8 KiB of rows each, at
+    rep ≤ 8) were measured slower:
     clusters of them were not all placed in one wave (PERF.md).  A CTA finds
     the rows of up to ``MAX_CHUNK`` slots at once (its whole range unless
     the budget is very large).  ``rep`` selects the kernel's instantiation
-    and sizes rank 0's receive slots; it does not change the split.  The
+    and, with ``d_head``, sizes rank 0's receive slots and the step.  The
     plan never depends on where the rows are found (slab, pool or
     gathered), so K2, K4 and K8 split a row alike and give equal outputs
     bit for bit."""
-    if rep not in KERNEL_REPS:
-        raise ValueError(f"the CUDA kernel takes {KERNEL_REPS} query heads per kv "
-                         f"head, got {rep}")
+    check_kernel_shape(d_head, rep)
     if budget <= 0 or rows <= 0 or n_sm <= 0:
         raise ValueError(f"budget {budget}, rows {rows} and n_sm {n_sm} must be positive")
     c = 1
-    while c < MAX_CLUSTER and rows * 2 * c <= n_sm and budget >= 2 * c * STEP:
+    while c < MAX_CLUSTER and rows * 2 * c <= n_sm and budget >= 2 * c * step(d_head, rep):
         c *= 2
     chunk = min(-(-budget // c), MAX_CHUNK)
-    recv = c * rep * (KERNEL_HEAD_DIM + 2) * 4  # each rank's output and (max, den)
+    recv = c * rep * (d_head + 2) * 4  # each rank's output and (max, den)
     return AttendPlan(c, chunk, RING_BYTES + recv + 4 * chunk)
 
 
@@ -181,17 +191,22 @@ def _check(q, K, V, block_table, idx, lengths):
     return B, Hkv, rep, D, S, bs, idx.shape[2]
 
 
+def check_kernel_shape(d_head: int, rep: int) -> None:
+    """Raise for a (d_head, rep) the CUDA kernel has no instantiation for."""
+    if d_head not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIMS}, got {d_head} "
+                         f"(others: ROADMAP Queue 2 item A)")
+    if rep not in KERNEL_REPS:
+        raise ValueError(f"the CUDA kernel takes {KERNEL_REPS} query heads per kv "
+                         f"head, got {rep} (others: ROADMAP Queue 2 item A)")
+
+
 def check_kernel_operands(q, K, V) -> None:
     """What the CUDA kernel admits beyond the shapes (a CUDA tensor outside
     it raises; the plain version on the CPU takes any)."""
-    rep, D = q.shape[2], q.shape[3]
     if K.dtype != torch.bfloat16 or V.dtype != torch.bfloat16:
         raise ValueError(f"the CUDA kernel takes bf16 K/V, got {K.dtype}, {V.dtype}")
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIM}, got {D}")
-    if rep not in KERNEL_REPS:
-        raise ValueError(f"the CUDA kernel takes {KERNEL_REPS} query heads per kv "
-                         f"head, got {rep}")
+    check_kernel_shape(q.shape[3], q.shape[2])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -200,9 +215,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _plan(dev, rows: int, budget: int, rep: int) -> AttendPlan:
+def _plan(dev, rows: int, budget: int, rep: int, d_head: int) -> AttendPlan:
     n_sm = build.sm_count(dev)
-    return attend_plan(budget, rows, n_sm, rep)
+    return attend_plan(budget, rows, n_sm, rep, d_head)
 
 
 _fn = None
@@ -242,7 +257,7 @@ def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None) -> tor
     if dev.type != "cuda":
         raise ValueError(f"fier_attend_selected runs on cuda or cpu, not {dev}")
     check_kernel_operands(q, K, V)
-    plan = _plan(dev, B * Hkv, budget, rep)
+    plan = _plan(dev, B * Hkv, budget, rep, D)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
     q_bf16 = q.dtype == torch.bfloat16  # read as it is; other types go to f32
@@ -318,7 +333,7 @@ def fier_attend_gathered(q, k_sel, v_sel, mask) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"fier_attend_gathered runs on cuda or cpu, not {dev}")
     check_kernel_operands(q, k_sel, v_sel)
-    plan = _plan(dev, B * Hkv, budget, rep)
+    plan = _plan(dev, B * Hkv, budget, rep, D)
     q_bf16 = q.dtype == torch.bfloat16  # read as it is; other types go to f32
     q = _aligned((q if q_bf16 else q.to(torch.float32)).contiguous())
     # the kernel reads rows through the strides (gather_kv returns a

@@ -1,4 +1,4 @@
-"""Model zoo (dense transformer family in this slice)."""
+"""Model zoo (the transformer families dense, moe and vlm)."""
 from .model_zoo import build_model
 from .transformer import ModelBundle
 

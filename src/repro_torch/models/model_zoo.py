@@ -1,5 +1,6 @@
-"""build(cfg) → ModelBundle dispatch over architecture families (dense only
-in this slice)."""
+"""build(cfg) → ModelBundle dispatch over architecture families: dense, moe
+and vlm share ``transformer.build``; ssm, hybrid and encdec are not ported
+yet (ROADMAP Queue 1 item 9)."""
 from __future__ import annotations
 
 from repro_torch import resolve_device
@@ -15,9 +16,15 @@ def build_model(
 ) -> ModelBundle:
     """The model bundle for ``cfg`` on ``device`` (CUDA by default; a
     missing card raises)."""
+    if pol is not None and pol.layout == "paged" and cfg.family not in transformer.FAMILIES:
+        raise ValueError(
+            f"paged KV cache is only supported for transformer families, not {cfg.family!r}"
+        )
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in transformer.FAMILIES:
         return transformer.build(cfg, pol, device=dev)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)"
-    )
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)"
+        )
+    raise ValueError(f"unknown family {cfg.family!r}")

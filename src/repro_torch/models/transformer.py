@@ -1,5 +1,8 @@
-"""Decoder-only dense LM with FIER-integrated decode (port of
-``repro.models.transformer`` for ``family='dense'``).
+"""Decoder-only LM with FIER-integrated decode: the port of
+``repro.models.transformer`` for the families it builds, ``dense``,
+``moe`` (a routed-expert FFN, ``models/moe.py``) and ``vlm`` (the decoder
+of a vision-language model: prefill takes precomputed vision embeddings
+[B, n_vision_tokens, d] as a prefix of the sequence).
 
 * Layer params are stacked along a leading L axis; depth is a Python loop.
 * Prefill runs blocked flash attention over the prompt, zero-pads each
@@ -27,7 +30,10 @@ from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
 
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
+
+FAMILIES = ("dense", "moe", "vlm")  # what build() takes
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -66,7 +72,7 @@ def _layer_cache(stack: dict, i: int) -> dict:
 
 
 def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -> ModelBundle:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)"
         )
@@ -83,6 +89,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
     pdt = _DTYPES[cfg.param_dtype]
     L = cfg.n_layers
     skip = min(pol.skip_layers if pol.kind != "full" else 0, L)
+    is_moe = cfg.family == "moe"
 
     # ----------------------------------------------------------------- init
     def init(gen: torch.Generator | int) -> dict:
@@ -94,40 +101,58 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
                 "norm1": init_norm(cfg.norm, cfg.d_model, n=L, device=device),
                 "attn": attn.init_attention(gen, cfg, n=L, device=device),
                 "norm2": init_norm(cfg.norm, cfg.d_model, n=L, device=device),
-                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, n=L, device=device),
             },
             "final_norm": init_norm(cfg.norm, cfg.d_model, device=device),
         }
+        if is_moe:
+            params["layers"]["moe"] = moe_mod.init_moe(gen, cfg, n=L, device=device)
+        else:
+            params["layers"]["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, n=L,
+                                               device=device)
         if not cfg.tie_embeddings:
             params["lm_head"] = init_embedding(gen, Vp, cfg.d_model, device=device).T.contiguous()
         return tree_map(lambda a: a.to(pdt), params)
 
     def compute_params(params: dict) -> dict:
         """One compute-dtype copy of every layer matmul weight (what each
-        call would otherwise cast to, bit for bit); the embedding, head and
-        norms stay as they are — the head multiplies in f32."""
+        call would otherwise cast to, bit for bit); the embedding, head,
+        norms and the MoE router stay as they are — the head and the router
+        multiply in f32."""
         layers = tree_map(lambda a: a.to(cdt) if a.dim() >= 3 else a, params["layers"])
+        if is_moe:
+            layers["moe"]["router"] = params["layers"]["moe"]["router"]
         return dict(params, layers=layers)
 
     # ------------------------------------------------------------- helpers
-    def _ffn_block(lp, h, attn_out):
-        """h + attn_out, then the MLP sub-block on it.  The norm reads the
+    def _ffn_block(lp, h, attn_out, decode: bool = False):
+        """h + attn_out, then the FFN sub-block on it.  The norm reads the
         f32 residual sum, not its bf16 rounding: compiled, the reference's
         layer (repro/models/transformer.py:185-196, :391-400) elides that
-        round trip (XLA's excess precision), and the port mirrors it."""
+        round trip (XLA's excess precision), and the port mirrors it.  MoE
+        dispatches as the reference's ``_ffn`` (:129-145): the dense-masked
+        experts in decode, the capacity scatter over every position of the
+        call (prompt padding included) in prefill and chunked prefill."""
         r = h.to(torch.float32) + attn_out.to(torch.float32)
         xn = apply_norm(r, lp["norm2"], cfg.norm).to(cdt)
-        return r.to(cdt) + mlp_apply(xn, lp["mlp"], cfg.act)
+        if not is_moe:
+            return r.to(cdt) + mlp_apply(xn, lp["mlp"], cfg.act)
+        apply = moe_mod.moe_apply_masked if decode else moe_mod.moe_apply
+        y, _ = apply(xn.reshape(-1, cfg.d_model), lp["moe"], cfg)
+        return r.to(cdt) + y.reshape(xn.shape)
 
     def _head(params):
         return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
     # ------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
-        """Returns (last-token logits [B, Vp] f32, filled slab cache)."""
+        """Returns (last-token logits [B, Vp] f32, filled slab cache).
+        ``batch["vision_embeds"]`` [B, n_vision, d], when present, precedes
+        the token embeddings; ``lengths`` then count the vision positions."""
         toks = batch["tokens"]
         lengths = batch["lengths"].to(torch.int32)
         h = params["embed"][toks].to(cdt)  # [B, S, d]
+        if batch.get("vision_embeds") is not None:
+            h = torch.cat([batch["vision_embeds"].to(cdt), h], dim=1)
         B, S, _ = h.shape
         cap = capacity if capacity is not None else S
         valid = kvcache.valid_mask(S, lengths)
@@ -290,7 +315,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
                 lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), lc, length, cfg,
                 layer_plan, block_table=block_table,
             )
-            h = _ffn_block(lp, h, o)
+            h = _ffn_block(lp, h, o, decode=True)
         h = apply_norm(h, params["final_norm"], cfg.norm)[:, 0]
         logits = _masked_logits(h, _head(params), cfg.vocab, Vp)
         return logits, dict(cache, length=length + 1)

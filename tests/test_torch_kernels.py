@@ -72,6 +72,9 @@ K1_CASES = [
     (1, 128, 1, 4, 32, 32, 128, (128,), "max", 0, 0),        # budget == S
     (2, 128, 2, 4, 16, 8, 64, (40, 128), "sum", 4, 16),      # budget > length
     (1, 192, 3, 2, 16, 32, 48, (192,), "max", 2, 0),
+    (2, 128, 2, 2, 64, 32, 32, (128, 90), "max", 4, 8),     # d_head 64 (granite-moe)
+    (1, 128, 1, 12, 64, 32, 48, (128,), "max", 0, 0),       # rep 12 (starcoder2)
+    (2, 64, 1, 16, 16, 16, 16, (64, 40), "sum", 4, 4),      # rep 16 (qwen3-moe)
 ]
 
 
@@ -123,7 +126,12 @@ def test_sortable_keys_roundtrip_and_order():
     np.testing.assert_array_equal(back.numpy(), torch.where(x == 0, 0.0, x).numpy())
 
 
-@pytest.mark.parametrize("B,S,Hkv,rep,D,budget", [(2, 128, 2, 1, 32, 32), (2, 64, 2, 4, 16, 64)])
+@pytest.mark.parametrize("B,S,Hkv,rep,D,budget", [
+    (2, 128, 2, 1, 32, 32), (2, 64, 2, 4, 16, 64),
+    (2, 64, 2, 2, 64, 32),      # d_head 64
+    (2, 64, 1, 12, 16, 32),     # rep 12
+    (2, 64, 1, 16, 32, 48),     # rep 16
+])
 def test_k2_plain_matches_reference(B, S, Hkv, rep, D, budget):
     q, K, V, _ = _case(B, S, Hkv, rep, D, 8, seed=budget + rep)
     rng = np.random.default_rng(rep)
@@ -193,7 +201,7 @@ def _keys_fit(S, C, bs):
     """Whether a C-CTA split of an S-token row keeps its keys in shared memory."""
     T = -(-(-(-S // 32)) // C) * 32
     table = 4 * ((T + bs - 1) // bs + 1) if bs else 0
-    return fr.SMEM_STATIC + 4 * T + table <= fr.SMEM_LIMIT
+    return fr.smem_static(128, 1) + 4 * T + table <= fr.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("bs", [None, 32, 8])
@@ -206,14 +214,14 @@ def test_retrieval_plan_splits_rows(S, rows, bs):
     one CTA per SM on 132 SMs and fills them as far as a power of two up to
     4 allows, and the long-row path (keys in device memory) is taken exactly
     when 8 CTAs cannot hold the row's keys."""
-    plan = fr.retrieval_plan(S, rows, 132, bs)
+    plan = fr.retrieval_plan(S, rows, 132, bs, d_head=128, rep=1)
     C, T = plan.cluster, plan.cta_tokens
     assert C in (1, 2, 4, 8) and T % 32 == 0 and C * T >= S
     ranges = plan.ranges(S)
     assert ranges[0][0] == 0 and ranges[-1][1] == S
     assert all(t0 % 32 == 0 and t0 < t1 for t0, t1 in ranges)
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    assert fr.SMEM_STATIC + plan.smem_bytes <= 232448
+    assert fr.smem_static(128, 1) + plan.smem_bytes <= 232448
     assert plan.smem_keys == _keys_fit(S, 8, bs)
     if plan.smem_keys:
         assert plan.smem_bytes >= 4 * T
@@ -242,9 +250,9 @@ def test_wrapper_takes_rows_beyond_one_block():
     want = fr.fier_retrieve_plain(q, codes, scale, zero, lens, 4096, **sel)
     assert all(torch.equal(a, b) for a, b in zip((idx, tau, m), want))
     assert tuple(idx.shape) == (1, 1, 4096) and int(idx.max()) < S - 5
-    assert fr.retrieval_plan(S, 64, 132).smem_keys
-    assert fr.retrieval_plan(S, 64, 132, 32).smem_keys
-    assert not fr.retrieval_plan(524288, 16, 132).smem_keys
+    assert fr.retrieval_plan(S, 64, 132, d_head=128, rep=1).smem_keys
+    assert fr.retrieval_plan(S, 64, 132, 32, d_head=128, rep=1).smem_keys
+    assert not fr.retrieval_plan(524288, 16, 132, d_head=128, rep=1).smem_keys
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
@@ -260,7 +268,7 @@ def test_attend_plan_splits_slots(rows, budget, rep):
     or K8 asks."""
     import inspect
 
-    plan = sa.attend_plan(budget, rows, 132, rep)
+    plan = sa.attend_plan(budget, rows, 132, rep, 128)
     C = plan.cluster
     assert C in (1, 2, 4, 8) and C <= sa.MAX_CLUSTER
     ranges = plan.ranges(budget)
@@ -273,32 +281,66 @@ def test_attend_plan_splits_slots(rows, budget, rep):
     assert plan.chunk == min(max(s1 - s0 for s0, s1 in ranges), sa.MAX_CHUNK)
     assert plan.smem_bytes == sa.RING_BYTES + C * rep * (128 + 2) * 4 + 4 * plan.chunk
     assert C == 1 or rows * C <= 132  # one wave wherever it splits
-    assert all(s1 - s0 >= sa.STEP for s0, s1 in ranges) or C == 1
-    if C < sa.MAX_CLUSTER and budget >= 2 * C * sa.STEP:  # wider only beyond one wave
+    step = sa.step(128, rep)
+    assert all(s1 - s0 >= step for s0, s1 in ranges) or C == 1
+    if C < sa.MAX_CLUSTER and budget >= 2 * C * step:  # wider only beyond one wave
         assert rows * 2 * C > 132
-    assert list(inspect.signature(sa.attend_plan).parameters) == ["budget", "rows", "n_sm", "rep"]
-    assert sa.attend_plan(budget, rows, 132, rep) == plan
+    assert list(inspect.signature(sa.attend_plan).parameters) == [
+        "budget", "rows", "n_sm", "rep", "d_head"]
+    assert sa.attend_plan(budget, rows, 132, rep, 128) == plan
 
 
 @pytest.mark.parametrize("rep", [1, 2, 4, 8, 3, 5, 16])
 def test_attend_kernel_admits_reps(rep):
-    """The CUDA kernel has one instantiation per rep in KERNEL_REPS: the
-    wrapper's operand check and the plan raise for any other (the plain
-    version on the CPU takes it)."""
+    """The CUDA kernel has one instantiation per (d_head, rep) in
+    KERNEL_HEAD_DIMS x KERNEL_REPS (rep 16 and d_head 64 among them): the
+    wrapper's operand check and the plan raise for any other, naming ROADMAP
+    Queue 2 item A (the plain version on the CPU takes it)."""
     q = torch.zeros((1, 2, rep, 128), dtype=torch.float32)
     K = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16)
     if rep in sa.KERNEL_REPS:
-        sa.check_kernel_operands(q, K, K)
-        assert sa.attend_plan(64, 2, 132, rep).cluster == 1
+        for D in (128, 64):
+            sa.check_kernel_operands(q[..., :D], K[..., :D], K[..., :D])
+            C = sa.attend_plan(64, 2, 132, rep, D).cluster  # each CTA a whole step
+            assert C == 1 or C * sa.step(D, rep) <= 64
     else:
-        with pytest.raises(ValueError, match="query heads per kv head"):
+        with pytest.raises(ValueError, match="query heads per kv head.*item A"):
             sa.check_kernel_operands(q, K, K)
         with pytest.raises(ValueError, match="query heads per kv head"):
-            sa.attend_plan(64, 2, 132, rep)
-    with pytest.raises(ValueError, match="d_head"):
-        sa.check_kernel_operands(q[..., :64], K[..., :64], K[..., :64])
+            sa.attend_plan(64, 2, 132, rep, 128)
+    with pytest.raises(ValueError, match="d_head.*item A"):
+        sa.check_kernel_operands(q[..., :32], K[..., :32], K[..., :32])
     with pytest.raises(ValueError, match="bf16"):
         sa.check_kernel_operands(q, K.float(), K)
     idx = torch.zeros((1, 2, 8), dtype=torch.int32)
     out = sa.fier_attend_selected(q, K, K, idx, torch.tensor([64], dtype=torch.int32))
     assert tuple(out.shape) == (1, 2, rep, 128)
+
+
+@pytest.mark.parametrize("d_head,rep", [(64, 1), (64, 2), (64, 16), (128, 12), (128, 16)])
+@pytest.mark.parametrize("rows", [8, 32, 144])
+def test_plans_fit_new_shapes(d_head, rep, rows):
+    """K1/K3's and K2/K4/K8's plans at the d_heads and reps this slice
+    instantiates: each CTA's shared memory (the instantiation's static part,
+    ``smem_static``, plus the plan's dynamic part) fits sm_90's 232,448
+    bytes; the serving instantiation's static count stays 43,008; K2's step
+    follows d_head (2048/d_head lane groups x 4 slots, halved above rep 8,
+    where two lane groups share a slot's rows) while its ring stays 96 KiB;
+    and the split still covers every slot once."""
+    assert fr.smem_static(128, 1) == fr.smem_static(128, 8) == 43008
+    assert fr.smem_static(d_head, rep) > fr.smem_static(d_head, 1) or d_head == 64
+    for S, bs in ((8192, None), (8192, 32), (65536, None)):
+        plan = fr.retrieval_plan(S, rows, 132, bs, d_head=d_head, rep=rep)
+        assert plan.smem_keys and fr.smem_static(d_head, rep) + plan.smem_bytes <= fr.SMEM_LIMIT
+    assert sa.step(d_head, rep) == 4 * (2048 // d_head) // (2 if rep > 8 else 1)
+    assert sa.step(64, 1) == 2 * sa.step(128, 1) == 128
+    for budget in (512, 1000, 1024, 8192):
+        plan = sa.attend_plan(budget, rows, 132, rep, d_head)
+        recv = plan.cluster * rep * (d_head + 2) * 4
+        assert plan.smem_bytes == sa.RING_BYTES + recv + 4 * plan.chunk <= sa.SMEM_LIMIT
+        covered = np.concatenate([np.arange(a, b) for a, b in plan.ranges(budget)])
+        np.testing.assert_array_equal(covered, np.arange(budget))
+    with pytest.raises(ValueError, match="item A"):
+        fr.check_kernel_shape(112, 1)
+    with pytest.raises(ValueError, match="item A"):
+        fr.check_kernel_shape(128, 17)

@@ -71,8 +71,9 @@ SOURCE_STAMPS = {
          "      q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);\n    __syncthreads();\n"
          "    if (tid == 0 && u == (int)blockIdx.x) stamp(1);\n"),
         ("      cur = nxt;\n", "      if (tid == 0 && c == c0) stamp(2);\n      cur = nxt;\n"),
-        ("    }\n  }\n}\n\n}  // namespace",
-         "    }\n  }\n  __syncthreads();\n  if (tid == 0) stamp(15);\n}\n\n}  // namespace"),
+        ("    }\n  }\n}\n\ntemplate <int kD, int kMaxRep>",
+         "    }\n  }\n  __syncthreads();\n  if (tid == 0) stamp(15);\n}\n\n"
+         "template <int kD, int kMaxRep>"),
     ],
     "fier_score.cu@baseline": [
         ("  const int S8 = S >> 3;\n", "  const int S8 = S >> 3;\n  if (tid == 0) stamp(0);\n"),
@@ -103,7 +104,7 @@ SOURCE_STAMPS = {
 }
 # per kernel source: CTAs per SM that can be resident, at `smem` dynamic bytes
 OCCUPANCY = {
-    "fier_score.cu": ("fier_score_kernel<1>", "threads_for<1>()"),
+    "fier_score.cu": ("fier_score_kernel<1, 128, 8>", "threads_for<1>()"),
     "fier_score.cu@baseline": ("fier_score_kernel<1>", "kThreads"),
     "fier_topk.cu": ("topk_threshold_kernel<true>", "kThreads"),
     "fier_topk.cu@baseline": ("topk_threshold_kernel", "kThreads"),
