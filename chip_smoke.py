@@ -58,11 +58,13 @@ result line):
    (no multiple of the plan's 64-slot step) and at budget 8192 (a CTA finds
    its rows in two chunks): K2 within 1e-4·max|out| of its plain version,
    two K2 launches on the same inputs equal bit for bit, K4 = K2 and K8 =
-   K2 bit for bit, each timed.  Then K1–K8 at the kernel shapes of the
-   transformer-family configs (``FAMILY_SHAPES``: granite-moe's Hkv 8 x rep
-   2 and minicpm's 36 x 1 at d_head 64, starcoder2's 2 x 12 and
-   qwen3-moe's 4 x 16 at 128), with the gates and timings of the main
-   path's shape.
+   K2 bit for bit, each timed (d_head 112 at rep 1 too, budgets 1000 and
+   8192).  Then K1–K8 at the kernel shapes of the family configs
+   (``FAMILY_SHAPES``: granite-moe's Hkv 8 x rep 2 and minicpm's 36 x 1 at
+   d_head 64, starcoder2's 2 x 12 and qwen3-moe's 4 x 16 at 128, zamba2's
+   32 x 1 at 112, whisper's 12 x 1 at 64 with S 4096), with the gates and
+   timings of the main path's shape, and K1/K3/K6 at d_head 112 with rep 4
+   (``D112_GQA_SHAPE``; K2/K4/K8 take rep 1 only there).
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
@@ -168,11 +170,30 @@ result line):
    per step).  Reported, not gated: unprofiled decode ms/step (median of 8),
    TTFT, device-busy ms and launches per step under the profiler, peak
    memory above what was allocated before the model.
-10. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+10. The ssm, hybrid and encdec families at full width and depth
+   (``ssm_hybrid_encdec_path``), random weights from a seeded
+   ``torch.Generator``, ``Engine.build``'s default policy, 4 slots, token
+   arrays padded to the capacity, each model freed before the next:
+   mamba2-370m (48 layers, capacity 8192, prompts 8100/6000/3000/1500):
+   the first decode step within ``SSM_STEP_REL_TOL``·max|logit| of a
+   prefill of each prompt extended by the decoded token (the recurrent step
+   against the chunked scan), a planted fault (each row decoding from the
+   next row's state) above it, and no FIER kernel in ``generate``;
+   zamba2-7b (81 layers, one shared attention block at 13 points, d_head
+   112, the same prompts) and whisper-small (12+12 layers, capacity 4096,
+   ``max_positions=4096``, seeded frames [4, 1500, 768] through ``extras``,
+   prompts 4000/3000/2000/1000): the first decode step with the kernels vs
+   their plain versions within ``PHASE10_LOGIT_REL_TOL`` and two planted
+   faults above it (``family_first_step``), K1 = K2 = 13 (zamba2) or 10
+   (whisper) × decode steps in ``generate`` of 16 greedy tokens and no other
+   FIER kernel; zamba2's prefill logits identical to the reference
+   pipeline's and a two_pass engine's first step equal to one_pass bit for
+   bit.  Reported, not gated: as phase 9.
+11. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5; K6/K7: phase 6's
-   generate; K5/K8: phase 6's building blocks; phase 9's per config beside
-   them), the card line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+   generate; K5/K8: phase 6's building blocks; phases 9 and 10's per config
+   beside them), the card line, and as the last line ``{"ok": true,
+   "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -348,7 +369,9 @@ def make_inputs(torch, B, Hkv, rep, D, S, seed):
     q = torch.from_numpy(rng.standard_normal((B, Hkv, rep, D)).astype(np.float32))
     K, V, q = (t.to(DEVICE, torch.bfloat16) for t in (K, V, q))
     qk = quantize(K, GROUP)
-    lengths = torch.tensor([S, 5003, 2100, 700][:B], dtype=torch.int32, device=DEVICE)
+    # the main path's lengths 8192/5003/2100/700, scaled to a shorter S
+    lens = [S] + [n * S // CAPACITY for n in (5003, 2100, 700)]
+    lengths = torch.tensor(lens[:B], dtype=torch.int32, device=DEVICE)
     return q, K, V, qk, lengths
 
 
@@ -821,6 +844,76 @@ def check_paged_kernels(torch, timer, shapes):
     return finish_rows(rows)
 
 
+def check_scoring_gqa(torch, timer, shape):
+    """K1, K3 and K6 at a GQA rep of a d_head where K2 takes rep 1 only
+    (``D112_GQA_SHAPE``): K1 against its plain version (index sets equal up
+    to near-τ swaps within ε), K3 bitwise K1 on a permuted pool with a
+    null-block hole, K6 within ε of its plain version; each timed in turns
+    with its plain version and, for K1/K3, ``torch.topk`` of the masked
+    scores.  Returns {kernel name: row}."""
+    from repro_torch.kernels import fier_score as fs
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels.check import selection_agrees
+
+    B, Hkv, rep, D, S, reduce = shape
+    q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=rep + 30)
+    pools, table, _, _, sqk = paged_inputs(torch, q, None, None, qk, lengths, BLOCK_SIZE,
+                                           spare=64, seed=rep)
+    del K, V
+    sel = dict(group=GROUP, group_reduce=reduce, sink=SINK, recent=RECENT)
+    args = (q, qk.codes, qk.scale, qk.zero, lengths, BUDGET)
+    pargs = (q, pools["codes"], pools["scale"], pools["zero"], lengths, BUDGET)
+    idx_k, tau_k, m_k = fr.fier_retrieve(*args, **sel)
+    idx_p, tau_p, m_p = fr.fier_retrieve_plain(*args, **sel)
+    idx3, tau3, m3 = fr.fier_retrieve(*pargs, **sel, block_table=table)
+    idx1, tau1, m1 = fr.fier_retrieve(q, sqk.codes, sqk.scale, sqk.zero, lengths, BUDGET, **sel)
+    s_k = fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+    s_p = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+    torch.cuda.synchronize()
+    eps = score_eps(q, qk)
+    kv = fr.masked_kv(s_p, lengths, SINK, RECENT, reduce).reshape(B * Hkv, S)
+    ok, ndiff = selection_agrees(
+        idx_k.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1), tau_k.reshape(-1),
+        tau_p.reshape(-1), m_k.reshape(-1), m_p.reshape(-1), kv, eps,
+    )
+    tau_err = float(torch.where(tau_k == tau_p, torch.zeros_like(tau_k),
+                                (tau_k - tau_p).abs()).max())
+    if not ok:
+        raise AssertionError(f"K1 disagrees with its plain version at {shape}: {ndiff} indices")
+    if not (torch.equal(idx3, idx1) and torch.equal(tau3, tau1) and torch.equal(m3, m1)):
+        raise AssertionError(f"K3 differs from K1 on the gathered slab at {shape}")
+    s_err = float((s_k - s_p).abs().max())
+    if not (s_err <= eps and torch.isfinite(s_k).all()):
+        raise AssertionError(f"K6 disagrees with its plain version at {shape}: "
+                             f"{s_err:.3g} > {eps:.3g}")
+    log(f"  K1/K3/K6 {shape}: K1 vs plain {ndiff} near-tau swaps (eps {eps:.3g}), tau err "
+        f"{tau_err:.3g}; K3 bitwise K1 on the gathered slab; K6 max |Δscore| {s_err:.3g}")
+    t1 = in_turns(timer, lambda: fr.fier_retrieve_plain(*args, **sel),
+                  lambda: fr.fier_retrieve(*args, **sel),
+                  lambda: torch.topk(kv, BUDGET, dim=-1))
+    t3 = in_turns(timer, lambda: fr.fier_retrieve_paged_plain(
+                      q, pools["codes"], pools["scale"], pools["zero"], table, lengths, BUDGET,
+                      **sel),
+                  lambda: fr.fier_retrieve(*pargs, **sel, block_table=table),
+                  lambda: torch.topk(kv, BUDGET, dim=-1))
+    t6 = in_turns(timer, lambda: fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP),
+                  lambda: fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=GROUP), None)
+    sh = (B, Hkv, rep, D, S)
+    rows = {
+        "fier_retrieve": [dict(shape=sh, ms=t1["kernel"], plain_ms=t1["plain"],
+                               library_ms=t1["library"], max_abs_err=tau_err,
+                               **retrieval_work(q, lengths, S, BUDGET))],
+        "fier_retrieve_paged": [dict(shape=sh, ms=t3["kernel"], plain_ms=t3["plain"],
+                                     library_ms=t3["library"], max_abs_err=tau_err,
+                                     **retrieval_work(q, lengths, S, BUDGET, table))],
+        "fier_score": [dict(shape=sh, ms=t6["kernel"], plain_ms=t6["plain"], library_ms=None,
+                            max_abs_err=s_err, **score_work(q, qk.codes, qk.scale, qk.zero, s_k))],
+    }
+    del q, qk, pools, table, sqk, s_k, s_p, kv
+    torch.cuda.empty_cache()
+    return {k: v[0] for k, v in finish_rows(rows).items()}
+
+
 def byte_diff(torch, a, b) -> int:
     """Bytes in which two tensors of one shape and dtype differ."""
     as_bytes = lambda t: t.contiguous().view(torch.uint8)
@@ -1038,18 +1131,26 @@ ATTEND_VARIANTS = (
     ("d64_rep8", (SLOTS, 2, 8, 64), BUDGET),
     ("d64_rep12", (SLOTS, 2, 12, 64), 512),
     ("d64_rep16", (SLOTS, 4, 16, 64), CAPACITY),
+    ("d112_rep1", (SLOTS, 32, 1, 112), 1000),
+    ("d112_rep1_budget_8192", (SLOTS, 32, 1, 112), CAPACITY),
 )
 
-# The kernel shapes of the transformer-family configs that phase 9 serves
-# (S 8192, g 32, budget 1024, lengths 8192/5003/2100/700): (B, Hkv, rep, D,
-# S, group reduction) -> config.  Phase 2 holds K1-K8 to their plain versions
-# at each, as at the main path's.
+# The kernel shapes of the configs that phases 9 and 10 serve (g 32, budget
+# 1024, lengths S/5003/2100/700 scaled to S): (B, Hkv, rep, D, S, group
+# reduction) -> config.  Phase 2 holds K1-K8 to their plain versions at each,
+# as at the main path's.  zamba2-7b's shared attention block is the d_head
+# 112 shape; whisper-small's decoder self-attention runs at capacity 4096.
 FAMILY_SHAPES = {
     "granite-moe-1b-a400m": (SLOTS, 8, 2, 64, CAPACITY, "max"),
     "minicpm-2b": (SLOTS, 36, 1, 64, CAPACITY, "max"),
     "starcoder2-3b": (SLOTS, 2, 12, 128, CAPACITY, "max"),
     "qwen3-moe-235b-a22b": (SLOTS, 4, 16, 128, CAPACITY, "max"),
+    "zamba2-7b": (SLOTS, 32, 1, 112, CAPACITY, "max"),
+    "whisper-small": (SLOTS, 12, 1, 64, 4096, "max"),
 }
+# K1/K3/K6 take any rep up to 16 at every d_head: one GQA rep at d_head 112
+# (K2/K4/K8 take rep 1 only there), with the group sum
+D112_GQA_SHAPE = (SLOTS, 8, 4, 112, CAPACITY, "sum")
 
 
 def attend_inputs(torch, B, Hkv, rep, D, S, budget, seed):
@@ -2870,14 +2971,15 @@ TIMED_STEPS = 8
 FAMILY_LOGIT_REL_TOL = 0.017
 
 
-def family_first_step(torch, eng, params, tok0, cache, vocab):
+def family_first_step(torch, eng, params, tok0, cache, vocab, tol=FAMILY_LOGIT_REL_TOL):
     """The first decode step with the kernels and with their plain versions
     (``checked_kernels``: every layer's K1/K2 inputs also go through the
     kernel and are compared there), each from a copy of ``cache``, and with
     two planted faults (K2 fed idx+1; K1's selection of the first FIER layer
     handed to the next kv head, an error that runs through every later
     layer as the kernels' rounding does).  The kernel step's logits must
-    lie within FAMILY_LOGIT_REL_TOL·max|logit| of the plain step's, and
+    lie within ``tol``·max|logit| of the plain step's (phase 9's
+    FAMILY_LOGIT_REL_TOL unless given), and
     each fault's must not.  In a moe model a router's top-k is
     discontinuous: a last-bit difference upstream can swap a near-tied
     expert and move the logits by far more than the kernels' error.  So
@@ -2933,7 +3035,6 @@ def family_first_step(torch, eng, params, tok0, cache, vocab):
     lg1_plain = step(*checked_kernels(torch, errs, keep_plain=True), record=plain_routes)
     lg1 = step(record=kernel_routes)
     s1 = float(lg1_plain.abs().max())
-    tol = FAMILY_LOGIT_REL_TOL
     gap = unpinned = float((lg1 - lg1_plain).abs().max())
     swaps = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
                 for a, b in zip(plain_routes, kernel_routes))
@@ -3163,6 +3264,203 @@ def families_path(torch):
     return runs
 
 
+# ------------------------------------------------------------ phase 10
+
+# The ssm, hybrid and encdec configs at full width and depth: (config,
+# slots, capacity, prompt lengths, greedy tokens).  Token arrays are padded
+# to the capacity (a multiple of the SSM chunk, so the chunked scan runs
+# whole chunks; ``lengths`` mask the rest); the longest prompt leaves room
+# for the generated, timed and profiled steps.  whisper-small serves at
+# capacity 4096 with a 4096-row position table (max_positions).
+SSM_PROMPTS = (8100, 6000, 3000, 1500)
+WHISPER_CAPACITY = 4096
+PHASE10_RUNS = (
+    ("mamba2-370m", SLOTS, CAPACITY, SSM_PROMPTS, 16),
+    ("zamba2-7b", SLOTS, CAPACITY, SSM_PROMPTS, 16),
+    ("whisper-small", SLOTS, WHISPER_CAPACITY, (4000, 3000, 2000, 1000), 16),
+)
+# mamba2-370m: the recurrent step's first logits vs a prefill (the chunked
+# scan) of each prompt extended by the decoded token, as a fraction of
+# max|logit|.  The two differ by design: prefill's conv runs in bf16 and
+# keeps its silu output in f32, decode's conv runs in f32 and rounds it to
+# bf16, in the reference as in the port (tests/test_torch_ssm_hybrid_encdec.py
+# holds both under this gate at reduced width).  Set between the card's
+# sound reading at 48 layers, 0.0259, and the planted fault's (each row
+# decoding from the next row's state), 0.9931 (PERF.md §6, phase 10).
+SSM_STEP_REL_TOL = 0.05
+# The first decode step with the kernels vs their plain versions, set as
+# phases 3 and 9 set theirs, between the largest sound reading and the
+# smallest planted fault's (PERF.md §6, phase 10): zamba2-7b (13 FIER
+# application points) reads 0.01448 sound, faults 0.04785 and 0.06808, so
+# phase 9's 0.017 holds; whisper-small (10 FIER layers) reads 0 sound (the
+# kernels' f32 differences vanish in the bf16 rounding of every layer's
+# attention output) and its faults only 0.007103 and 0.00819 (the
+# cross-attention carries the decoder), so its gate is 0.004.
+PHASE10_LOGIT_REL_TOL = {"zamba2-7b": FAMILY_LOGIT_REL_TOL, "whisper-small": 0.004}
+
+
+def ssm_step_check(torch, eng, params, batch, tok0, cache, vocab):
+    """The first decode step of an attention-free model against a prefill of
+    each prompt extended by the token decoded (the recurrent step against
+    the chunked scan, both on the card), within SSM_STEP_REL_TOL·max|logit|;
+    a planted fault (each row decoding from the next row's SSM state) must
+    read above the gate.  Returns (gap, max|logit|, fault gap)."""
+    _, lg1, _ = eng.decode(params, tok0, clone_cache(torch, cache))
+    lengths = batch["lengths"]
+    ext = batch["tokens"].clone()
+    rows = torch.arange(ext.shape[0], device=ext.device)
+    ext[rows, lengths.long()] = tok0.to(ext.dtype)
+    lg_ext, c_ext = eng.prefill_batch(params, dict(batch, tokens=ext, lengths=lengths + 1))
+    del c_ext
+    bad = clone_cache(torch, cache)
+    bad["layers"]["ssm"] = bad["layers"]["ssm"].roll(1, dims=1)
+    _, lg_f, _ = eng.decode(params, tok0, bad)
+    sync(torch)
+    lg1, lg_ext, lg_f = (x[:, :vocab] for x in (lg1, lg_ext, lg_f))
+    s1 = float(lg_ext.abs().max())
+    gap = float((lg1 - lg_ext).abs().max())
+    fault = float((lg_f - lg_ext).abs().max())
+    top1 = int((lg1.argmax(-1) == lg_ext.argmax(-1)).sum())
+    log(f"  first decode step vs a prefill of the prompts extended by its token (max |logit| "
+        f"{s1:.4g}): max |Δlogit| {gap:.4g} = {gap / s1:.4g} of max|logit| (top-1 "
+        f"{top1}/{lg1.shape[0]}; gate {SSM_STEP_REL_TOL}); planted fault, each row from the "
+        f"next row's state: {fault:.4g} = {fault / s1:.4g}")
+    if not fault > SSM_STEP_REL_TOL * s1:
+        raise AssertionError(f"the step gate does not see the planted fault: {fault:.4g} <= "
+                             f"{SSM_STEP_REL_TOL} · {s1:.4g}")
+    if not (torch.isfinite(lg1).all() and gap <= SSM_STEP_REL_TOL * s1):
+        raise AssertionError(f"decode step vs extended prefill: {gap:.4g} > "
+                             f"{SSM_STEP_REL_TOL} · {s1:.4g}")
+    return gap, s1, fault
+
+
+def phase10_drive(torch, arch, n_slots, capacity, prompts, max_new):
+    """One config at full width and depth through ``Engine.build``'s
+    default policy (fier / one_pass / slab / budget 1024 / skip 2), random
+    weights from a seeded ``torch.Generator``, token arrays padded to the
+    capacity (whisper's seeded frames through ``extras``).  mamba2: the step
+    gate of ``ssm_step_check``, then no FIER kernel in ``generate``.  zamba2
+    and whisper: the first decode step with the kernels vs their plain
+    versions and two planted faults (``family_first_step``), K1/K2
+    launched (FIER layers) × decode steps in ``generate`` and no other FIER
+    kernel; zamba2 also gives the reference pipeline's prefill logits and,
+    through a two_pass engine on the same cache, the one_pass first-step
+    logits bit for bit.  Then timed and profiled decode steps.  Returns a
+    dict of what it measured."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, serving_policy
+
+    cfg = get_config(arch)
+    base = peak_base(torch)
+    kw = {"max_positions": capacity} if cfg.family == "encdec" else {}
+    eng = Engine.build(cfg, n_slots=n_slots, capacity=capacity, device=DEVICE, **kw)
+    pol = eng.bundle.policy
+    if cfg.family != "ssm" and (pol.kind, pol.pipeline, pol.layout, pol.budget,
+                                pol.skip_layers) != ("fier", "one_pass", "slab", BUDGET, SKIP):
+        raise AssertionError(f"Engine.build's default policy is {pol}")
+    n_fier = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+              "encdec": cfg.n_layers - SKIP}[cfg.family]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = eng.compute_params(eng.bundle.init(gen))
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n_slots, capacity))).to(DEVICE)
+    lengths = torch.tensor(prompts, dtype=torch.int32, device=DEVICE)
+    extras = None
+    if cfg.family == "encdec":
+        extras = {"frames": torch.randn((n_slots, cfg.enc_ctx, cfg.d_model), generator=gen,
+                                        device=DEVICE)}
+    batch = {"tokens": toks, "lengths": lengths, **(extras or {})}
+    out = dict(arch=arch, family=cfg.family, layers=cfg.n_layers, fier_layers=n_fier,
+               d_head=cfg.d_head, kv_heads=cfg.n_kv_heads,
+               rep=cfg.n_heads // cfg.n_kv_heads if cfg.n_kv_heads else 0)
+
+    sync(torch)
+    t0 = time.perf_counter()
+    lg0, cache = eng.prefill_batch(params, batch)
+    tok0 = torch.argmax(lg0, -1).to(torch.int32)
+    sync(torch)
+    out["ttft_ms"] = 1e3 * (time.perf_counter() - t0)
+    if cache["length"].tolist() != list(prompts) or not torch.isfinite(lg0).all():
+        raise AssertionError(f"{arch}: prefill lengths {cache['length'].tolist()} or logits wrong")
+    if cfg.family == "ssm":
+        out["step_gap"], out["max_logit"], out["fault_gap"] = ssm_step_check(
+            torch, eng, params, batch, tok0, cache, cfg.vocab)
+    else:
+        if cfg.family == "hybrid":
+            ref = Engine.build(cfg, n_slots=n_slots, capacity=capacity, device=DEVICE,
+                               policy=serving_policy(budget=BUDGET, pipeline="reference"))
+            lg_ref, cache_ref = ref.prefill_batch(params, batch)
+            if not torch.equal(lg_ref, lg0):
+                raise AssertionError(f"{arch}: prefill logits differ between one_pass and "
+                                     f"reference")
+            del ref, cache_ref, lg_ref
+            log("  prefill logits identical to the reference pipeline")
+        errs, gap, s1, _, _ = family_first_step(torch, eng, params, tok0, cache, cfg.vocab,
+                                                tol=PHASE10_LOGIT_REL_TOL[arch])
+        out.update(first_step_gap=gap, max_logit=s1, k1_tau_err=errs["k1_tau"],
+                   k1_swaps=errs["k1_swaps"], k2_err=errs["k2"])
+        if cfg.family == "hybrid":
+            two = Engine.build(cfg, n_slots=n_slots, capacity=capacity, device=DEVICE,
+                               policy=serving_policy(budget=BUDGET, pipeline="two_pass"))
+            _, lg1, _ = eng.decode(params, tok0, clone_cache(torch, cache))
+            _, lg2, _ = two.decode(params, tok0, clone_cache(torch, cache))
+            sync(torch)
+            if not torch.equal(lg1, lg2):
+                raise AssertionError(f"{arch}: two_pass first-step logits differ from one_pass "
+                                     f"(max {float((lg1 - lg2).abs().max()):.3g})")
+            del two, lg1, lg2
+            log("  two_pass first-step logits equal to one_pass bit for bit (group max)")
+    del cache
+
+    reset_launch_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    gen_toks, cache = eng.generate(params, toks, lengths, max_new, extras=extras,
+                                   return_cache=True)
+    sync(torch)
+    t_gen = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launches(counts, SLAB_KERNELS if n_fier else (), n_fier * (max_new - 1))
+    if not torch.equal(gen_toks[:, 0], tok0):
+        raise AssertionError(f"{arch}: generate's first token differs from prefill's argmax")
+    if not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()):
+        raise AssertionError(f"{arch}: generated tokens out of range")
+    out["launches"] = {k: counts[k] for k in SLAB_KERNELS}
+    out["ms_step"], tok, cache = timed_steps(torch, eng, params, gen_toks[:, -1].clone(), cache,
+                                             TIMED_STEPS)
+    lens = cache["length"].tolist()
+    want = [p + max_new - 1 + TIMED_STEPS for p in prompts]
+    if lens != want:
+        raise AssertionError(f"{arch}: cache lengths {lens}, expected {want}")
+    log(f"  launches {out['launches']}: {n_fier} x {max_new - 1} decode steps; generate "
+        f"{max_new} tokens {t_gen:.3f} s; TTFT (prefill + sample) {out['ttft_ms']:.1f} ms; "
+        f"decode median {out['ms_step']:.2f} ms/step (unprofiled, {TIMED_STEPS} steps)")
+    if DEVICE == "cuda":
+        profile_decode(torch, eng, params, tok, cache, None)
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  peak memory {out['peak_gib']:.2f} GiB")
+    del eng, params, cache
+    return out
+
+
+def ssm_hybrid_encdec_path(torch):
+    """Phase 10: mamba2-370m, zamba2-7b and whisper-small at full width and
+    depth, each freed before the next."""
+    import gc
+
+    runs = {}
+    for arch, n_slots, capacity, prompts, max_new in PHASE10_RUNS:
+        log(f"  [{arch}] {n_slots} slots x {capacity}, prompts {prompts}, {max_new} tokens")
+        runs[arch] = phase10_drive(torch, arch, n_slots, capacity, prompts, max_new)
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return runs
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3225,11 +3523,13 @@ def main() -> int:
     if "--baseline-attend" in sys.argv:
         baseline = baseline_attend(torch, sys.argv[sys.argv.index("--baseline-attend") + 1])
     attend_variants = check_attend_variants(torch, timer, baseline)
-    log("[kernels] K1-K8 at the transformer-family shapes (d_head 64, rep 12 and 16)")
+    log("[kernels] K1-K8 at the family shapes (d_head 64 and 112, rep 12 and 16, S 4096)")
     family = list(FAMILY_SHAPES.values())
     family_rows = check_kernels(torch, timer, family)
     family_rows.update(check_paged_kernels(torch, timer, family))
     family_rows.update(check_unfused_kernels(torch, timer, family))
+    log("[kernels] K1/K3/K6 at a GQA rep at d_head 112")
+    gqa_112 = check_scoring_gqa(torch, timer, D112_GQA_SHAPE)
     del timer
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv:  # a quick build-and-check call; no result line
@@ -3267,6 +3567,9 @@ def main() -> int:
     log("[families] granite-moe-1b-a400m, minicpm-2b, starcoder2-3b and "
         "llava-next-mistral-7b at full width")
     fam = families_path(torch)
+
+    log("[ssm / hybrid / encdec] mamba2-370m, zamba2-7b and whisper-small at full width")
+    fam.update(ssm_hybrid_encdec_path(torch))
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
@@ -3320,12 +3623,17 @@ def main() -> int:
                                        "bound_by", "max_abs_err")}
             for arch, fr_ in zip(FAMILY_SHAPES, family_rows[name])
         }
+        if name in gqa_112:
+            g = gqa_112[name]
+            row["families"]["d112_gqa"] = {k: g[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
         row["max_abs_err"] = max([row["max_abs_err"]]
-                                 + [x["max_abs_err"] for x in family_rows[name]])
+                                 + [x["max_abs_err"] for x in family_rows[name]]
+                                 + [g["max_abs_err"] for g in [gqa_112.get(name)] if g])
         if name in PAGED_KERNELS:
             # launches above: the serving run (phase 5); the paged-vs-slab run too
             row["launches_paged_vs_slab"] = counts_p4[name]
-        # phase 9's drives, each counted from 0 (paged: granite-moe's paged engine)
+        # phases 9 and 10's drives, each counted from 0 (paged: granite-moe's paged engine)
         fam_key = "launches_paged" if name in PAGED_KERNELS else "launches"
         row["launches_families"] = {a: r[fam_key][name] for a, r in fam.items()
                                     if name in r.get(fam_key, {})}

@@ -61,10 +61,19 @@
 // softmax, p . v, three barriers) measured 2 us per 32 KiB at rep 1 and
 // 5 us at rep 4, slower than the memory delivers them (PERF.md).
 //
-// d_head and rep.  d_head (64 or 128) is a template parameter: a row takes
-// kLPR = D/8 lanes of 8 channels each, so at 64 a CTA has 32 lane groups of
-// 8 lanes and takes 128 slots a step; the ring keeps 96 KiB of K/V rows in
-// flight at either.  rep is a template parameter up to 8 as above.  At rep
+// d_head and rep.  d_head (64, 112 or 128) is a template parameter: a row
+// takes kLPR lanes of 8 channels (16 bytes) each, D/8 rounded up to a power
+// of two, so at 64 a CTA has 32 lane groups of 8 lanes and takes 128 slots a
+// step; the ring keeps 96 KiB of K/V rows in flight at each.  At 112
+// (zamba2-7b's shared attention block) a row is 14 such chunks (224 bytes,
+// so the 16-byte cp.async stays aligned) and takes a 16-lane group as at
+// 128, with lanes 14 and 15 idle: they copy nothing (source size 0
+// zero-fills their ring chunks) and hold q = 0, so they add exact zeros to
+// the butterfly and keep zero accumulators.  A 14-lane group would not
+// divide a warp: the xor butterfly, the ring's layout and the merge are built
+// for power-of-two groups, and 16 keeps them as they are at 128 (the ring
+// carries 1/8 padding there).  Only rep 1 is instantiated at 112 (zamba2-7b
+// has 32 kv heads of 32 query heads).  rep is a template parameter up to 8 as above.  At rep
 // 12 and 16 (starcoder2-3b, qwen3-moe) a lane holding every query head would
 // keep 16 x 8 q values and as many accumulators, with the running maxima,
 // denominators and a step's scores: over 255 registers, so it would spill.
@@ -108,7 +117,8 @@ constexpr int kRingBytes = 98304;    // sparse_attention.RING_BYTES, at every (D
 // How an instantiation (d_head kD, rep kRep) lays a CTA out.
 template <int kD, int kRep>
 struct Layout {
-  static constexpr int kLPR = kD / 8;                // lanes per row (8 channels = 16 bytes each)
+  static constexpr int kLanesUsed = kD / 8;          // lanes that own 8 channels (16 bytes) of a row
+  static constexpr int kLPR = kLanesUsed <= 8 ? 8 : 16;  // lanes per row, a power of two
   static constexpr int kGroups = kThreads / kLPR;    // lane groups of kLPR lanes
   static constexpr int kSplit = kRep > 8 ? 2 : 1;    // lane groups sharing a slot's rows
   static constexpr int kRepL = kRep / kSplit;        // query heads per lane group
@@ -121,6 +131,7 @@ struct Layout {
   static_assert(2 * kRingChunks * 16 == kRingBytes, "the ring is 96 KiB at every (D, rep)");
   static_assert(kSlotGroups * kRep * (kD + 2) * 4 <= kRingBytes, "the merge reuses the ring");
   static_assert(kSplit * kLPR <= 32, "a slot group's lane groups share one warp");
+  static_assert(kD % 8 == 0 && kLanesUsed <= kLPR, "a row fits its lane group");
 };
 
 // dynamic shared memory: the ring, rank 0's receive slots, the chunk's rows
@@ -207,6 +218,8 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
   const int tid = threadIdx.x;
   const int gid = tid / kLPR;       // lane group
   const int sl = tid % kLPR;        // lane within the row: channels 8*sl .. 8*sl+7
+  // whether the lane owns channels (a constant true unless d_head pads the group)
+  const bool lane_on = L::kLanesUsed == kLPR || sl < L::kLanesUsed;
   const int sg = gid / kSplit;      // slot group
   const int h0 = gid % kSplit * kRepL;  // this lane group's first query head
   const int s0 = (int)((long long)rank * budget / C);  // this CTA's slots [s0, s1)
@@ -219,7 +232,10 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
 #pragma unroll
   for (int r = 0; r < kRepL; ++r) {
     const size_t e = ((size_t)bh * kRep + h0 + r) * D + sl * 8;
-    if (q_bf16) {
+    if (!lane_on) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) qr[r][k] = 0.0f;
+    } else if (q_bf16) {
       bf16x8_to_float(*reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(q) + e),
                       qr[r]);
     } else {
@@ -299,8 +315,8 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int i = slot(step, u);
-        const int row = i < m ? rows_s[i] : -1;
-        const size_t e = head_off + (size_t)max(row, 0) * row_elems + sl * 8;
+        const int row = i < m && lane_on ? rows_s[i] : -1;
+        const size_t e = head_off + (size_t)max(row, 0) * row_elems + (lane_on ? sl * 8 : 0);
         const int nb = row >= 0 ? 16 : 0;
         if (kSplit == 1 || h0 == 0) cp_async16(kring + ring_at(step, u), K + e, nb);
         if (kSplit == 1 || h0 != 0) cp_async16(vring + ring_at(step, u), V + e, nb);
@@ -387,13 +403,16 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
   float* red_m = red + kSlotGroups * kRep * D;   // [kSlotGroups][kRep] maxima
   float* red_den = red_m + kSlotGroups * kRep;   // [kSlotGroups][kRep] denominators
   // the merge over slot groups unrolled whole up to 16 of them; 8 at a time
-  // for d_head 64's 32 (whole, ptxas spilled at rep 1)
-  constexpr int kMergeUnroll = kSlotGroups > 16 ? 8 : kSlotGroups;
+  // for d_head 64's 32 and for d_head 112's padded groups (whole, ptxas
+  // spilled 16 bytes at rep 1 in K4 at both)
+  constexpr int kMergeUnroll = kSlotGroups > 16 || L::kLanesUsed != kLPR ? 8 : kSlotGroups;
 #pragma unroll
   for (int r = 0; r < kRepL; ++r) {
     const int hr = sg * kRep + h0 + r;
+    if (lane_on) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) red[hr * D + sl * 8 + k] = acc[r][k];
+      for (int k = 0; k < 8; ++k) red[hr * D + sl * 8 + k] = acc[r][k];
+    }
     if (sl == 0) {
       red_m[hr] = m_run[r];
       red_den[hr] = den_run[r];
@@ -490,14 +509,18 @@ decltype(&launch<kAddr, kD, 1>) pick_rep(int rep) {
   }
 }
 
-// The instantiation for d_head D (64 or 128; sparse_attention.KERNEL_HEAD_DIMS) and rep.
+// The instantiation for d_head D (64, 112 or 128; sparse_attention.KERNEL_HEAD_DIMS) and
+// rep (at 112 rep 1 only: sparse_attention.KERNEL_REPS_AT).
 template <int kAddr>
 cudaError_t launch_rep(const void* q, const void* K, const void* V, const void* table,
                        const void* idx, const void* lengths, const void* mask, void* out, int B,
                        int S, int Hkv, int rep, int D, int budget, float scale, int bs,
                        long long sb, long long st, long long sh, int C, int chunk, int q_bf16,
                        cudaStream_t stream) {
-  auto go = D == 128 ? pick_rep<kAddr, 128>(rep) : D == 64 ? pick_rep<kAddr, 64>(rep) : nullptr;
+  auto go = D == 128              ? pick_rep<kAddr, 128>(rep)
+            : D == 64              ? pick_rep<kAddr, 64>(rep)
+            : D == 112 && rep == 1 ? &launch<kAddr, 112, 1>
+                                   : nullptr;
   if (go == nullptr) return cudaErrorInvalidValue;
   return go(q, K, V, table, idx, lengths, mask, out, B, S, Hkv, budget, scale, bs, sb, st, sh,
             C, chunk, q_bf16, stream);

@@ -15,11 +15,19 @@
 // (a select-and-add per token and channel), so scores and selections are
 // the same bit for bit.
 //
-// d_head is a template parameter kD (64 or 128; fier::kHeadDims): lane l
-// owns kD/32 consecutive channels, so at 128 a byte-row's code bytes of a
-// lane are one uint32 and its scale/zero 4 bf16 (a uint2), at 64 a uint16
-// and 2 bf16 (a uint32); the table has 2^(kD/32) entries (16 or 4).  The
-// warp, the butterfly and the order of the sums are the same at both.
+// d_head is a template parameter kD (64, 112 or 128): lane l owns
+// lane_channels(kD) consecutive channels (4 at 128 and 112, 2 at 64), so at
+// 128 a byte-row's code bytes of a lane are one uint32 and its scale/zero 4
+// bf16 (a uint2), at 64 a uint16 and 2 bf16 (a uint32); the table has
+// 2^lane_channels entries (16 or 4).  112/32 is no integer, so d_head 112
+// (zamba2-7b's shared attention block) takes 128's lane layout on 28 lanes:
+// lanes 0-27 own 4 channels each, and lanes 28-31 load nothing and score
+// with q = 0 and zero codes, scales and zeros, so they add exact zeros to
+// the butterfly.  That keeps the warp, the table, the butterfly and every
+// load of 128 (a head's code bytes start at h*112, its scale/zero at h*224
+// bytes: the 4- and 8-byte lane loads stay aligned), where 32 lanes of 3.5
+// channels would need split loads and a third table size.  At 64 and 128
+// every lane is active and the code is what it was.
 
 #pragma once
 
@@ -32,8 +40,9 @@ constexpr int kRadix = 256;
 constexpr int kPasses = 4;       // radix-256 digits of a uint32 key
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// What a lane of the scoring warp loads per byte-row (Code: its kD/32 code
-// bytes) and per group (Pair: its kD/32 bf16 scale or zero values).
+// What a lane of the scoring warp loads per byte-row (Code: the code bytes of
+// its lane_channels(kD) channels) and per group (Pair: their bf16 scale or
+// zero values).
 template <int kD>
 struct LaneLoads;
 template <>
@@ -42,10 +51,27 @@ struct LaneLoads<128> {
   using Pair = uint2;
 };
 template <>
+struct LaneLoads<112> {  // 128's layout, on lanes 0-27
+  using Code = uint32_t;
+  using Pair = uint2;
+};
+template <>
 struct LaneLoads<64> {
   using Code = uint16_t;
   using Pair = uint32_t;
 };
+
+// Channels a lane of the scoring warp owns at d_head D, and the lanes that
+// own any (kD / lane_channels: 32, or 28 at d_head 112).
+__host__ __device__ constexpr int lane_channels(int D) { return D == 64 ? 2 : 4; }
+__host__ __device__ constexpr int active_lanes(int D) { return D / lane_channels(D); }
+
+// Whether this thread's lane owns channels: a constant true unless d_head
+// leaves lanes idle (112), so the other instantiations carry no test.
+template <int kD>
+__device__ __forceinline__ bool lane_active() {
+  return active_lanes(kD) == 32 || (int)(threadIdx.x & 31) < active_lanes(kD);
+}
 
 // The query heads per kv head (kMaxRep) of the K1/K6 instantiation that
 // takes d_head D and rep query heads: 8 at d_head 128 up to rep 8 (the
@@ -64,7 +90,7 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The kD/32 bf16 values of a lane's Pair, in channel order.
+// The lane_channels(kD) bf16 values of a lane's Pair, in channel order.
 __device__ __forceinline__ void unpack_bf16(const uint2& p, float (&v)[4]) {
   v[0] = bf16_bits_to_float(p.x & 0xFFFFu);
   v[1] = bf16_bits_to_float(p.x >> 16);
@@ -87,10 +113,10 @@ __device__ __forceinline__ float unsortable(uint32_t key) {
 }
 
 // One 32-token chunk (4 byte-rows) as lane l loaded it: the code bytes of
-// its kD/32 channels per byte-row (one word each) and the bf16 scale and
-// zero of the groups (kD/32 bf16 values per Pair).  kGroups = 1 when the
-// group spans the whole chunk (group % 32 == 0), else 4: one entry per
-// byte-row.
+// its lane_channels(kD) channels per byte-row (one word each) and the bf16
+// scale and zero of the groups (lane_channels(kD) bf16 values per Pair).
+// kGroups = 1 when the group spans the whole chunk (group % 32 == 0), else 4:
+// one entry per byte-row.
 template <int kGroups, int kD>
 struct Chunk {
   using Pair = typename LaneLoads<kD>::Pair;
@@ -101,8 +127,8 @@ struct Chunk {
 // Load chunk c.  codes_h/scale_h/zero_h point at this lane's channels of the
 // (batch, kv-head) row; code_row(i) / group_row(t) give the seq row (in
 // units of row_stride elements) of byte-row i and of the group holding token
-// t: the address policy (slab or paged) is the caller's.  Byte-rows past S8
-// load as zeros.
+// t: the address policy (slab or paged) is the caller's.  Byte-rows past S8,
+// and every byte-row of an idle lane, load as zeros.
 template <int kGroups, int kD, class CodeRow, class GroupRow>
 __device__ __forceinline__ void load_chunk(Chunk<kGroups, kD>& ch, int c, int S8,
                                            const uint8_t* codes_h,
@@ -111,10 +137,11 @@ __device__ __forceinline__ void load_chunk(Chunk<kGroups, kD>& ch, int c, int S8
                                            CodeRow code_row, GroupRow group_row) {
   using Code = typename LaneLoads<kD>::Code;
   using Pair = typename LaneLoads<kD>::Pair;
+  const bool on = lane_active<kD>();
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int i = c * 4 + j;  // byte-row: tokens 8i .. 8i+7
-    if (i < S8) {
+    if (on && i < S8) {
       ch.word[j] = *reinterpret_cast<const Code*>(codes_h + code_row(i) * row_stride);
       if (j < kGroups) {
         const size_t gr = group_row(i * 8) * row_stride;
@@ -148,22 +175,23 @@ __device__ __forceinline__ void reduce_step_swapped(float (&v)[32]) {
   for (int i = 0; i < O; ++i) v[i] = v[i] + __shfl_xor_sync(kFull, v[i + O], O);
 }
 
-// The kD/32 (channel) x 8 (token) code bits of one byte-row word -> the
-// channel index of token b: bit k of the result is bit b of byte k (bytes
-// past the lane's kD/32 are zero, so at kD = 64 the result is below 4).
+// The lane_channels(kD) (channel) x 8 (token) code bits of one byte-row word
+// -> the channel index of token b: bit k of the result is bit b of byte k (bytes
+// past the lane's lane_channels are zero, so at kD = 64 the result is below 4).
 __device__ __forceinline__ uint32_t token_nibble(uint32_t word, int b) {
   const uint32_t x = (word >> b) & 0x01010101u;  // bit b of each byte at 8k
   return (x * 0x10204080u) >> 28;                // bit 8k -> bit 28 + k, no carries
 }
 
-// Scratch a warp's score_chunk needs in shared memory: 2^(kD/32) sums per lane.
+// Scratch a warp's score_chunk needs in shared memory: 2^lane_channels sums per lane.
 template <int kD>
-__host__ __device__ constexpr int table_floats() { return (1 << (kD / 32)) * 32; }
+__host__ __device__ constexpr int table_floats() { return (1 << lane_channels(kD)) * 32; }
 
 // The f32 score q_r . a of token 32c + lane for one query head q_r [kD] (f32
 // holding bf16 values), a = bf16(+-s + z) as score_block forms it.  Lane l
-// owns channels kDPL l .. kDPL l + kDPL - 1 (kDPL = kD/32: 4 at 128, 2 at
-// 64) and, for each of the 32 tokens, sums their exact products (bf16 x
+// owns channels kDPL l .. kDPL l + kDPL - 1 (kDPL = lane_channels(kD): 4 at
+// 128 and 112, 2 at 64; an idle lane at 112 takes q = 0 and its zero loads,
+// so each of its sums is +0) and, for each of the 32 tokens, sums their exact products (bf16 x
 // bf16 in f32) in channel order starting from 0: (((0 + c0) + c1) + c2) + c3
 // at 128 with c_k = q_k * (bit ? hi_k : lo_k).  The sum depends on the token
 // only through its kDPL code bits, so the lane forms the 2^kDPL possible
@@ -176,11 +204,12 @@ __host__ __device__ constexpr int table_floats() { return (1 << (kD / 32)) * 32;
 template <int kGroups, int kD>
 __device__ __forceinline__ float score_chunk(const Chunk<kGroups, kD>& ch, const float* q_r,
                                              int lane, float* tab) {
-  constexpr int kDPL = kD / 32;  // channels per lane
+  constexpr int kDPL = lane_channels(kD);  // channels per lane
   constexpr int kEntries = 1 << kDPL;
+  const bool on = lane_active<kD>();
   float qv[kDPL];
 #pragma unroll
-  for (int k = 0; k < kDPL; ++k) qv[k] = q_r[lane * kDPL + k];
+  for (int k = 0; k < kDPL; ++k) qv[k] = on ? q_r[lane * kDPL + k] : 0.0f;
   float* tl = tab + lane;
   const int sw = (lane >> 3) & 3;  // entry block jj holds byte-row jj ^ sw
   float acc[32];

@@ -18,8 +18,10 @@
 // sums built once per group, 32 lookups and a 31-step reduce-scatter, ~10 us
 // of issue slots over the full rows.
 //
-// d_head and rep.  d_head is a template parameter (64 or 128: the scoring
-// warp's lane owns D/32 channels, fier_common.cuh), and so is the capacity
+// d_head and rep.  d_head is a template parameter (64, 112 or 128: the
+// scoring warp's lane owns lane_channels(D) channels, fier_common.cuh; at 112
+// lanes 0-27 own 4 each and lanes 28-31 add exact zeros, so zamba2-7b's
+// shared attention block runs 128's loads and sums), and so is the capacity
 // kMaxRep of the query heads staged in shared memory (rep_slots: 8 for
 // d_head 128 up to rep 8, 16 otherwise, so rep 12 and 16 run: starcoder2-3b,
 // qwen3-moe).  Scoring grows with rep (one score_chunk per query head and
@@ -118,6 +120,7 @@ constexpr int smem_static() {
           1023) / 1024 * 1024;
 }
 static_assert(smem_static<128, 8>() == 43008, "the serving instantiation's count moved");
+static_assert(smem_static<112, 16>() == 46080, "fused_retrieval.smem_static counts 46,080");
 
 // Block-table entries a range of T tokens (starting at a multiple of 32)
 // can touch: fused_retrieval.retrieval_plan counts the same.
@@ -151,7 +154,7 @@ fier_retrieve_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, 
                      int S, int Hkv, int rep, int group, int budget,
                      int reduce_sum, int sink, int recent, int bs, int T) {
   constexpr int D = kD;
-  constexpr int kDPL = kD / 32;  // channels per lane of the scoring warp
+  constexpr int kDPL = lane_channels(kD);  // channels per lane of the scoring warp
   constexpr int kThreads = threads_for<kGroups>();
   constexpr int kWarps = kThreads / 32;
   constexpr int kTile = kThreads * kPerThread;  // keys per compaction tile
@@ -418,6 +421,8 @@ cudaError_t launch_keys(const void* q, const void* codes, const void* scale, con
   decltype(&launch<kPaged, true, 1, 128, 8>) go;
   if (D == 64)
     go = pick<kPaged, 64, 16>(smem_keys, one);
+  else if (D == 112)
+    go = pick<kPaged, 112, 16>(smem_keys, one);
   else if (rep_slots(D, rep) == 8)
     go = pick<kPaged, 128, 8>(smem_keys, one);
   else
@@ -441,7 +446,8 @@ extern "C" int fier_retrieve_launch(const void* q, const void* codes, const void
                                     int reduce_sum, int sink, int recent, int cluster,
                                     int cta_tokens, void* keys, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 128) || group <= 0 || group % 8 || S % 8)
+  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 112 && D != 128) || group <= 0 ||
+      group % 8 || S % 8)
     return (int)cudaErrorInvalidValue;
   if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) || cta_tokens <= 0 ||
       cta_tokens % 32 || (long long)cluster * cta_tokens < S || budget <= 0 || budget > S)

@@ -32,7 +32,7 @@
 // used whole, so a CTA keeps to one kv head (q of one head staged, the rows
 // split evenly) rather than reading whole 2 KB byte-rows of all heads.
 //
-// d_head (64 or 128) and the query heads q_s holds (rep_slots: 8 at d_head
+// d_head (64, 112 or 128) and the query heads q_s holds (rep_slots: 8 at d_head
 // 128 up to rep 8, else 16) are template parameters, instantiated as K1's
 // are, so the scores stay K1's at every shape either takes.
 
@@ -62,7 +62,7 @@ fier_score_kernel(const __nv_bfloat16* __restrict__ q,      // [B, Hkv, rep, D]
                   float* __restrict__ out,                  // [B, Hkv, rep, S]
                   int rows, int S, int Hkv, int rep, int group, int parts, int part_chunks) {
   constexpr int D = kD;
-  constexpr int kDPL = kD / 32;  // channels per lane of the scoring warp
+  constexpr int kDPL = lane_channels(kD);  // channels per lane of the scoring warp
   constexpr int kThreads = threads_for<kGroups>();
   constexpr int kWarps = kThreads / 32;
   constexpr int kTableFloats = table_floats<kD>();
@@ -133,12 +133,15 @@ extern "C" int fier_score_launch(const void* q, const void* codes, const void* s
                                  const void* zero, void* out, int B, int S, int Hkv, int rep,
                                  int D, int group, int parts, int part_chunks, int grid,
                                  void* stream) {
-  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 128) || group <= 0 || group % 8 ||
-      S % group)
+  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 112 && D != 128) || group <= 0 ||
+      group % 8 || S % group)
     return (int)cudaErrorInvalidValue;
   if (parts < 1 || part_chunks < 1 || (long long)parts * part_chunks * 32 < S || grid < 1)
     return (int)cudaErrorInvalidValue;
-  auto go = D == 64 ? &launch<64, 16> : rep_slots(D, rep) == 8 ? &launch<128, 8> : &launch<128, 16>;
+  auto go = D == 64    ? &launch<64, 16>
+            : D == 112 ? &launch<112, 16>
+            : rep_slots(D, rep) == 8 ? &launch<128, 8>
+                                     : &launch<128, 16>;
   return (int)go(q, codes, scale, zero, out, B * Hkv, S, Hkv, rep, group, parts, part_chunks,
                  grid, static_cast<cudaStream_t>(stream));
 }

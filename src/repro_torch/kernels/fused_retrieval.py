@@ -56,11 +56,13 @@ def smem_static(d_head: int, rep: int) -> int:
     as ``smem_static`` in ``csrc/fier_retrieve.cu`` counts it: q in f32 for
     the query heads it stages (``rep_slots`` in ``csrc/fier_common.cuh``: 8
     at d_head 128 up to rep 8, the serving instantiation, else 16), each of
-    16 warps' 2^(d_head/32) × 32 scoring sums, one radix histogram per pass
-    and their sum, scan scratch, rounded up to a KiB (43,008 B at d_head
-    128, rep ≤ 8)."""
+    16 warps' 2^c × 32 scoring sums (c = ``lane_channels``, the channels a
+    lane owns: 2 at d_head 64, 4 at 112 and 128), one radix histogram per
+    pass and their sum, scan scratch, rounded up to a KiB (43,008 B at
+    d_head 128, rep ≤ 8; 46,080 at 112)."""
     rep_slots = 8 if d_head == 128 and rep <= 8 else 16
-    floats = rep_slots * d_head + 16 * 32 * 2 ** (d_head // 32) + 4 * 256 + 256 + 16 + 4
+    lane_channels = 2 if d_head == 64 else 4
+    floats = rep_slots * d_head + 16 * 32 * 2**lane_channels + 4 * 256 + 256 + 16 + 4
     return -(-4 * floats // 1024) * 1024
 
 

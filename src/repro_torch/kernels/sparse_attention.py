@@ -12,7 +12,7 @@ out / max(den, 1e-30) in f32.
 
 On a CUDA tensor ``fier_attend_selected`` launches ``csrc/fier_attend.cu``
 once: each (b, h) row's slots are split over a thread-block cluster as
-:func:`attend_plan` says; in every CTA, 2048/D lane groups (16 at D 128)
+:func:`attend_plan` says; in every CTA, 16 lane groups (32 at D 64)
 stream their slots' K and V rows into shared memory with ``cp.async`` (a
 ring of 96 KiB, masked slots never read), each keeping an online softmax
 (above rep 8 two lane groups share a slot's rows and keep half the query
@@ -56,10 +56,12 @@ launches_paged = 0  # K4 kernel launches since the last reset
 launches_gathered = 0  # K8 kernel launches since the last reset
 
 # the d_heads and the query heads per kv head the CUDA kernel is
-# instantiated for (one instantiation per pair), each checked on the card by
+# instantiated for (one instantiation per pair: KERNEL_REPS at each d_head,
+# KERNEL_REPS_AT where a d_head takes fewer), each checked on the card by
 # chip_smoke.py phase 2; anything else is ROADMAP Queue 2 item A
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 112, 128)
 KERNEL_REPS = (1, 2, 4, 8, 12, 16)
+KERNEL_REPS_AT = {112: (1,)}  # zamba2-7b's shared attention block: 32 kv heads, rep 1
 MAX_CLUSTER = 8  # CTAs per (b, h) row: the portable cluster size
 # the ring of K and V rows in shared memory: 96 KiB at every (d_head, rep)
 # (3 steps deep, 6 where the query heads are split; kRingBytes in the .cu)
@@ -68,12 +70,20 @@ MAX_CHUNK = 2048  # slots whose rows (4 bytes each) a CTA holds at once (kMaxChu
 SMEM_LIMIT = 232448  # shared memory a CTA may use on sm_90
 
 
+def lanes_per_row(d_head: int) -> int:
+    """Lanes of a row's lane group (kLPR in the .cu): d_head/8, each lane
+    copying 8 channels (16 bytes), rounded up to a power of two (at 112 a
+    row's 14 chunks take a 16-lane group, two lanes idle)."""
+    return 8 if d_head <= 64 else 16
+
+
 def step(d_head: int, rep: int) -> int:
-    """Slots a CTA takes per step (kStep in the .cu): a row takes d_head/8
-    lanes, so 256 threads hold 2048/d_head lane groups; above rep 8 two lane
-    groups share a slot's rows (each keeps half the query heads); 4 slots per
-    slot group and step.  64 at d_head 128 up to rep 8."""
-    return 4 * (2048 // d_head) // (2 if rep > 8 else 1)
+    """Slots a CTA takes per step (kStep in the .cu): a row takes
+    :func:`lanes_per_row` lanes, so 256 threads hold 2048/d_head lane groups
+    (16 at d_head 112, as at 128); above rep 8 two lane groups share a slot's
+    rows (each keeps half the query heads); 4 slots per slot group and step.
+    64 at d_head 128 up to rep 8."""
+    return 4 * (256 // lanes_per_row(d_head)) // (2 if rep > 8 else 1)
 
 
 class AttendPlan(NamedTuple):
@@ -196,9 +206,10 @@ def check_kernel_shape(d_head: int, rep: int) -> None:
     if d_head not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIMS}, got {d_head} "
                          f"(others: ROADMAP Queue 2 item A)")
-    if rep not in KERNEL_REPS:
-        raise ValueError(f"the CUDA kernel takes {KERNEL_REPS} query heads per kv "
-                         f"head, got {rep} (others: ROADMAP Queue 2 item A)")
+    reps = KERNEL_REPS_AT.get(d_head, KERNEL_REPS)
+    if rep not in reps:
+        raise ValueError(f"the CUDA kernel takes {reps} query heads per kv head at "
+                         f"d_head {d_head}, got {rep} (others: ROADMAP Queue 2 item A)")
 
 
 def check_kernel_operands(q, K, V) -> None:

@@ -1,7 +1,8 @@
-"""GQA attention block: projections and the decode step.
+"""GQA attention block: projections, full attention and the decode step.
 
-Port of ``repro.models.attention`` (``init_attention``, ``qkv_proj``, the
-single-device slab and paged branches of ``decode_self_attention``).  The
+Port of ``repro.models.attention`` (``init_attention``, ``qkv_proj``,
+``attention_train``'s forward, the single-device slab and paged branches of
+``decode_self_attention``).  The
 decode step appends the new token's K/V and refreshes its side-car group in
 place (through the block table on a paged cache), then dispatches attention
 through ``repro_torch.core.policy``.
@@ -16,18 +17,20 @@ from repro_torch.core.policy import CacheView, DecodePlan
 from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
 
-from .layers import apply_rope, init_linear
+from .layers import apply_rope, flash_attention, init_linear
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *, n: int = 1,
-                   device="cuda") -> dict:
-    """Attention params stacked over ``n`` layers (fp32)."""
-    d, Dh = cfg.d_model, cfg.d_head
+                   d_in: int | None = None, device="cuda") -> dict:
+    """Attention params stacked over ``n`` layers (fp32); ``d_in`` is the
+    width the projections read (the hybrid's shared block reads 2·d_model),
+    d_model by default."""
+    d, Dh = d_in if d_in is not None else cfg.d_model, cfg.d_head
     p = {
         "wq": init_linear(gen, d, cfg.n_heads * Dh, n=n, device=device),
         "wk": init_linear(gen, d, cfg.n_kv_heads * Dh, n=n, device=device),
         "wv": init_linear(gen, d, cfg.n_kv_heads * Dh, n=n, device=device),
-        "wo": init_linear(gen, cfg.n_heads * Dh, d, n=n, device=device),
+        "wo": init_linear(gen, cfg.n_heads * Dh, cfg.d_model, n=n, device=device),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads), ("bv", cfg.n_kv_heads)):
@@ -56,6 +59,31 @@ def qkv_proj(
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attention_train(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    kv_x: torch.Tensor | None = None,
+    positions: torch.Tensor | None = None,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Full attention over a whole sequence (``flash_attention``), the
+    forward of the reference's ``attention_train``: x [B, S, d] → [B, S, d];
+    ``kv_x`` [B, Sk, d] makes it cross-attention (no RoPE there)."""
+    B, S, _ = x.shape
+    if kv_x is None:
+        q, k, v = qkv_proj(p, x, cfg, positions)
+    else:
+        Sk = kv_x.shape[1]
+        q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.d_head)
+        k = _proj(kv_x, p["wk"], p.get("bk")).reshape(B, Sk, cfg.n_kv_heads, cfg.d_head)
+        v = _proj(kv_x, p["wv"], p.get("bv")).reshape(B, Sk, cfg.n_kv_heads, cfg.d_head)
+    o = flash_attention(q, k, v, causal=causal, block_k=block_k)
+    return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)
 
 
 def decode_self_attention(

@@ -1,21 +1,25 @@
 """build(cfg) → ModelBundle dispatch over architecture families: dense, moe
-and vlm share ``transformer.build``; ssm, hybrid and encdec are not ported
-yet (ROADMAP Queue 1 item 9)."""
+and vlm share ``transformer.build``; ssm → ``mamba2.build``, hybrid →
+``hybrid.build``, encdec → ``encdec.build``."""
 from __future__ import annotations
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import PolicyConfig
 
-from . import transformer
+from . import encdec, hybrid, mamba2, transformer
 from .transformer import ModelBundle
 
 
 def build_model(
-    cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda"
+    cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
+    max_positions: int | None = None,
 ) -> ModelBundle:
     """The model bundle for ``cfg`` on ``device`` (CUDA by default; a
-    missing card raises)."""
+    missing card raises).  ``max_positions`` sizes an encdec decoder's
+    learned position table (the config's ``max_target_positions`` when
+    None); other families ignore it.  A paged layout is refused for every
+    family but the transformer's, as in the reference."""
     if pol is not None and pol.layout == "paged" and cfg.family not in transformer.FAMILIES:
         raise ValueError(
             f"paged KV cache is only supported for transformer families, not {cfg.family!r}"
@@ -23,8 +27,10 @@ def build_model(
     dev = resolve_device(device)
     if cfg.family in transformer.FAMILIES:
         return transformer.build(cfg, pol, device=dev)
-    if cfg.family in ("ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)"
-        )
+    if cfg.family == "ssm":
+        return mamba2.build(cfg, device=dev)
+    if cfg.family == "hybrid":
+        return hybrid.build(cfg, pol, device=dev)
+    if cfg.family == "encdec":
+        return encdec.build(cfg, pol, device=dev, max_positions=max_positions)
     raise ValueError(f"unknown family {cfg.family!r}")

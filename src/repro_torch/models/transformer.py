@@ -73,10 +73,9 @@ def _layer_cache(stack: dict, i: int) -> dict:
 
 def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -> ModelBundle:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 9)"
-        )
-    device = torch.device(device)
+        raise ValueError(f"transformer.build takes {FAMILIES}, not {cfg.family!r} "
+                         f"(models.model_zoo.build_model dispatches the others)")
+    device = device_ = torch.device(device)
     pol = pol or PolicyConfig(kind="full")
     plan = DecodePlan.build(pol)
     plan_full = DecodePlan.build(PolicyConfig(
@@ -184,37 +183,41 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
         last = apply_norm(h[rows, lengths.to(torch.int64) - 1], params["final_norm"], cfg.norm)
         return _masked_logits(last, _head(params), cfg.vocab, Vp), cache
 
-    def init_cache(B: int, capacity: int, length: int = 0) -> dict:
-        """The batched decode cache of the policy's layout.  Paged: one
-        block pool shared by every request (a physical block id indexes the
-        same row of every layer's pool) and the per-request [B, capacity/bs]
-        block table, all zeros (the null block) to start with."""
+    def init_cache(B: int, capacity: int, length: int = 0, *, device=None) -> dict:
+        """The batched decode cache of the policy's layout (on the bundle's
+        device unless ``device`` is given: ``"meta"`` gives its shapes for
+        free).  Paged: one block pool shared by every request (a physical
+        block id indexes the same row of every layer's pool) and the
+        per-request [B, capacity/bs] block table, all zeros (the null block)
+        to start with."""
         plan.validate_capacity(capacity)
+        dev = device if device is not None else device_
         if not paged:
-            return _slab_cache(B, capacity, length)
+            return _slab_cache(B, capacity, length, dev)
         bs = pol.block_size
         n_btab = capacity // bs
         n_blocks = pol.pool_blocks or (B * n_btab + 1)
         pool = lambda n, p: kvpaged.init_paged_pool(
-            n, n_blocks, bs, cfg.n_kv_heads, cfg.d_head, p, device=device
+            n, n_blocks, bs, cfg.n_kv_heads, cfg.d_head, p, device=dev
         )
         return {
             "front": pool(skip, None),
             "rest": pool(L - skip, pol if pol.kind != "full" else None),
-            "length": torch.full((B,), length, dtype=torch.int32, device=device),
-            "block_table": torch.zeros((B, n_btab), dtype=torch.int32, device=device),
+            "length": torch.full((B,), length, dtype=torch.int32, device=dev),
+            "block_table": torch.zeros((B, n_btab), dtype=torch.int32, device=dev),
         }
 
-    def _slab_cache(B: int, capacity: int, length: int = 0) -> dict:
+    def _slab_cache(B: int, capacity: int, length: int = 0, dev=None) -> dict:
+        dev = dev if dev is not None else device_
         return {
             "front": kvcache.init_layer_cache(
-                skip, B, capacity, cfg.n_kv_heads, cfg.d_head, None, device=device
+                skip, B, capacity, cfg.n_kv_heads, cfg.d_head, None, device=dev
             ),
             "rest": kvcache.init_layer_cache(
                 L - skip, B, capacity, cfg.n_kv_heads, cfg.d_head,
-                pol if pol.kind != "full" else None, device=device,
+                pol if pol.kind != "full" else None, device=dev,
             ),
-            "length": torch.full((B,), length, dtype=torch.int32, device=device),
+            "length": torch.full((B,), length, dtype=torch.int32, device=dev),
         }
 
     # ------------------------------------------------------ chunked prefill

@@ -11,7 +11,12 @@ block-table variants.
 
 The cache lives on the engine's device and is updated in place by every
 call: the cache a call returns aliases the one it was given.  Slab
-``insert`` prefills one request (B=1) and copies its cache into one slot.
+``insert`` prefills one request (B=1) and copies its cache into one slot
+along each leaf's batch axis, found by diffing the shapes of two empty
+caches (any family's tree: the transformer's front/rest slabs, a Mamba2
+state, the hybrid's per-application KV, the encoder-decoder's cross K/V).
+``insert`` and ``generate`` merge ``extras`` into the prefill batch (an
+encdec model's ``frames``, a vlm's ``vision_embeds``).
 
 Paged mode (``Engine.build(..., layout='paged')``): the cache is a shared
 block pool + per-request block tables.  The engine owns the host-side
@@ -118,6 +123,32 @@ def sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def cache_leaves(tree) -> list[torch.Tensor]:
+    """Every tensor of a cache tree in a fixed order: dict keys sorted, a
+    side-car (``QuantizedKeys`` / ``PageMeta``) by its ``FIELDS``."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in cache_leaves(tree[k])]
+    if hasattr(tree, "FIELDS"):
+        return [getattr(tree, name) for name in tree.FIELDS]
+    return [tree]
+
+
+def cache_batch_axes(bundle: ModelBundle, capacity: int) -> list[int]:
+    """The batch axis of each ``cache_leaves`` entry of the bundle's cache,
+    found by diffing the shapes of ``init_cache(2)`` and ``init_cache(3)``
+    (built on the meta device: no memory), as the reference's
+    ``_cache_batch_axes`` does."""
+    c2 = cache_leaves(bundle.init_cache(2, capacity, 0, device="meta"))
+    c3 = cache_leaves(bundle.init_cache(3, capacity, 0, device="meta"))
+    axes = []
+    for a, b in zip(c2, c3):
+        diffs = [i for i, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+        if len(diffs) != 1:
+            raise ValueError(f"ambiguous batch axis: {tuple(a.shape)} vs {tuple(b.shape)}")
+        axes.append(diffs[0])
+    return axes
+
+
 def _pool_leaves(part: dict) -> list[torch.Tensor]:
     """Every stacked pool tensor [L, N, pb, ...] of one cache part (K, V and
     the side-car's tensors)."""
@@ -172,6 +203,7 @@ class Engine:
         self.prefix_hits = 0
         self._budget_fns = {self.base_budget: self._decode_step}
         self._chunk_keys: dict[int, list[int]] = {}
+        self._batch_axes: list[int] | None = None  # cache_batch_axes, at first insert
 
         if self.paged:
             self.block_size = pol.block_size
@@ -229,6 +261,7 @@ class Engine:
         mesh=None,
         device="cuda",
         seed: int = 0,
+        max_positions: int | None = None,
     ) -> "Engine":
         """Build bundle + engine with the serving defaults: when ``policy``
         is None the one-pass FIER fast path (``serving_policy()``) with the
@@ -239,7 +272,8 @@ class Engine:
         of that many blocks and ``prefix_ttl`` ages parked prefix blocks out
         after that many virtual-clock units (paged layout).  ``device``
         defaults to CUDA; a machine without a card raises unless
-        ``device='cpu'`` is passed."""
+        ``device='cpu'`` is passed.  ``max_positions`` goes to
+        ``build_model`` (an encdec decoder's position table)."""
         dev = resolve_device(device)
         if mesh is not None:
             raise _not_ported("mesh-sharded serving", "10")
@@ -250,7 +284,7 @@ class Engine:
             pol = dataclasses.replace(base, budget=min(base.budget, capacity))
         if layout is not None and layout != pol.layout:
             pol = dataclasses.replace(pol, layout=layout)
-        bundle = build_model(cfg, pol, device=dev)
+        bundle = build_model(cfg, pol, device=dev, max_positions=max_positions)
         return cls(
             bundle, n_slots=n_slots, capacity=capacity, sampling=sampling, seed=seed,
             obs=obs, offload_blocks=offload_blocks, prefix_ttl=prefix_ttl,
@@ -292,33 +326,36 @@ class Engine:
             )
         return self.bundle.prefill(params, batch, capacity=self.capacity)
 
-    def _prefill_one(self, params, tokens_1xS, length: int):
+    def _prefill_one(self, params, tokens_1xS, length: int, extras=None):
         batch = {
             "tokens": tokens_1xS,
             "lengths": torch.tensor([length], dtype=torch.int32, device=self.device),
         }
+        if extras:
+            batch.update(extras)
         logits, single = self.bundle.prefill(params, batch, capacity=self.capacity)
         self.prefill_count += 1
         return logits, single
 
-    def insert(self, params, batched_cache, tokens_1xS, length: int, slot: int):
+    def insert(self, params, batched_cache, tokens_1xS, length: int, slot: int, extras=None):
         """Prefill one request and place it into ``slot``.  Returns (its
         first-token logits [1, Vp], the batched cache, updated in place).
+        ``extras`` (e.g. ``{"frames": [1, enc_ctx, d]}``) joins the prefill
+        batch.
 
-        Paged mode: allocates/shares blocks through the allocator; a
-        full-prompt prefix hit skips the prefill entirely (the first-token
-        logits are replayed from the prompt cache)."""
+        Slab mode copies every leaf of the single-request cache into the
+        slot along its batch axis (``cache_batch_axes``).  Paged mode:
+        allocates/shares blocks through the allocator; a full-prompt prefix
+        hit skips the prefill entirely (the first-token logits are replayed
+        from the prompt cache)."""
         if self.paged:
-            return self._insert_paged(params, batched_cache, tokens_1xS, length, slot)
-        logits, single = self._prefill_one(params, tokens_1xS, length)
-        for part in ("front", "rest"):
-            dst, src = batched_cache[part], single[part]
-            for name in ("k", "v"):
-                dst[name][:, slot] = src[name][:, 0]
-            if "meta" in dst:
-                for name in dst["meta"].FIELDS:
-                    getattr(dst["meta"], name)[:, slot] = getattr(src["meta"], name)[:, 0]
-        batched_cache["length"][slot] = length
+            return self._insert_paged(params, batched_cache, tokens_1xS, length, slot, extras)
+        logits, single = self._prefill_one(params, tokens_1xS, length, extras)
+        if self._batch_axes is None:
+            self._batch_axes = cache_batch_axes(self.bundle, self.capacity)
+        for dst, src, ax in zip(cache_leaves(batched_cache), cache_leaves(single),
+                                self._batch_axes):
+            dst.select(ax, slot).copy_(src.select(ax, 0))
         return logits, batched_cache
 
     # ------------------------------------------------------- paged lifecycle
@@ -499,7 +536,7 @@ class Engine:
         self._seq[slot] = SeqBlocks(blocks=blocks, length=len(toks))
         return self._prompt_logits[keys[-1]].to(self.device), cache
 
-    def _insert_paged(self, params, cache, tokens_1xS, length: int, slot: int):
+    def _insert_paged(self, params, cache, tokens_1xS, length: int, slot: int, extras=None):
         toks = [int(t) for t in tokens_1xS[0, :length].tolist()]
         keys = block_hash_chain(toks, self.block_size)
         nb = len(keys)
@@ -529,7 +566,7 @@ class Engine:
                 )
             blocks.append(bid)
         cache = self._drain_evictions(cache)
-        logits, single = self._prefill_one(params, tokens_1xS, length)
+        logits, single = self._prefill_one(params, tokens_1xS, length, extras)
         # monolithic prefill recomputes the whole prompt (hit blocks only
         # skip their writes); chunked admission turns hits into skipped work
         self.tokens_recomputed += length
@@ -574,6 +611,13 @@ class Engine:
         nb = -(-end // self.block_size)
         return (nb - len(flags)) + sum(flags)
 
+    def _require_chunked(self) -> None:
+        if self.bundle.prefill_chunk is None:
+            raise NotImplementedError(
+                f"model family {self.bundle.cfg.family!r} has no chunked "
+                f"prefill; use monolithic Engine.insert"
+            )
+
     def begin_chunked(self, cache, slot: int, tokens):
         """Open a chunked insertion of the full prompt ``tokens`` into
         ``slot``.  Returns (resume, cache): the position the first
@@ -586,6 +630,7 @@ class Engine:
         to the null block.  Slab: parks the slot's length at ``capacity`` so
         the scratch writes clamp onto the last row (masked, and rewritten by
         the final chunk when the prompt fills the slab)."""
+        self._require_chunked()
         if not self.paged:
             cache["length"][slot] = self.capacity
             return 0, cache
@@ -624,6 +669,7 @@ class Engine:
         all-or-nothing, and every block fully covered by completed chunks is
         hash-registered at once, so an aborted half-prefilled request
         re-admits from the completed-chunk boundary instead of token 0."""
+        self._require_chunked()
         toks = torch.as_tensor(tokens, dtype=torch.int64).reshape(-1)
         L = int(toks.shape[0])
         end = start + n
@@ -870,8 +916,8 @@ class Engine:
         place: codes ^ 0xA5, scale → -scale - 1, zero → -zero + 1 (bf16).
         Everything stays finite (silent retrieval-quality corruption, not
         the NaN watchdog's).  A cache without a FIER side-car is left as
-        it is."""
-        meta = cache["rest"].get("meta")
+        it is.  (The hybrid keeps its side-car under ``attn``.)"""
+        meta = cache.get("rest", cache.get("attn", {})).get("meta")
         if not isinstance(meta, QuantizedKeys):
             return cache
         meta.codes[:, idx] ^= 0xA5
@@ -938,11 +984,13 @@ class Engine:
     # --------------------------------------------------------- conveniences
     def generate(
         self, params, prompts: torch.Tensor, lengths: torch.Tensor, max_new: int,
-        generator: torch.Generator | None = None, return_cache: bool = False,
+        extras=None, generator: torch.Generator | None = None, return_cache: bool = False,
     ):
         """Static-batch generate: prefill the whole batch then decode
-        ``max_new - 1`` steps.  prompts [B, S]; returns tokens [B, max_new]
-        (and the cache, when ``return_cache``, for continuing the session)."""
+        ``max_new - 1`` steps.  prompts [B, S]; ``extras`` joins the prefill
+        batch (``{"frames": ...}``, ``{"vision_embeds": ...}``); returns
+        tokens [B, max_new] (and the cache, when ``return_cache``, for
+        continuing the session)."""
         if self.paged:
             raise NotImplementedError(
                 "paged engines generate through the ContinuousScheduler "
@@ -950,7 +998,10 @@ class Engine:
                 "static-batch generate path"
             )
         gen = generator or self._gen
-        logits, cache = self.prefill_batch(params, {"tokens": prompts, "lengths": lengths})
+        batch = {"tokens": prompts, "lengths": lengths}
+        if extras:
+            batch.update(extras)
+        logits, cache = self.prefill_batch(params, batch)
         tok = sample_token(logits, self.sampling, gen)
         outs = [tok]
         for _ in range(max_new - 1):

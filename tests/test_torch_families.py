@@ -147,3 +147,24 @@ def test_family_matches_reference(models, arch):
         jtok = jnp.argmax(jl, -1).astype(jnp.int32)
         ttok = torch.argmax(tl, -1).to(torch.int32)
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+def test_vlm_generate_with_extras(models):
+    """llava-next-mistral-7b through ``Engine.generate(..., extras=
+    {"vision_embeds": ...})``: the port's engine merges the vision
+    embeddings into the prefill batch as the reference's does, and the 6
+    greedy tokens equal the reference engine's (the same embeddings as the
+    bundle-level check above, lengths counting them)."""
+    je, te, jp, tp = models["llava-next-mistral-7b"]
+    cfg = te.bundle.cfg
+    P = _prompts(cfg.vocab)
+    nv = cfg.n_vision_tokens
+    ve = np.random.default_rng(1).standard_normal((2, nv, cfg.d_model)).astype(np.float32)
+    vej = jnp.asarray(ve).astype(jnp.bfloat16)
+    vet = torch.from_numpy(np.array(vej.astype(jnp.float32))).to(torch.bfloat16)
+    lens = LENS + nv
+    want = np.asarray(je.generate(jp, jnp.asarray(P), jnp.asarray(lens), MAX_NEW,
+                                  extras={"vision_embeds": vej}))
+    got = te.generate(tp, torch.from_numpy(P), torch.from_numpy(lens), MAX_NEW,
+                      extras={"vision_embeds": vet})
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -75,6 +75,8 @@ K1_CASES = [
     (2, 128, 2, 2, 64, 32, 32, (128, 90), "max", 4, 8),     # d_head 64 (granite-moe)
     (1, 128, 1, 12, 64, 32, 48, (128,), "max", 0, 0),       # rep 12 (starcoder2)
     (2, 64, 1, 16, 16, 16, 16, (64, 40), "sum", 4, 4),      # rep 16 (qwen3-moe)
+    (2, 128, 2, 1, 112, 32, 32, (128, 90), "max", 4, 8),    # d_head 112 (zamba2-7b)
+    (1, 128, 2, 4, 112, 32, 48, (128,), "sum", 0, 0),       # d_head 112, a GQA rep
 ]
 
 
@@ -131,6 +133,7 @@ def test_sortable_keys_roundtrip_and_order():
     (2, 64, 2, 2, 64, 32),      # d_head 64
     (2, 64, 1, 12, 16, 32),     # rep 12
     (2, 64, 1, 16, 32, 48),     # rep 16
+    (2, 64, 2, 1, 112, 32),     # d_head 112 (zamba2-7b)
 ])
 def test_k2_plain_matches_reference(B, S, Hkv, rep, D, budget):
     q, K, V, _ = _case(B, S, Hkv, rep, D, 8, seed=budget + rep)
@@ -341,6 +344,35 @@ def test_plans_fit_new_shapes(d_head, rep, rows):
         covered = np.concatenate([np.arange(a, b) for a, b in plan.ranges(budget)])
         np.testing.assert_array_equal(covered, np.arange(budget))
     with pytest.raises(ValueError, match="item A"):
-        fr.check_kernel_shape(112, 1)
+        fr.check_kernel_shape(96, 1)
     with pytest.raises(ValueError, match="item A"):
         fr.check_kernel_shape(128, 17)
+
+
+@pytest.mark.parametrize("rows", [8, 128, 144])
+def test_plans_fit_d112(rows):
+    """d_head 112 (zamba2-7b's shared attention block): K1/K3/K6 take any
+    rep up to 16 (the scoring warp's 28 active lanes own 4 channels each, so
+    the static shared memory counts 128's 16-entry tables: 46,080 B at
+    every rep), while K2/K4/K8 take rep 1 only, on 16-lane row groups (two
+    lanes idle), so their step and ring are 128's."""
+    assert fr.smem_static(112, 1) == fr.smem_static(112, 16) == 46080
+    for S, bs in ((8192, None), (8192, 32), (65536, None)):
+        for rep in (1, 4, 16):
+            plan = fr.retrieval_plan(S, rows, 132, bs, d_head=112, rep=rep)
+            assert plan.smem_keys and 46080 + plan.smem_bytes <= fr.SMEM_LIMIT
+    fr.check_kernel_shape(112, 4)
+    assert sa.lanes_per_row(112) == sa.lanes_per_row(128) == 16 == 2 * sa.lanes_per_row(64)
+    assert sa.step(112, 1) == sa.step(128, 1) == 64
+    for budget in (512, 1000, 1024, 8192):
+        plan = sa.attend_plan(budget, rows, 132, 1, 112)
+        assert plan == sa.attend_plan(budget, rows, 132, 1, 128)._replace(
+            smem_bytes=plan.smem_bytes)
+        assert plan.smem_bytes == sa.RING_BYTES + plan.cluster * 114 * 4 + 4 * plan.chunk
+    with pytest.raises(ValueError, match="at d_head 112.*item A"):
+        sa.attend_plan(1024, rows, 132, 2, 112)
+    q = torch.zeros((1, 2, 4, 112))
+    K = torch.zeros((1, 64, 2, 112), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="at d_head 112.*item A"):
+        sa.check_kernel_operands(q, K, K)
+    sa.check_kernel_operands(q[:, :, :1], K, K)

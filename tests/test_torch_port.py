@@ -78,12 +78,20 @@ def test_modes_not_ported_raise():
     assert DecodePlan.build(PolicyConfig(kind="slm")).policy.kind == "slm"
     with pytest.raises(UnsupportedPlanError, match="quest"):
         DecodePlan.build(PolicyConfig(kind="quest", layout="paged"))
-    # the moe and vlm families (item 9) build; ssm, hybrid and encdec do not yet
+    # every family of item 9 builds: moe and vlm, and ssm, hybrid and
+    # encdec, whose paged layout stays refused, as in the reference
     eng = Engine.build(reduced_config("granite-moe-1b-a400m"), n_slots=1, capacity=64,
                        device="cpu")
     assert "moe" in eng.bundle.init(0)["layers"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Engine.build(reduced_config("mamba2-370m"), n_slots=1, capacity=64, device="cpu")
+    for arch, leaf in (("mamba2-370m", "layers"), ("zamba2-7b", "shared"),
+                       ("whisper-small", "enc_layers")):
+        eng = Engine.build(reduced_config(arch), n_slots=1, capacity=64,
+                           policy=serving_policy(budget=16, group=8, skip_layers=1),
+                           device="cpu")
+        assert leaf in eng.bundle.init(0)
+        with pytest.raises(ValueError, match="only supported for transformer families"):
+            Engine.build(reduced_config(arch), n_slots=1, capacity=64, layout="paged",
+                         device="cpu")
     with pytest.raises(ValueError, match="exceeds cache capacity"):
         Engine.build(reduced_config("olmo-1b"), n_slots=1, capacity=64,
                      policy=serving_policy(budget=128), device="cpu")
