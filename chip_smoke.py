@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the whole check, as described below
     python3 chip_smoke.py --kernels-only  # phases 1-2 only, no result line
+    python3 chip_smoke.py --training-only # phases 1 and 11 only, no result line
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
@@ -189,20 +190,59 @@ result line):
    FIER kernel; zamba2's prefill logits identical to the reference
    pipeline's and a two_pass engine's first step equal to one_pass bit for
    bit.  Reported, not gated: as phase 9.
-11. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+11. Training (``training_path``): (a) ``flash_attention``'s blockwise
+   backward (a ``torch.autograd.Function``) against autograd through the
+   dense ``attention_ref`` on bf16 inputs at olmo-1b's layer (B 4, S 2048,
+   16 heads x 128, causal) and at a GQA shape (4 x 4, S 1100: three
+   512-row query blocks, a padding mask, S no multiple of block_k):
+   out/dq/dk/dv within ``FLASH_GRAD_REL_TOL`` of the oracle's max, a planted
+   fault (Dterm dropped) above it, each path's time and peak memory
+   reported; (b) olmo-1b at full width and depth (random init from a seeded
+   ``torch.Generator``, remat on, B 4 x S 2048 from ``make_train_batch``,
+   AdamW + cosine, 8 steps through ``make_train_step``): every loss and
+   grad norm finite, the first loss within 1.5 of ln(vocab), the last below
+   the first; ms/step, tokens/s and peak memory reported; (c) 6 steps at
+   olmo-1b's width cut to 2 layers under
+   ``torch.use_deterministic_algorithms(True)``, uninterrupted and through
+   ``run_with_recovery`` with one ``FaultInjector`` fault after the step-3
+   checkpoint: the final states equal bit for bit; (d) granite-moe-1b-a400m,
+   mamba2-370m (2 layers each), zamba2-7b (6 layers: one application of the
+   shared block) and whisper-small (2 + 2 layers, S 448) at full width, 2
+   steps each: finite losses and grad norms, the moe aux loss, ms/step and
+   peak memory reported; (e) tests/test_system.py's recipe at d_head 64
+   (3 layers, d 256, 4 heads, vocab 256; 150 steps, lr 2e-3, warmup 10,
+   B 8 x S 128, data seed 11) trained on the card, then served greedily
+   through full, FIER one_pass (K1/K2), quest and slm under that test's
+   gates (last loss below 0.7 x the first; FIER at budget 112 through the
+   reference pipeline equal to full; at budget 24 FIER's agreement above
+   quest's and slm's and >= 0.4; FIER's teacher-forced NLL gap below half
+   of slm's + 0.05) and, at budget 112 through K1/K2: every valid token
+   selected, K2 within ``K2_REL_TOL`` of full-KV attention with f32
+   softmax weights at every call, teacher-forced logits within
+   ``SERVE_LOGIT_REL_TOL`` of full-KV's with two planted K2 faults above
+   it, and greedy tokens equal to the f32-weight witness's (full-KV
+   rounds the weights to bf16, so its free-running agreement is reported);
+   K1 = K2 = 2 x 72 FIER decode steps.
+12. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5; K6/K7: phase 6's
-   generate; K5/K8: phase 6's building blocks; phases 9 and 10's per config
+   generate; K5/K8: phase 6's building blocks; phases 9, 10 and 11(e)'s
    beside them), the card line, and as the last line ``{"ok": true,
    "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 import traceback
+
+# phase 11(c) runs under torch.use_deterministic_algorithms(True), which
+# needs cuBLAS's workspace fixed before CUDA starts (the size PyTorch picks
+# on Hopper anyway: 8 buffers of 4 MiB)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -3461,6 +3501,601 @@ def ssm_hybrid_encdec_path(torch):
     return runs
 
 
+# ------------------------------------------------------------ phase 11
+
+# (a) the flash-attention backward: name -> (B, Sq, Sk, Hkv, rep, D, causal,
+# key-padding mask).  olmo-1b's layer at the trainer's batch; a GQA shape
+# with a padding mask, S no multiple of block_k (512) and three 512-row query
+# blocks, the last one partial.
+FLASH_SHAPES = {
+    "olmo-1b layer (B 4, S 2048, 16 heads x 128, causal)": (4, 2048, 2048, 16, 1, 128, True, False),
+    "GQA 4 x 4, S 1100, padding mask": (2, 1100, 1100, 4, 4, 128, True, True),
+}
+# dq/dk/dv (and out) of the Function vs autograd through the dense oracle
+# ``attention_ref``, as a fraction of the oracle's max |.|, on bf16 inputs
+# as training feeds it.  Both sum in f32 and round each result to bf16 (one
+# step is 2^-8 = 0.0039 of an element); dk/dv are rounded once per 512-row
+# query block before their f32 sum (the reference's design), so up to four
+# roundings stack at S 2048: 0.01 leaves room for them and for f32 order,
+# while a dropped softmax-backward diagonal moves dq by O(1).
+FLASH_GRAD_REL_TOL = 0.01
+# (b) olmo-1b at full width and depth: B x S from make_train_batch, steps,
+# AdamW + cosine at this peak lr (warmup 2).  The first loss within 1.5 of
+# ln(vocab) (a random tied head adds ~0.5), the last below the first.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PEAK_LR = 4, 2048, 8, 1e-3
+# (c) checkpoint/restart: olmo-1b's width at this depth, steps, a checkpoint
+# every RESTART_EVERY steps, one fault at RESTART_FAIL_AT (after the first).
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 2, 6, 3, 4
+# (d) the other families, full width, depth cut: arch -> (layers, B, S).
+# zamba2-7b: 6 layers = one application of the shared block (attn_every 6);
+# whisper-small: 2 encoder + 2 decoder layers, its 1500 frames, S 448 (its
+# published decoder positions).
+FAMILY_TRAIN = {
+    "granite-moe-1b-a400m": (2, 4, 2048),
+    "mamba2-370m": (2, 4, 2048),
+    "zamba2-7b": (6, 2, 2048),
+    "whisper-small": (2, 4, 448),
+}
+FAMILY_TRAIN_STEPS = 2
+# (e) train, then serve (tests/test_system.py's recipe at d_head 64, which
+# the CUDA kernels take): the model, the recipe, the serving budgets.
+SERVE_MODEL = dict(n_layers=3, d_model=256, n_heads=4, n_kv_heads=4, d_head=64, d_ff=512,
+                   vocab=256)
+SERVE_TRAIN = dict(steps=150, peak_lr=2e-3, warmup=10, batch=8, seq=128, seed=11)
+# At budget >= length, fed full's greedy tokens: max |Δlogit| between FIER
+# through K1/K2 and full-KV, as a fraction of max |logit| over 16 steps; set
+# between the sound reading, 0.002357 (full-KV rounds its softmax weights to
+# bf16, K2 keeps them in f32), and the smaller planted K2 fault's, 0.0121
+# (PERF.md §6, PR 20).
+SERVE_LOGIT_REL_TOL = 0.006
+
+
+def free(torch):
+    import gc
+
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def peak_gib(torch, base) -> float:
+    return (torch.cuda.max_memory_allocated() - base) / 2**30 if DEVICE == "cuda" else 0.0
+
+
+def flash_backward_checks(torch):
+    """(a): the Function's out, dq, dk, dv vs autograd through
+    ``attention_ref`` on the same bf16 inputs (seeded ``torch.Generator``),
+    with the gate FLASH_GRAD_REL_TOL, and a planted fault (the softmax
+    backward's diagonal Dterm dropped) that must read above it.  Reports
+    each path's time and peak memory."""
+    from repro_torch.models import layers
+
+    out = {}
+    for name, (B, Sq, Sk, Hkv, rep, D, causal, padded) in FLASH_SHAPES.items():
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        mk = lambda *s: torch.randn(s, generator=gen, device=DEVICE).to(torch.bfloat16)
+        q, k, v, dout = mk(B, Sq, Hkv * rep, D), mk(B, Sk, Hkv, D), mk(B, Sk, Hkv, D), \
+            mk(B, Sq, Hkv * rep, D)
+        mask = None
+        if padded:
+            lens = torch.tensor([Sk, Sk - 77][:B], device=DEVICE)
+            mask = torch.arange(Sk, device=DEVICE)[None] < lens[:, None]
+        kw = dict(causal=causal, bias_mask=mask)
+
+        def run(fn):
+            args = [x.clone().requires_grad_() for x in (q, k, v)]
+            free(torch)
+            base = peak_base(torch)
+            sync(torch)
+            t0 = time.perf_counter()
+            o = fn(*args, **kw)
+            grads = torch.autograd.grad(o, args, dout)
+            sync(torch)
+            ms = 1e3 * (time.perf_counter() - t0)
+            return (o.detach(),) + grads, ms, peak_gib(torch, base)
+
+        ref, ref_ms, ref_gib = run(layers.attention_ref)
+        run(layers.flash_attention)  # warm-up
+        got, ms, gib = run(layers.flash_attention)
+        orig = layers._flash_bwd_block
+        layers._flash_bwd_block = lambda q_, k_, v_, o_, *rest: orig(q_, k_, v_,
+                                                                     torch.zeros_like(o_), *rest)
+        try:
+            bad, _, _ = run(layers.flash_attention)
+        finally:
+            layers._flash_bwd_block = orig
+        rel = lambda a, b: float((a.float() - b.float()).abs().max() / a.float().abs().max())
+        errs = {n: rel(r, g) for n, r, g in zip(("out", "dq", "dk", "dv"), ref, got)}
+        fault = max(rel(r, b) for r, b in zip(ref[1:], bad[1:]))
+        log(f"  flash {name}: |Δ| / max vs attention_ref: "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (gate {FLASH_GRAD_REL_TOL}); planted fault (Dterm dropped) {fault:.3g}; "
+            f"fwd+bwd {ms:.1f} ms, peak {gib:.2f} GiB; dense oracle {ref_ms:.1f} ms, "
+            f"peak {ref_gib:.2f} GiB")
+        if not all(torch.isfinite(x.float()).all() for x in got):
+            raise AssertionError(f"flash {name}: non-finite output or gradient")
+        if max(errs.values()) > FLASH_GRAD_REL_TOL:
+            raise AssertionError(f"flash {name}: {errs} above {FLASH_GRAD_REL_TOL}")
+        if not fault > FLASH_GRAD_REL_TOL:
+            raise AssertionError(f"flash {name}: the gate does not see the planted fault "
+                                 f"({fault:.3g})")
+        out[name] = dict(errs, fault=fault, ms=ms, peak_gib=gib, oracle_ms=ref_ms,
+                         oracle_peak_gib=ref_gib)
+    return out
+
+
+def train_run(torch, cfg, hp, shape, steps, *, seed=0, state=None, step_fn=None):
+    """``steps`` steps of ``make_train_step`` from a seeded init (or
+    ``state``): (state, per-step metrics as floats, per-step host ms)."""
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+
+    bundle = build_model(cfg, device=DEVICE, max_positions=shape.seq_len
+                         if cfg.family == "encdec" else None)
+    if state is None:
+        state = init_train_state(bundle, torch.Generator(device=DEVICE).manual_seed(seed), hp)
+    step = step_fn or make_train_step(bundle, hp)
+    metrics, ms = [], []
+    for s in range(steps):
+        batch = make_train_batch(cfg, shape, s, seed=seed, device=DEVICE)
+        sync(torch)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        sync(torch)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        metrics.append(m)
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{cfg.name} step {s}: loss {m['loss']}, grad norm "
+                                 f"{m['grad_norm']}")
+    return state, metrics, ms
+
+
+def profile_train_step(torch, step_fn, state, batch):
+    """One more train step under torch.profiler (information, no gate): its
+    wall time, device busy share, launches and the ten largest kernel rows
+    (kernel rows only, as ``profile_decode`` sums them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        sync(torch)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and dev(e) > 0), key=dev, reverse=True)
+    if not events:
+        log("  profiled train step: the profiler reported no device kernels")
+        return None
+    busy_us = sum(dev(e) for e in events)
+    log(f"  profiled train step: wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"({100 * busy_us / wall_us:.1f}% busy), {sum(e.count for e in events)} kernel launches")
+    for e in events[:10]:
+        log(f"    {dev(e) / 1e3:8.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                launches=sum(e.count for e in events))
+
+
+def olmo_full_train(torch):
+    """(b): olmo-1b at full width and depth, remat on, TRAIN_BATCH x
+    TRAIN_SEQ, AdamW + cosine, TRAIN_STEPS steps (then one profiled step,
+    information only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.launch.steps import TrainHParams, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import leaves
+
+    cfg = get_config("olmo-1b")
+    hp = TrainHParams(peak_lr=TRAIN_PEAK_LR, warmup=2, total_steps=TRAIN_STEPS)
+    shape = ShapeConfig("p11", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step_fn = make_train_step(build_model(cfg, device=DEVICE), hp)
+    free(torch)
+    base = peak_base(torch)
+    state, ms_, ms = train_run(torch, cfg, hp, shape, TRAIN_STEPS, step_fn=step_fn)
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    gib = peak_gib(torch, base)
+    prof = None
+    if DEVICE == "cuda":
+        prof = profile_train_step(torch, step_fn, state,
+                                  make_train_batch(cfg, shape, TRAIN_STEPS, device=DEVICE))
+    del state
+    losses = [m["loss"] for m in ms_]
+    first, last = losses[0], losses[-1]
+    med = median(ms[1:]) if len(ms) > 1 else ms[0]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    log(f"  olmo-1b ({cfg.n_layers} layers, {n_params / 1e9:.3f} B params), B {TRAIN_BATCH} x "
+        f"S {TRAIN_SEQ}, peak lr {TRAIN_PEAK_LR}: losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; grad norms " + " ".join(f"{m['grad_norm']:.3f}" for m in ms_)
+        + f"; ln(vocab) {math.log(cfg.vocab):.4f}; median {med:.1f} ms/step (steps 2-"
+        f"{TRAIN_STEPS}), {tok_s:.0f} tokens/s, first step {ms[0]:.1f} ms; peak {gib:.2f} GiB")
+    if abs(first - math.log(cfg.vocab)) > 1.5:
+        raise AssertionError(f"olmo-1b first loss {first} not within 1.5 of ln(vocab)")
+    if not last < first:
+        raise AssertionError(f"olmo-1b loss did not fall: {first} -> {last}")
+    return dict(losses=losses, grad_norms=[m["grad_norm"] for m in ms_], ms_step=med,
+                tokens_per_s=tok_s, peak_gib=gib, params=n_params, profile=prof)
+
+
+def restart_check(torch):
+    """(c): olmo-1b's width at RESTART_LAYERS layers under
+    ``torch.use_deterministic_algorithms(True)`` (CUBLAS_WORKSPACE_CONFIG is
+    set before CUDA starts): RESTART_STEPS steps uninterrupted, then the
+    same through ``run_with_recovery`` with a ``FaultInjector`` failing once
+    at RESTART_FAIL_AT, after the checkpoint of step RESTART_EVERY.  The
+    final states must be equal bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.launch.steps import TrainHParams, init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import leaves
+    from repro_torch.runtime import FaultInjector, run_with_recovery
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=RESTART_LAYERS)
+    hp = TrainHParams(peak_lr=TRAIN_PEAK_LR, warmup=1, total_steps=RESTART_STEPS)
+    shape = ShapeConfig("p11c", TRAIN_SEQ, TRAIN_BATCH, "train")
+    bundle = build_model(cfg, device=DEVICE)
+    step_fn = make_train_step(bundle, hp)
+
+    def one_step(st, s):
+        return step_fn(st, make_train_batch(cfg, shape, s, seed=0, device=DEVICE))[0]
+
+    torch.use_deterministic_algorithms(True)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="p11_ckpt_", dir=os.path.join(HERE, "build"))
+    try:
+        init = init_train_state(bundle, torch.Generator(device=DEVICE).manual_seed(0), hp)
+        t0 = time.perf_counter()
+        ref = init
+        for s in range(RESTART_STEPS):
+            ref = one_step(ref, s)
+        sync(torch)
+        t_ref = time.perf_counter() - t0
+        injector = FaultInjector([RESTART_FAIL_AT])
+
+        def faulty(st, s):
+            injector.maybe_fail(s)
+            return one_step(st, s)
+
+        t0 = time.perf_counter()
+        out, stats = run_with_recovery(faulty, init, RESTART_STEPS,
+                                       CheckpointManager(ckdir, keep_n=1),
+                                       ckpt_every=RESTART_EVERY, state_like=init)
+        sync(torch)
+        t_rec = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    diff = sum(int(not torch.equal(a, b)) for a, b in zip(leaves(ref), leaves(out)))
+    n = len(leaves(ref))
+    log(f"  restart: olmo-1b width, {RESTART_LAYERS} layers, {RESTART_STEPS} steps, fault at "
+        f"{RESTART_FAIL_AT}: {stats}; {n - diff}/{n} state leaves equal bit for bit to the "
+        f"uninterrupted run; uninterrupted {t_ref:.1f} s, with recovery {t_rec:.1f} s")
+    if stats["restarts"] != 1 or stats["resumed_from"] != [RESTART_EVERY] or diff:
+        raise AssertionError(f"resume not bit-exact: {stats}, {diff} leaves differ")
+    return dict(stats, leaves=n, t_ref_s=t_ref, t_recovery_s=t_rec)
+
+
+def family_train(torch):
+    """(d): each family at full width, depth cut (FAMILY_TRAIN), 2 steps,
+    each model freed before the next."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import TrainHParams
+
+    out = {}
+    for arch, (layers, B, S) in FAMILY_TRAIN.items():
+        cfg = get_config(arch)
+        kw = dict(n_layers=layers) if cfg.family != "encdec" else dict(n_layers=layers,
+                                                                       n_enc_layers=layers)
+        cfg = dataclasses.replace(cfg, **kw)
+        free(torch)
+        base = peak_base(torch)
+        hp = TrainHParams(peak_lr=TRAIN_PEAK_LR, warmup=1, total_steps=FAMILY_TRAIN_STEPS)
+        state, ms_, ms = train_run(torch, cfg, hp, ShapeConfig("p11d", S, B, "train"),
+                                   FAMILY_TRAIN_STEPS)
+        del state
+        gib = peak_gib(torch, base)
+        out[arch] = dict(layers=layers, batch=B, seq=S, losses=[m["loss"] for m in ms_],
+                         grad_norms=[m["grad_norm"] for m in ms_],
+                         moe_aux=[m["moe_aux"] for m in ms_], ms_steps=ms, peak_gib=gib)
+        log(f"  {arch} ({layers} layers{' + ' + str(layers) + ' encoder' if 'n_enc_layers' in kw else ''}"
+            f", B {B} x S {S}): losses " + " ".join(f"{m['loss']:.4f}" for m in ms_)
+            + "; grad norms " + " ".join(f"{m['grad_norm']:.3f}" for m in ms_)
+            + "; moe aux " + " ".join(f"{m['moe_aux']:.4f}" for m in ms_)
+            + "; ms/step " + " ".join(f"{x:.1f}" for x in ms) + f"; peak {gib:.2f} GiB")
+    free(torch)
+    return out
+
+
+def _greedy(torch, bundle, params, prompt, n=16, forced=None):
+    """(greedy tokens [B, n], the logits [B, n, Vp] each was taken from).
+    With ``forced`` [B, n] every decode step is fed forced's token in place
+    of its own argmax (teacher forcing), so two runs see the same inputs."""
+    B, S = prompt.shape
+    lengths = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+    logits, cache = bundle.prefill(params, {"tokens": prompt, "lengths": lengths},
+                                   capacity=S + n + 8)
+    toks, lgs = [], []
+    for i in range(n):
+        tok = logits.argmax(-1).to(torch.int32)
+        toks.append(tok)
+        lgs.append(logits)
+        logits, cache = bundle.decode_step(params, tok if forced is None else forced[:, i],
+                                           cache)
+    return torch.stack(toks, 1), torch.stack(lgs, 1)
+
+
+def _first_split(torch, a, b):
+    """Where two greedy runs first part: (row, step, the first run's top-2
+    logit gap there, max |Δlogit| there), or None.  Up to that step both
+    runs saw the same tokens, so the logits differ by the numerics alone."""
+    (ta, la), (tb, lb) = a, b
+    diff = (ta != tb).to(torch.int64)
+    if not bool(diff.any()):
+        return None
+    first = torch.where(diff.any(1), diff.argmax(1), torch.full_like(diff[:, 0], ta.shape[1]))
+    r = int(first.argmin())
+    t = int(first[r])
+    top2 = la[r, t].topk(2).values
+    return r, t, float(top2[0] - top2[1]), float((la[r, t] - lb[r, t]).abs().max())
+
+
+def _teacher_forced_nll(torch, bundle, params, toks):
+    lengths = torch.full((toks.shape[0],), 128, dtype=torch.int32, device=DEVICE)
+    logits, cache = bundle.prefill(params, {"tokens": toks[:, :128], "lengths": lengths},
+                                   capacity=160)
+    tot = 0.0
+    for t in range(24):
+        gold = toks[:, 128 + t]
+        lp = torch.log_softmax(logits, -1)
+        tot += float(-lp.gather(1, gold[:, None].to(torch.int64)).mean())
+        logits, cache = bundle.decode_step(params, gold, cache)
+    return tot / 24
+
+
+def _dense_attend(torch, q, K, V, valid, *, f32_weights):
+    """Decode attention of q [B, Hkv, rep, D] over the rows of K, V
+    [B, S, Hkv, D] that ``valid`` [B, Hkv or 1, S] marks: f32 scores and
+    softmax, the weights rounded to V's dtype before they multiply V (as
+    the port's and the reference's full-KV decode does) or kept in f32 (as
+    K2 keeps them)."""
+    D = q.shape[-1]
+    s = torch.einsum("bhrd,bshd->bhrs", q.to(K.dtype).float(), K.float()) * D ** -0.5
+    p = torch.softmax(s.masked_fill(~valid[:, :, None, :], -1e30), -1)
+    if not f32_weights:
+        p = p.to(V.dtype).float()
+    return torch.einsum("bhrs,bshd->bhrd", p, V.float())
+
+
+def train_then_serve(torch):
+    """(e): tests/test_system.py's recipe on the card at d_head 64: train
+    SERVE_MODEL (SERVE_TRAIN) through ``make_train_step``, then serve it
+    greedily through full, FIER, quest and slm under that test's gates.
+
+    At budget >= length (112) FIER through the kernels (one_pass: K1/K2)
+    attends every valid token, so it is full-KV attention with the softmax
+    weights kept in f32, where full-KV rounds them to bf16 before they
+    multiply V.  Its gates: K1 selects every valid token at every call; at
+    every call K2's output lies within K2_REL_TOL of full-KV attention with
+    f32 weights on the same tensors (its gap to bf16 weights reported);
+    fed full's greedy tokens (teacher forcing, 16 steps), its logits lie
+    within SERVE_LOGIT_REL_TOL · max|logit| of full-KV's at every step, and
+    two planted K2 faults (every index one token on, as phase 3; the newest
+    token dropped) read above that.  The witness, full-KV with f32 weights
+    at the FIER layers (the reference pipeline at budget 112 with
+    ``sparse_attention``'s weights kept in f32), is fed the same tokens and
+    its gaps to both are reported; free-running, K1/K2 must give the
+    witness's greedy tokens exactly.  The reference pipeline at budget 112
+    (as tests/test_system.py builds it: the same numerics as full-KV) must
+    give full's greedy tokens exactly.  K1/K2's free-running agreement with
+    full is reported, not gated: after the first near-tie the two runs see
+    different tokens.  The budget-24 agreements and the NLL gap
+    run through the kernels.  K1 = K2 = (layers − skip) × the kernel path's
+    decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import retrieval
+    from repro_torch.core.policy import PolicyConfig
+    from repro_torch.data.pipeline import lm_tokens
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.launch.steps import TrainHParams
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(reduced_config("olmo-1b"), **SERVE_MODEL)
+    tr = SERVE_TRAIN
+    hp = TrainHParams(peak_lr=tr["peak_lr"], warmup=tr["warmup"], total_steps=tr["steps"])
+    t0 = time.perf_counter()
+    state, ms_, ms = train_run(torch, cfg, hp, ShapeConfig("sys", tr["seq"], tr["batch"],
+                                                           "train"), tr["steps"],
+                               seed=tr["seed"])
+    t_train = time.perf_counter() - t0
+    params = state["params"]
+    losses = [m["loss"] for m in ms_]
+    learned = losses[-1] < 0.7 * losses[0]
+
+    skip = 1
+    fier = lambda budget, pipeline="one_pass": PolicyConfig(
+        kind="fier", budget=budget, group=8, skip_layers=skip, pipeline=pipeline)
+    bundle = lambda pol: build_model(cfg, pol, device=DEVICE)
+    kernel_retrieve, kernel_attend = ops.fier_retrieve, ops.fier_attend_selected
+    sparse_attention = retrieval.sparse_attention
+    uncovered, k2_gap = [], {"f32": 0.0, "bf16": 0.0, "calls": 0}
+
+    def covering_retrieve(q, codes, scale, zero, lengths, budget, **kw):
+        """K1, and whether its selection holds every token below the length."""
+        idx, tau, m = kernel_retrieve(q, codes, scale, zero, lengths, budget, **kw)
+        S = codes.shape[1] * 8
+        mark = torch.zeros((*idx.shape[:2], S + 1), dtype=torch.bool, device=idx.device)
+        mark.scatter_(2, idx.clamp(0, S).to(torch.int64), True)
+        need = torch.arange(S, device=idx.device)[None, None] < lengths[:, None, None]
+        uncovered.append(int((need & ~mark[..., :S]).sum()))
+        return idx, tau, m
+
+    def witnessed_attend(q, K, V, idx, lengths=None, **kw):
+        """K2, and its gaps to full-KV attention with f32 and bf16 weights."""
+        out = kernel_attend(q, K, V, idx, lengths, **kw).float()
+        valid = torch.arange(K.shape[1], device=K.device)[None, None] < lengths[:, None, None]
+        f32w = _dense_attend(torch, q, K, V, valid, f32_weights=True)
+        bf16w = _dense_attend(torch, q, K, V, valid, f32_weights=False)
+        top = float(f32w.abs().max())
+        k2_gap["f32"] = max(k2_gap["f32"], float((out - f32w).abs().max()) / top)
+        k2_gap["bf16"] = max(k2_gap["bf16"], float((out - bf16w).abs().max()) / top)
+        k2_gap["calls"] += 1
+        return out
+
+    def f32_weights_attention(q, Ksel, Vsel, idx, length=None):
+        """``retrieval.sparse_attention`` with the softmax weights kept in f32."""
+        B, Hq, D = q.shape
+        valid = idx < length[:, None, None] if length is not None else torch.ones_like(
+            idx, dtype=torch.bool)
+        out = _dense_attend(torch, q.reshape(B, Ksel.shape[2], -1, D), Ksel, Vsel, valid,
+                            f32_weights=True)
+        return out.reshape(B, Hq, D).to(q.dtype)
+
+    def with_kernels(retrieve, attend, fn):
+        ops.fier_retrieve, ops.fier_attend_selected = retrieve, attend
+        try:
+            return fn()
+        finally:
+            ops.fier_retrieve, ops.fier_attend_selected = kernel_retrieve, kernel_attend
+
+    reset_launch_counts()
+    with torch.no_grad():
+        prompt = lm_tokens(tr["seed"], 999, 4, 96, cfg.vocab)[:, :96].to(DEVICE)
+        full = _greedy(torch, bundle(PolicyConfig(kind="full")), params, prompt)
+        forced = full[0]  # full's own run was fed these tokens: full[1] is its forced run
+        agree = lambda a, b: float((a[0] == b[0]).float().mean())
+        exact = agree(full, _greedy(torch, bundle(fier(112, "reference")), params, prompt))
+        run_112, forced_112 = with_kernels(covering_retrieve, witnessed_attend, lambda: (
+            _greedy(torch, bundle(fier(112)), params, prompt),
+            _greedy(torch, bundle(fier(112)), params, prompt, forced=forced)))
+        kernels_112, split = agree(full, run_112), _first_split(torch, full, run_112)
+        agree_pol = lambda pol: agree(full, _greedy(torch, bundle(pol), params, prompt))
+        a_fier = agree_pol(fier(24))
+        a_quest = agree_pol(PolicyConfig(kind="quest", budget=24, page=8, skip_layers=skip))
+        a_slm = agree_pol(PolicyConfig(kind="slm", budget=24, skip_layers=skip))
+        toks = lm_tokens(tr["seed"], 500, 4, 160, cfg.vocab).to(DEVICE)
+        nll = {"full": _teacher_forced_nll(torch, bundle(None), params, toks),
+               "fier": _teacher_forced_nll(torch, bundle(fier(24)), params, toks),
+               "slm": _teacher_forced_nll(torch, bundle(PolicyConfig(
+                   kind="slm", budget=24, skip_layers=skip)), params, toks)}
+        counts = launch_counts()
+        # after the count: the witness (no kernel) and the planted K2 faults
+        retrieval.sparse_attention = f32_weights_attention
+        try:
+            witness = _greedy(torch, bundle(fier(112, "reference")), params, prompt)
+            witness_forced = _greedy(torch, bundle(fier(112, "reference")), params, prompt,
+                                     forced=forced)
+        finally:
+            retrieval.sparse_attention = sparse_attention
+
+        def shifted(q, K, V, idx, lengths=None, **kw):
+            return kernel_attend(q, K, V, (idx + 1) % K.shape[1], lengths, **kw)
+
+        def newest_dropped(q, K, V, idx, lengths=None, **kw):
+            newest = (lengths - 1).to(idx.dtype)[:, None, None]
+            return kernel_attend(q, K, V, torch.where(idx == newest, newest + 1, idx),
+                                 lengths, **kw)
+
+        faults = {name: with_kernels(kernel_retrieve, attend, lambda: _greedy(
+            torch, bundle(fier(112)), params, prompt, forced=forced))[1]
+            for name, attend in (("K2 fed idx+1", shifted),
+                                 ("K2 without the newest token", newest_dropped))}
+    V = cfg.vocab
+    top = float(full[1][..., :V].abs().max())
+    gap = lambda a, b: float((a[..., :V] - b[..., :V]).abs().max()) / top
+    tf_full, tf_witness = gap(forced_112[1], full[1]), gap(forced_112[1], witness_forced[1])
+    tf_witness_full = gap(witness_forced[1], full[1])
+    fault_gaps = {name: gap(lg, full[1]) for name, lg in faults.items()}
+    fier_steps = 16 + 16 + 16 + 24  # K1/K2 at budget 112 free and forced, at 24, NLL
+    bound = 0.5 * max(nll["slm"] - nll["full"], 1e-9) + 0.05
+    log(f"  train-then-serve ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads x "
+        f"{cfg.d_head}, vocab {V}): {tr['steps']} steps in {t_train:.1f} s (median "
+        f"{median(ms):.1f} ms/step), loss {losses[0]:.4f} -> {losses[-1]:.4f} (gate: below "
+        f"0.7 x first)")
+    log(f"  budget 112 (>= length): reference pipeline's greedy agreement with full "
+        f"{exact:.4f} (gate 1); through K1/K2: K1 left {sum(uncovered)} valid tokens "
+        f"unselected over {len(uncovered)} calls (gate 0); K2 vs full-KV attention over "
+        f"{k2_gap['calls']} calls, max |Δout| / max|out|: f32 weights {k2_gap['f32']:.4g} "
+        f"(gate {K2_REL_TOL}), bf16 weights {k2_gap['bf16']:.4g} (reported)")
+    log(f"  budget 112, fed full's greedy tokens, max |Δlogit| / max|logit| ({top:.4g}) over "
+        f"16 steps: K1/K2 vs full {tf_full:.4g} (gate {SERVE_LOGIT_REL_TOL}); planted faults "
+        + ", ".join(f"{n} {g:.4g}" for n, g in fault_gaps.items())
+        + f" (gate: above it); witness (full-KV, f32 weights at the FIER layers): K1/K2 vs "
+        f"witness {tf_witness:.4g}, witness vs full {tf_witness_full:.4g} (reported)")
+    a_witness = agree(witness, run_112)
+    log(f"  budget 112 free-running greedy agreement: K1/K2 with the witness {a_witness:.4f} "
+        f"(gate 1); reported: K1/K2 with full {kernels_112:.4f} (first parting (row, step, "
+        f"full's top-2 gap, |Δlogit|) {split}), witness with full {agree(full, witness):.4f}")
+    log(f"  budget 24 through K1/K2: FIER {a_fier:.4f}, quest {a_quest:.4f}, slm {a_slm:.4f} "
+        f"(gates: FIER above both, >= 0.4); teacher-forced NLL full {nll['full']:.4f}, FIER "
+        f"{nll['fier']:.4f}, slm {nll['slm']:.4f} (gate: FIER gap {nll['fier'] - nll['full']:.4f}"
+        f" < {bound:.4f}); launches {counts}")
+    check_launches(counts, SLAB_KERNELS, (cfg.n_layers - skip) * fier_steps)
+    n112 = (cfg.n_layers - skip) * 32
+    failed = [name for name, ok in (
+        ("training learns", learned), ("budget >= length is exact (reference)", exact == 1.0),
+        ("K1 keeps every valid token at budget >= length",
+         len(uncovered) == n112 and sum(uncovered) == 0),
+        ("K2 is full-KV attention with f32 weights at budget >= length",
+         k2_gap["calls"] == n112 and k2_gap["f32"] <= K2_REL_TOL),
+        ("K1/K2 logits at budget >= length near full's", tf_full <= SERVE_LOGIT_REL_TOL),
+        ("K1/K2 at budget >= length gives the f32-weight witness's tokens", a_witness == 1.0),
+        ("the logit gate sees the planted faults",
+         min(fault_gaps.values()) > SERVE_LOGIT_REL_TOL),
+        ("FIER above quest", a_fier > a_quest), ("FIER above slm", a_fier > a_slm),
+        ("FIER >= 0.4", a_fier >= 0.4), ("NLL gap", nll["fier"] - nll["full"] < bound)) if not ok]
+    if failed:
+        raise AssertionError(f"train-then-serve gates failed: {failed}")
+    return dict(losses=[losses[0], losses[-1]], exact=exact, kernels_112=kernels_112,
+                witness_112=a_witness, split_112=split, k2_gap=k2_gap, tf_full=tf_full, tf_witness=tf_witness,
+                tf_witness_full=tf_witness_full, faults=fault_gaps, fier=a_fier,
+                quest=a_quest, slm=a_slm, nll=nll,
+                launches={k: counts[k] for k in SLAB_KERNELS}, train_s=t_train)
+
+
+def training_path(torch):
+    """Phase 11: (a) flash backward, (b) olmo-1b full, (c) restart, (d) the
+    other families, (e) train then serve through K1/K2."""
+    t0 = time.perf_counter()
+    out = {}
+    log("  (a) flash-attention backward vs the dense oracle")
+    out["flash"] = flash_backward_checks(torch)
+    free(torch)
+    log("  (b) olmo-1b at full width and depth")
+    out["olmo"] = olmo_full_train(torch)
+    free(torch)
+    log("  (c) checkpoint/restart, deterministic algorithms")
+    out["restart"] = restart_check(torch)
+    free(torch)
+    log("  (d) the other families, depth cut")
+    out["families"] = family_train(torch)
+    log("  (e) train, then serve through the kernels")
+    out["serve"] = train_then_serve(torch)
+    free(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 11 wall time {out['wall_s']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3495,6 +4130,11 @@ def main() -> int:
             if "stack frame" in line and not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"{name}: a kernel uses local memory: {line.strip()}")
+
+    if "--training-only" in sys.argv:  # phase 11 alone after the build; no result line
+        log("[training] flash backward, olmo-1b, restart, the families, train then serve")
+        training_path(torch)
+        return 0
 
     log("[kernels] each kernel against its plain version")
     timer = Timer(torch)
@@ -3571,6 +4211,9 @@ def main() -> int:
     log("[ssm / hybrid / encdec] mamba2-370m, zamba2-7b and whisper-small at full width")
     fam.update(ssm_hybrid_encdec_path(torch))
 
+    log("[training] flash backward, olmo-1b, restart, the families, train then serve")
+    p11 = training_path(torch)
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "fier_retrieve": (csrc + "fier_retrieve.cu", "src/repro/kernels/fused_retrieval.py:284"),
@@ -3637,6 +4280,8 @@ def main() -> int:
         fam_key = "launches_paged" if name in PAGED_KERNELS else "launches"
         row["launches_families"] = {a: r[fam_key][name] for a, r in fam.items()
                                     if name in r.get(fam_key, {})}
+        if name in SLAB_KERNELS:  # phase 11(e): a model trained on the card, then served
+            row["launches_train_then_serve"] = p11["serve"]["launches"][name]
         if name == "fier_attend_selected":
             row["launches_two_pass"] = counts_p6[name]
         if name in ("fier_attend_selected", "fier_attend_selected_paged", "sparse_attention"):

@@ -1,10 +1,12 @@
-"""Carry the JAX package's parameters over to the port.
+"""Carry the JAX package's parameters and train states over to the port.
 
 ``params_from_jax(tree, cfg)`` takes the reference's parameter tree with
 every leaf already turned into a numpy array (``jax.tree.map(np.asarray,
 params)``; a bf16 leaf may arrive as an ml_dtypes bfloat16 array or as
 float32 — both convert exactly) and returns the same nested dict of torch
-tensors, so both packages compute the same function.
+tensors, so both packages compute the same function.  ``train_state_from_jax``
+does the same for a train state: params, the AdamW moments and step, and
+the error-feedback residual where there is one.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.optim import AdamWState
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -103,3 +106,24 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device="cuda",
             raise ValueError(f"{path} is {got}: not the {list(shape)} leaf of a "
                              f"{cfg.family} tree for {cfg.name}")
     return params
+
+
+def train_state_from_jax(state: dict, cfg: ModelConfig, *, device="cuda",
+                         max_positions: int | None = None) -> dict:
+    """The reference's train state ``{"params", "opt": AdamWState(step, mu,
+    nu)[, "ef"]}`` with numpy leaves (``jax.tree.map(np.asarray, state)``)
+    as the port's: every params-shaped tree through ``params_from_jax``
+    (shape-checked against ``cfg``), the step an int32 scalar."""
+    opt = state["opt"]
+    step, mu, nu = (opt.step, opt.mu, opt.nu) if hasattr(opt, "mu") else (
+        opt["step"], opt["mu"], opt["nu"])
+    tree = lambda t: params_from_jax(t, cfg, device=device, max_positions=max_positions)
+    out = {
+        "params": tree(state["params"]),
+        "opt": AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                            device=resolve_device(device)),
+                          mu=tree(mu), nu=tree(nu)),
+    }
+    if "ef" in state:
+        out["ef"] = tree(state["ef"])
+    return out

@@ -1,5 +1,4 @@
-"""Whisper-style encoder-decoder: the port of ``repro.models.encdec``
-(forward only; ``train_loss`` waits for ROADMAP Queue 1 item 11).
+"""Whisper-style encoder-decoder: the port of ``repro.models.encdec``.
 
 The audio conv frontend is a stub: prefill takes precomputed frame
 embeddings ``batch["frames"]`` [B, enc_ctx, d_model] (through
@@ -14,6 +13,12 @@ positions are learned; the table has ``max_positions`` rows (the config's
 last row.  Prefill's attention is the plain-torch ``flash_attention``
 (non-causal against the encoder output); decode's cross-attention is
 ``full_attention_decode`` over ``cross_k`` / ``cross_v``.
+
+``train_loss`` encodes the frames, runs the decoder over the whole target
+sequence (causal self-attention, cross-attention to the encoder output
+through ``attention_train``'s ``kv_x``), each encoder and decoder layer
+rematerialised in the backward when ``remat``, then the chunked
+cross-entropy (chunk 512) against the tied embedding.
 
 The cache is {"front", "rest" (as the transformer's), "cross_k", "cross_v"
 [L, B, enc_ctx, Hkv, D] bf16, "length"}, updated in place.
@@ -31,7 +36,7 @@ from repro_torch.kvcache import cache as kvcache
 from . import attention as attn
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
 from .transformer import (_DTYPES, ModelBundle, _layer_cache, _layer_params, _masked_logits,
-                          tree_map)
+                          checkpointed, chunked_ce, tree_map, unstack)
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -81,7 +86,8 @@ def _residual(h, a):
 
 
 def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
-          max_positions: int | None = None) -> ModelBundle:
+          max_positions: int | None = None, remat: bool = True,
+          loss_chunk: int = 512) -> ModelBundle:
     device = torch.device(device)
     pol = pol or PolicyConfig(kind="full")
     plan = DecodePlan.build(pol)
@@ -114,21 +120,50 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
                     dec_layers=tree_map(cast, params["dec_layers"]))
 
     # --------------------------------------------------------------- encode
-    def encode(params, frames):
-        """frames [B, Senc, d] → the encoder output [B, Senc, d] (bf16)."""
+    def _enc_layer(h, lp):
+        a = attn.attention_train(lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), cfg,
+                                 causal=False)
+        h, r = _residual(h, a)
+        return h + mlp_apply(apply_norm(r, lp["norm2"], cfg.norm).to(cdt), lp["mlp"], cfg.act)
+
+    enc_layer_train = checkpointed(_enc_layer, remat)
+
+    def encode(params, frames, *, train: bool = False):
+        """frames [B, Senc, d] → the encoder output [B, Senc, d] (bf16);
+        ``train`` rematerialises each layer when the bundle remats."""
         pos = torch.from_numpy(sinusoids(frames.shape[1], cfg.d_model)).to(frames.device, cdt)
         h = frames.to(cdt) + pos
-        for l in range(cfg.n_enc_layers):
-            lp = _layer_params(params["enc_layers"], l)
-            a = attn.attention_train(lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), cfg,
-                                     causal=False)
-            h, r = _residual(h, a)
-            h = h + mlp_apply(apply_norm(r, lp["norm2"], cfg.norm).to(cdt), lp["mlp"], cfg.act)
+        layer = enc_layer_train if train else _enc_layer
+        for lp in unstack(params["enc_layers"], cfg.n_enc_layers):
+            h = layer(h, lp)
         return apply_norm(h, params["enc_norm"], cfg.norm)
 
     def _dec_embed(params, tokens):
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         return (params["embed"][tokens] + params["pos_dec"][pos][None]).to(cdt)
+
+    # ---------------------------------------------------------------- train
+    def _dec_layer(h, lp, enc):
+        a = attn.attention_train(lp["self_attn"], apply_norm(h, lp["norm1"], cfg.norm), cfg)
+        h, r = _residual(h, a)
+        x = attn.attention_train(lp["cross_attn"], apply_norm(r, lp["norm_x"], cfg.norm).to(cdt),
+                                 cfg, causal=False, kv_x=enc)
+        h, r = _residual(h, x)
+        return h + mlp_apply(apply_norm(r, lp["norm2"], cfg.norm).to(cdt), lp["mlp"], cfg.act)
+
+    dec_layer_train = checkpointed(_dec_layer, remat)
+
+    def train_loss(params, batch):
+        """(loss, {loss, moe_aux: 0, tokens}) over {frames [B, enc_ctx, d],
+        tokens, targets, loss_mask}."""
+        enc = encode(params, batch["frames"], train=True)
+        h = _dec_embed(params, batch["tokens"])
+        for lp in unstack(params["dec_layers"], L):
+            h = dec_layer_train(h, lp, enc)
+        h = apply_norm(h, params["dec_norm"], cfg.norm)
+        loss, n = chunked_ce(h, params["embed"].T, batch["targets"], batch["loss_mask"],
+                             cfg.vocab, Vp, loss_chunk)
+        return loss, {"loss": loss, "moe_aux": torch.zeros((), device=h.device), "tokens": n}
 
     # -------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
@@ -214,6 +249,6 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
     bundle = ModelBundle(
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
-        policy=pol, plan=plan,
+        policy=pol, plan=plan, train_loss=train_loss,
     )
     return bundle

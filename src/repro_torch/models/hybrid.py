@@ -1,6 +1,5 @@
 """Zamba2-style hybrid: a Mamba2 backbone with one weight-shared attention
-block — the port of ``repro.models.hybrid`` (forward only; ``train_loss``
-waits for ROADMAP Queue 1 item 11).
+block — the port of ``repro.models.hybrid``.
 
 Every ``attn_every`` Mamba2 layers the one shared block (a single weight
 copy) runs on ``concat(hidden, original embedding)`` (width 2·d_model)
@@ -13,6 +12,11 @@ every application point runs the policy (the first already sits
 ``attn_every`` layers deep).  ``params["mamba"]`` is stacked
 [n_apps, attn_every, ...]; the ``n_layers − n_apps·attn_every`` layers
 left over are ``mamba_tail`` (81 = 13·6 + 3 at zamba2-7b).
+
+``train_loss`` runs each application point's Mamba2 layers and the shared
+block as one rematerialised unit (the reference's ``super_fn`` under
+``jax.checkpoint``); the shared block's gradient is the sum over its
+application points, which autograd forms from its one weight copy.
 
 The cache is {"mamba": {conv, ssm} [n_apps, E, B, ...], "attn": {k, v[,
 meta]}, "length", ["mamba_tail"]}, updated in place.
@@ -30,7 +34,7 @@ from . import mamba2
 from .layers import (apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply,
                      rms_norm)
 from .transformer import (_DTYPES, ModelBundle, _layer_cache, _layer_params, _masked_logits,
-                          tree_map)
+                          checkpointed, chunked_ce, tree_map, unstack)
 
 
 def _n_apps(cfg: ModelConfig) -> tuple[int, int]:
@@ -48,7 +52,8 @@ def init_shared_block(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> 
     }
 
 
-def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -> ModelBundle:
+def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
+          remat: bool = True, loss_chunk: int = 1024) -> ModelBundle:
     device = torch.device(device)
     pol = pol or PolicyConfig(kind="full")
     plan = DecodePlan.build(pol)
@@ -91,6 +96,30 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
         r = h.to(torch.float32) + o.to(torch.float32)
         xn = apply_norm(r, sp["norm2"], cfg.norm).to(cdt)
         return r.to(cdt) + mlp_apply(xn, sp["mlp"], cfg.act)
+
+    # ---------------------------------------------------------------- train
+    def _super_train(h, x0, lps, sp):
+        """One application point: its attn_every Mamba2 layers, then the
+        shared block (attention on concat(h, x0), MLP on the hidden)."""
+        for lp in lps:
+            h = mamba2.mamba_block_train(h, lp, cfg)
+        xn = apply_norm(torch.cat([h, x0], dim=-1), sp["norm1"], cfg.norm)
+        return _ffn(sp, h, attn.attention_train(sp["attn"], xn, cfg))
+
+    super_train = checkpointed(_super_train, remat)
+
+    def train_loss(params, batch):
+        """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
+        x0 = h = params["embed"][batch["tokens"]].to(cdt)
+        for app in unstack(params["mamba"], n_apps):
+            h = super_train(h, x0, unstack(app, E), params["shared"])
+        if tail:
+            for lp in unstack(params["mamba_tail"], tail):
+                h = mamba2.mamba_block_train(h, lp, cfg)
+        h = rms_norm(h, params["final_norm"])
+        loss, n = chunked_ce(h, params["embed"].T, batch["targets"], batch["loss_mask"],
+                             cfg.vocab, Vp, loss_chunk)
+        return loss, {"loss": loss, "moe_aux": torch.zeros((), device=h.device), "tokens": n}
 
     # -------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
@@ -178,6 +207,6 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
     bundle = ModelBundle(
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
-        policy=pol, plan=plan,
+        policy=pol, plan=plan, train_loss=train_loss,
     )
     return bundle

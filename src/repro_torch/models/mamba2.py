@@ -1,7 +1,9 @@
 """Mamba2 (SSD — state-space duality) blocks and the attention-free LM: the
-port of ``repro.models.mamba2`` (forward only; its ``train_loss`` waits for
-ROADMAP Queue 1 item 11).
+port of ``repro.models.mamba2``.
 
+* ``train_loss`` runs every block over the whole sequence (each
+  rematerialised in the backward when ``remat``), then the chunked
+  cross-entropy against the tied embedding.
 * Prefill runs the chunked SSD scan (``ssd_chunked``: the intra-chunk
   quadratic term, then the state recurrence as a loop over the chunks) and
   keeps each layer's final state; decode is the O(1) recurrent step.
@@ -28,7 +30,8 @@ from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.kvcache import cache as kvcache
 
 from .layers import init_embedding, init_linear, rms_norm, silu
-from .transformer import _DTYPES, ModelBundle, _layer_params, _masked_logits, tree_map
+from .transformer import (_DTYPES, ModelBundle, _layer_params, _masked_logits, checkpointed,
+                          chunked_ce, tree_map, unstack)
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -117,10 +120,14 @@ def ssd_chunked(
     # intra-chunk: y[t] += Σ_{s≤t} exp(cum_t − cum_s)·dt_s·(C_t·B_s)·x_s
     G = torch.einsum("bztn,bzsn->bzts", Cc, Bc)         # [B,nc,c,c]
     M = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B,nc,c,c,H]
-    M.exp_()
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
-    M.masked_fill_(~tri[None, None, :, :, None], 0.0)
-    M.mul_(G[..., None]).mul_(dtc[:, :, None, :, :])    # dt at source s
+    if M.requires_grad:  # the same ops out of place, so autograd keeps its inputs
+        M = torch.exp(M).masked_fill(~tri[None, None, :, :, None], 0.0)
+        M = M * G[..., None] * dtc[:, :, None, :, :]
+    else:
+        M.exp_()
+        M.masked_fill_(~tri[None, None, :, :, None], 0.0)
+        M.mul_(G[..., None]).mul_(dtc[:, :, None, :, :])  # dt at source s
     y = torch.einsum("bztsh,bzshp->bzthp", M, xc)
     del M, G
     # chunk-final states and the inter-chunk recurrence
@@ -136,12 +143,11 @@ def ssd_chunked(
     return (y + y_inter).reshape(B_, S, H, Pd), h
 
 
-def mamba_prefill_step(hc, lp, cfg: ModelConfig, lengths, valid):
-    """One Mamba2 layer over the whole sequence, with its final state: the
-    forward of the reference's mamba2 prefill layer and of the hybrid's
-    ``_mamba_prefill_step``.  hc [B, S, d] (bf16); valid [B, S] masks the
-    prompt padding (dt = 0 there, so the state stops at each row's length).
-    Returns (hc, {"conv": [B, K-1, Ch] bf16, "ssm": [B, H, P, N] f32})."""
+def _block(hc, lp, cfg: ModelConfig, valid):
+    """One Mamba2 block over the whole sequence: (hc + the block's output,
+    the pre-conv xBC [B, S, Ch], the final SSD state).  ``valid`` [B, S]
+    (or None: every position) zeroes dt at the prompt padding, so the state
+    stops at each row's length."""
     B, S, _ = hc.shape
     di, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     xn = rms_norm(hc, lp["pre_norm"])
@@ -154,12 +160,28 @@ def mamba_prefill_step(hc, lp, cfg: ModelConfig, lengths, valid):
     dt = softplus(dt_raw.to(torch.float32) + lp["dt_bias"])
     # padded positions must not advance the state: dt → 0 there makes the
     # decay 1 and the update 0, so h_last is exactly the state at `length`
-    dt = dt * valid[:, :, None]
+    if valid is not None:
+        dt = dt * valid[:, :, None]
     A = -torch.exp(lp["A_log"])
     y, h_last = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk)
     y = y + lp["D"][None, None, :, None] * xs
     y = _gated_norm(y.reshape(B, S, di).to(hc.dtype), z, lp["norm_w"])
-    hc = hc + y @ lp["out_proj"].to(hc.dtype)
+    return hc + y @ lp["out_proj"].to(hc.dtype), xBC, h_last
+
+
+def mamba_block_train(hc, lp, cfg: ModelConfig):
+    """Pre-norm residual Mamba2 block over a full sequence (training)."""
+    return _block(hc, lp, cfg, None)[0]
+
+
+def mamba_prefill_step(hc, lp, cfg: ModelConfig, lengths, valid):
+    """One Mamba2 layer over the whole sequence, with its final state: the
+    forward of the reference's mamba2 prefill layer and of the hybrid's
+    ``_mamba_prefill_step``.  hc [B, S, d] (bf16); valid [B, S] masks the
+    prompt padding.  Returns (hc, {"conv": [B, K-1, Ch] bf16, "ssm":
+    [B, H, P, N] f32})."""
+    B, S, _ = hc.shape
+    hc, xBC, h_last = _block(hc, lp, cfg, valid)
     # conv state: the raw (pre-conv) inputs at each row's last K-1 valid
     # positions; the start clamped into [0, S-(K-1)] as dynamic_slice clamps it
     K = cfg.conv_kernel
@@ -216,7 +238,8 @@ def compute_block(p: dict, cdt: torch.dtype) -> dict:
 
 # ----------------------------------------------------------------- LM build
 
-def build(cfg: ModelConfig, *, device="cuda") -> ModelBundle:
+def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
+          loss_chunk: int = 1024) -> ModelBundle:
     device = torch.device(device)
     Vp = padded_vocab(cfg)
     cdt, pdt = _DTYPES[cfg.compute_dtype], _DTYPES[cfg.param_dtype]
@@ -234,6 +257,18 @@ def build(cfg: ModelConfig, *, device="cuda") -> ModelBundle:
 
     def compute_params(params: dict) -> dict:
         return dict(params, layers=compute_block(params["layers"], cdt))
+
+    block_train = checkpointed(lambda h, lp: mamba_block_train(h, lp, cfg), remat)
+
+    def train_loss(params, batch):
+        """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
+        h = params["embed"][batch["tokens"]].to(cdt)
+        for lp in unstack(params["layers"], L):
+            h = block_train(h, lp)
+        h = rms_norm(h, params["final_norm"])
+        loss, n = chunked_ce(h, params["embed"].T, batch["targets"], batch["loss_mask"],
+                             cfg.vocab, Vp, loss_chunk)
+        return loss, {"loss": loss, "moe_aux": torch.zeros((), device=h.device), "tokens": n}
 
     def prefill(params, batch, capacity: int | None = None):
         """Sequential-state prefill (``capacity`` unused: the state is O(1)).
@@ -271,5 +306,6 @@ def build(cfg: ModelConfig, *, device="cuda") -> ModelBundle:
     bundle = ModelBundle(
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
+        train_loss=train_loss,
     )
     return bundle

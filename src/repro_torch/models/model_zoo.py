@@ -13,24 +13,26 @@ from .transformer import ModelBundle
 
 def build_model(
     cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
-    max_positions: int | None = None,
+    remat: bool = True, max_positions: int | None = None,
 ) -> ModelBundle:
     """The model bundle for ``cfg`` on ``device`` (CUDA by default; a
-    missing card raises).  ``max_positions`` sizes an encdec decoder's
-    learned position table (the config's ``max_target_positions`` when
-    None); other families ignore it.  A paged layout is refused for every
-    family but the transformer's, as in the reference."""
+    missing card raises).  ``remat`` rematerialises each layer (the
+    hybrid: each application point) in ``train_loss``'s backward.
+    ``max_positions`` sizes an encdec decoder's learned position table (the
+    config's ``max_target_positions`` when None); other families ignore it.
+    A paged layout is refused for every family but the transformer's, as in
+    the reference."""
     if pol is not None and pol.layout == "paged" and cfg.family not in transformer.FAMILIES:
         raise ValueError(
             f"paged KV cache is only supported for transformer families, not {cfg.family!r}"
         )
     dev = resolve_device(device)
     if cfg.family in transformer.FAMILIES:
-        return transformer.build(cfg, pol, device=dev)
+        return transformer.build(cfg, pol, device=dev, remat=remat)
     if cfg.family == "ssm":
-        return mamba2.build(cfg, device=dev)
+        return mamba2.build(cfg, device=dev, remat=remat)
     if cfg.family == "hybrid":
-        return hybrid.build(cfg, pol, device=dev)
+        return hybrid.build(cfg, pol, device=dev, remat=remat)
     if cfg.family == "encdec":
-        return encdec.build(cfg, pol, device=dev, max_positions=max_positions)
+        return encdec.build(cfg, pol, device=dev, remat=remat, max_positions=max_positions)
     raise ValueError(f"unknown family {cfg.family!r}")

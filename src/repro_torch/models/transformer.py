@@ -5,6 +5,12 @@ of a vision-language model: prefill takes precomputed vision embeddings
 [B, n_vision_tokens, d] as a prefix of the sequence).
 
 * Layer params are stacked along a leading L axis; depth is a Python loop.
+* ``train_loss`` runs the whole sequence through every layer (flash
+  attention with its blockwise backward), each layer rematerialised in the
+  backward when ``remat`` (``torch.utils.checkpoint``, the reference's
+  ``jax.checkpoint(..., nothing_saveable)``), then a sequence-chunked
+  cross-entropy that recomputes each chunk's logits in the backward.  Layer
+  weights are cast from the f32 master params inside the graph.
 * Prefill runs blocked flash attention over the prompt, zero-pads each
   layer's K/V to ``capacity`` and builds the policy's side-car (the FIER
   codes or the Quest page min/max) over the whole padded slab of every
@@ -23,6 +29,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
@@ -34,6 +41,7 @@ from . import moe as moe_mod
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
 
 FAMILIES = ("dense", "moe", "vlm")  # what build() takes
+MOE_AUX_COEF = 0.01
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -52,6 +60,7 @@ class ModelBundle:
     plan: DecodePlan | None = None
     prefill_chunk: Callable | None = None  # (params, batch, cache, *, final)
                                            # -> (logits | None, cache)
+    train_loss: Callable | None = None     # (params, batch) -> (loss, metrics)
 
 
 def tree_map(fn, tree):
@@ -64,6 +73,26 @@ def _layer_params(layers: dict, i: int) -> dict:
     return tree_map(lambda a: a[i], layers)
 
 
+def unstack(tree: dict, n: int) -> list[dict]:
+    """The n per-layer trees of a tree stacked along axis 0, through one
+    ``torch.unbind`` per leaf: its backward stacks the layers' gradients
+    once, where indexing each layer would add a full-size zero gradient per
+    layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def checkpointed(fn: Callable, enabled: bool) -> Callable:
+    """``fn`` recomputed in the backward instead of keeping its activations
+    (the reference's ``jax.checkpoint``), when ``enabled``."""
+    if not enabled:
+        return fn
+    # the models draw no random numbers, so the RNG state need not be kept
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def _layer_cache(stack: dict, i: int) -> dict:
     lc = {"k": stack["k"][i], "v": stack["v"][i]}
     if "meta" in stack:
@@ -71,7 +100,8 @@ def _layer_cache(stack: dict, i: int) -> dict:
     return lc
 
 
-def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -> ModelBundle:
+def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
+          remat: bool = True, loss_chunk: int = 1024) -> ModelBundle:
     if cfg.family not in FAMILIES:
         raise ValueError(f"transformer.build takes {FAMILIES}, not {cfg.family!r} "
                          f"(models.model_zoo.build_model dispatches the others)")
@@ -124,34 +154,64 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
 
     # ------------------------------------------------------------- helpers
     def _ffn_block(lp, h, attn_out, decode: bool = False):
-        """h + attn_out, then the FFN sub-block on it.  The norm reads the
-        f32 residual sum, not its bf16 rounding: compiled, the reference's
-        layer (repro/models/transformer.py:185-196, :391-400) elides that
-        round trip (XLA's excess precision), and the port mirrors it.  MoE
+        """h + attn_out, then the FFN sub-block on it; returns (h, the MoE
+        aux loss or None).  The norm reads the f32 residual sum, not its
+        bf16 rounding: compiled, the reference's layer
+        (repro/models/transformer.py:185-196, :391-400) elides that round
+        trip (XLA's excess precision), and the port mirrors it.  MoE
         dispatches as the reference's ``_ffn`` (:129-145): the dense-masked
         experts in decode, the capacity scatter over every position of the
-        call (prompt padding included) in prefill and chunked prefill."""
+        call (prompt padding included) in training, prefill and chunked
+        prefill."""
         r = h.to(torch.float32) + attn_out.to(torch.float32)
         xn = apply_norm(r, lp["norm2"], cfg.norm).to(cdt)
         if not is_moe:
-            return r.to(cdt) + mlp_apply(xn, lp["mlp"], cfg.act)
+            return r.to(cdt) + mlp_apply(xn, lp["mlp"], cfg.act), None
         apply = moe_mod.moe_apply_masked if decode else moe_mod.moe_apply
-        y, _ = apply(xn.reshape(-1, cfg.d_model), lp["moe"], cfg)
-        return r.to(cdt) + y.reshape(xn.shape)
+        y, aux = apply(xn.reshape(-1, cfg.d_model), lp["moe"], cfg)
+        return r.to(cdt) + y.reshape(xn.shape), aux
 
     def _head(params):
         return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+    # --------------------------------------------------------------- train
+    def _embed_inputs(params, batch):
+        """Token embeddings in the compute dtype, after the vision prefix
+        [B, n_vision, d] when the batch has one."""
+        h = params["embed"][batch["tokens"]].to(cdt)
+        if batch.get("vision_embeds") is not None:
+            h = torch.cat([batch["vision_embeds"].to(cdt), h], dim=1)
+        return h
+
+    def _layer_train(h, lp):
+        a = attn.attention_train(lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), cfg)
+        h, aux = _ffn_block(lp, h, a)
+        return h, (torch.zeros((), device=h.device) if aux is None else aux)
+
+    layer_train = checkpointed(_layer_train, remat)
+
+    def train_loss(params, batch):
+        """(loss + MOE_AUX_COEF · mean aux, {loss, moe_aux, tokens}) over
+        ``batch`` = {tokens [B, St], targets [B, S], loss_mask [B, S][,
+        vision_embeds [B, n_vision, d]]} (S = n_vision + St)."""
+        h = _embed_inputs(params, batch)
+        auxs = []
+        for lp in unstack(params["layers"], L):
+            h, aux = layer_train(h, lp)
+            auxs.append(aux)
+        h = apply_norm(h, params["final_norm"], cfg.norm)
+        loss, n_tok = chunked_ce(h, _head(params), batch["targets"], batch["loss_mask"],
+                                 cfg.vocab, Vp, loss_chunk)
+        aux = torch.stack(auxs).mean() if is_moe else torch.zeros((), device=h.device)
+        return loss + MOE_AUX_COEF * aux, {"loss": loss, "moe_aux": aux, "tokens": n_tok}
 
     # ------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
         """Returns (last-token logits [B, Vp] f32, filled slab cache).
         ``batch["vision_embeds"]`` [B, n_vision, d], when present, precedes
         the token embeddings; ``lengths`` then count the vision positions."""
-        toks = batch["tokens"]
         lengths = batch["lengths"].to(torch.int32)
-        h = params["embed"][toks].to(cdt)  # [B, S, d]
-        if batch.get("vision_embeds") is not None:
-            h = torch.cat([batch["vision_embeds"].to(cdt), h], dim=1)
+        h = _embed_inputs(params, batch)  # [B, S, d]
         B, S, _ = h.shape
         cap = capacity if capacity is not None else S
         valid = kvcache.valid_mask(S, lengths)
@@ -162,7 +222,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
             xn = apply_norm(h, lp["norm1"], cfg.norm)
             q, k, v = attn.qkv_proj(lp["attn"], xn, cfg, positions=None)
             o = flash_attention(q, k, v, causal=True, bias_mask=valid)
-            h = _ffn_block(
+            h, _ = _ffn_block(
                 lp, h, o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"].to(h.dtype)
             )
             # K/V zero-padded to capacity, as jnp.pad does at
@@ -271,7 +331,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
             o = flash_attention(
                 q, Kl, Vl, causal=True, q_offset=start, bias_mask=(pos < start + n)[None]
             )
-            h = _ffn_block(
+            h, _ = _ffn_block(
                 lp, h, o.reshape(1, n, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"].to(h.dtype)
             )
             if not final:
@@ -318,7 +378,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
                 lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), lc, length, cfg,
                 layer_plan, block_table=block_table,
             )
-            h = _ffn_block(lp, h, o, decode=True)
+            h, _ = _ffn_block(lp, h, o, decode=True)
         h = apply_norm(h, params["final_norm"], cfg.norm)[:, 0]
         logits = _masked_logits(h, _head(params), cfg.vocab, Vp)
         return logits, dict(cache, length=length + 1)
@@ -335,10 +395,11 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda") -
         policy=pol,
         plan=plan,
         prefill_chunk=prefill_chunk,
+        train_loss=train_loss,
     )
 
 
-# ---------------------------------------------------------------- head
+# ---------------------------------------------------------------- head / CE
 
 def _vocab_col_mask(vocab: int, Vp: int, device) -> torch.Tensor:
     # the -1e30 padded-column mask of repro/models/transformer.py:439-440,
@@ -352,3 +413,32 @@ def _vocab_col_mask(vocab: int, Vp: int, device) -> torch.Tensor:
 def _masked_logits(h: torch.Tensor, W: torch.Tensor, vocab: int, Vp: int) -> torch.Tensor:
     logits = h.to(torch.float32) @ W.to(torch.float32)
     return logits + _vocab_col_mask(vocab, Vp, h.device)
+
+
+def _ce_chunk(hs, W, col_mask, ts, ms):
+    logits = hs.to(torch.float32) @ W + col_mask
+    nll = (torch.logsumexp(logits, dim=-1) - logits.gather(-1, ts[..., None])[..., 0]) * ms
+    return nll.sum(), ms.sum()
+
+
+def chunked_ce(h: torch.Tensor, W: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+               vocab: int, Vp: int, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequence-chunked cross-entropy (the reference's ``_chunked_ce``):
+    the f32 logits live one [B, chunk, Vp] slice at a time, padded vocab
+    columns at −1e30, and each chunk's logits are recomputed in the backward
+    rather than kept.  The chunk is min(chunk, S), halved while it does not
+    divide S.  Returns (mean NLL over the mask, the mask's sum)."""
+    S = h.shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    col_mask = _vocab_col_mask(vocab, Vp, h.device)
+    Wf = W.to(torch.float32)
+    targets, mask = targets.to(torch.int64), mask.to(torch.float32)
+    tot = cnt = torch.zeros((), device=h.device)
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        nll, n = checkpoint(_ce_chunk, h[:, sl], Wf, col_mask, targets[:, sl], mask[:, sl],
+                            use_reentrant=False)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0), cnt
