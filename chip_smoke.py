@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # the whole check, as described below
     python3 chip_smoke.py --kernels-only  # phases 1-2 only, no result line
     python3 chip_smoke.py --training-only # phases 1 and 11 only, no result line
+    python3 chip_smoke.py --sharded-only  # phases 1 and 12 only, no result line
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
@@ -223,11 +224,49 @@ result line):
    it, and greedy tokens equal to the f32-weight witness's (full-KV
    rounds the weights to bf16, so its free-running agreement is reported);
    K1 = K2 = 2 x 72 FIER decode steps.
-12. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
-   bound and launch count (K1/K2: phase 3; K3/K4: phase 5; K6/K7: phase 6's
-   generate; K5/K8: phase 6's building blocks; phases 9, 10 and 11(e)'s
-   beside them), the card line, and as the last line ``{"ok": true,
-   "device": {...}}``.
+12. Mesh-sharded serving (``sharded_path``), every shard on this card.
+   (a) olmo-1b at full width, phase 4's weights and prompts, paged one_pass
+   (bs 32, default pool) on ``make_mesh`` meshes tp2, dp2 and tp2 x dp2
+   (``Engine.build(mesh=...)``) against the one-device paged engine: the
+   prefill logits bit for bit; 32 decode steps teacher-forced with the
+   one-device run's tokens, bit for bit on tp2 and dp2
+   (``SHARD_BITWISE``) and on tp2 x dp2 the first within
+   ``SHARD_LOGIT_REL_TOL`` and every one within ``SHARD_DRIFT_REL_TOL`` of
+   max|logit|, with three planted faults read at every step of tp2 x dp2
+   beyond both (K4 fed idx+1, K3's last-layer selection on the next kv
+   head, a DP shard reading another shard's rows).  Each shard's K3/K4
+   take the unsharded call's split (``plan_rows``), so the FIER layers are
+   exact; the dense skip layers' batched cuBLAS GEMMs may pick another
+   kernel at a shard's batch count, and whether dense decode attention
+   over a shard's rows equals those rows of the whole call is reported.
+   The first step runs K3/K4's plain versions on every shard's own tensors
+   (phase 2's tolerances); K3 = K4 = 14 × steps × shards and nothing else;
+   clean audits; ``count_score_bytes`` of one sharded layer 0 for one_pass
+   (every shard) and > 0 for the reference pipeline; decode ms/step
+   (median of 8) and a profile beside the one device's.  (b)
+   granite-moe-1b-a400m, depth cut to 6 layers, at tp2 (4 kv heads × rep 2
+   per shard, d_head 64): prefill logits and the first decode step bit for
+   bit.  (c) phase 5's 12 requests through ``ContinuousScheduler`` (chunk
+   2048, 8 slots × 8192, the default pool: neither run preempts or
+   downshifts, which is gated) on one device and on dp2, the dp2 run
+   teacher-forced with the one-device tokens: every position's logits of
+   every request within ``SHARD_DRIFT_REL_TOL``·max|logit| of the one
+   device's, and a third dp2 run with a DP shard reading another shard's
+   rows beyond it; clean audits, per-shard pool gauges, K3/K4 = 14 × steps ×
+   shards.  (d) one layer sequence-sharded over 4 shards at
+   ``long_500k``'s shape (B 1, 16 kv heads, 524,288 tokens, budget 4096;
+   K, V from a seeded generator on the card): ``select_sharded`` in exact
+   mode attends the single-device top-k's index set up to scores within ε
+   (2× ``score_eps``) of τ, ``full_decode_sharded`` lies within
+   ``LONG_FULL_REL_TOL``·max|out| of dense attention and the merge with
+   the last shard dropped beyond it, local mode's overlap with the global
+   top-k is reported; all timed.
+13. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+   bound and launch count (K1/K2: phase 3; K3/K4: phase 5, and phase 12's
+   per-shard counts in ``launches_sharded``; K6/K7: phase 6's generate;
+   K5/K8: phase 6's building blocks; phases 9, 10 and 11(e)'s beside
+   them), the card line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 """
 from __future__ import annotations
 
@@ -1763,14 +1802,15 @@ def clone_cache(torch, cache):
     import dataclasses
 
     def copy(x):
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, torch.Tensor) or hasattr(x, "parts"):  # a tensor or a ShardedPool
             return x.clone()
         if isinstance(x, dict):
             return {k: copy(v) for k, v in x.items()}
         if dataclasses.is_dataclass(x):
             return dataclasses.replace(x, **{
                 f.name: copy(getattr(x, f.name)) for f in dataclasses.fields(x)
-                if isinstance(getattr(x, f.name), torch.Tensor)
+                if isinstance(getattr(x, f.name), torch.Tensor) or hasattr(getattr(x, f.name),
+                                                                           "parts")
             })
         return x
 
@@ -1794,9 +1834,10 @@ def checked_kernels(torch, errs, *, keep_plain):
     from repro_torch.kernels.check import selection_agrees
     from repro_torch.kvcache.paged import gather_block_rows
 
-    def retrieve(q, codes, scale, zero, lengths, budget, *, block_table=None, **sel):
+    def retrieve(q, codes, scale, zero, lengths, budget, *, block_table=None, plan_rows=None,
+                 **sel):
         got = fr.fier_retrieve(q, codes, scale, zero, lengths, budget,
-                               block_table=block_table, **sel)
+                               block_table=block_table, plan_rows=plan_rows, **sel)
         if block_table is not None:
             want = fr.fier_retrieve_paged_plain(
                 q, codes, scale, zero, block_table, lengths, budget, **sel)
@@ -1823,8 +1864,9 @@ def checked_kernels(torch, errs, *, keep_plain):
         errs["calls"] += 1
         return want if keep_plain else got
 
-    def attend(q, K, V, idx, lengths=None, *, block_table=None):
-        got = sa.fier_attend_selected(q, K, V, idx, lengths, block_table=block_table)
+    def attend(q, K, V, idx, lengths=None, *, block_table=None, plan_rows=None):
+        got = sa.fier_attend_selected(q, K, V, idx, lengths, block_table=block_table,
+                                      plan_rows=plan_rows)
         if block_table is not None:
             want = sa.fier_attend_selected_paged_plain(q, K, V, block_table, idx, lengths)
         else:
@@ -4098,6 +4140,611 @@ def training_path(torch):
 
 # ------------------------------------------------------------------ main
 
+# ------------------------------------------------------------ phase 12
+
+# meshes of phase 12, every shard on the one card: name, shape, axes
+SHARD_MESHES = (("tp2", (2,), ("model",)), ("dp2", (2,), ("data",)),
+                ("tp2xdp2", (2, 2), ("data", "model")))
+SHARD_STEPS = MAX_NEW   # gated decode steps per engine in (a)
+SHARD_TIMED_STEPS = 8   # then timed ones (median), outside the counted window
+GRANITE_SHARD_LAYERS = 6  # (b): granite-moe-1b-a400m's depth cut (4 FIER layers)
+LONG_SHARDS = 4
+LONG_SEQ = (1, 16, 1, 128, 524288, 4096)  # B, Hkv, rep, D, S, budget: long_500k
+LONG_FULL_REL_TOL = 1e-2  # full_decode_sharded vs dense attention, × max|out|
+# meshes held to the one-device engine bit for bit; the others to the gates
+# below.  The FIER layers are exact on every mesh (each shard's K3/K4 take the
+# unsharded split), but the dense skip layers' batched cuBLAS GEMMs may pick
+# another kernel at a shard's batch count: tp2 x dp2's 16 (b, h) rows do
+# (PERF.md §6), and so do the stream's 4-slot shards in (c)
+SHARD_BITWISE = ("tp2", "dp2")
+# A sharded engine against the one-device engine, × max|logit|.  The first
+# decode step's gate and the band over every teacher-forced step (the
+# rounding reaches the cache and drifts) each sit between the sound reading
+# and the smallest planted fault's (as phase 3's).  The faults are read at
+# every one of the 32 steps; one present throughout is seen where its
+# largest step passes the band.  Readings on one "NVIDIA H100 80GB HBM3,
+# 700.00 W" (PERF.md §6; the faults' first / least / largest step):
+SHARD_LOGIT_REL_TOL = 0.017   # tp2 x dp2: sound 0.01255, faults 0.0226 / 0.0886 / 1.158
+SHARD_DRIFT_REL_TOL = 0.02    # sound: tp2 x dp2 0.01429, the dp2 stream 0.01431; faults
+#   K3 on the next kv head 0.0226 / 0.0189 / 0.0265, K4 idx+1 0.0886 / 0.0677 / 0.0975,
+#   a DP shard on another's rows 1.158 / 0.989 / 1.258 (in (c) 1.451)
+
+
+def same(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def sharded_drive(torch, cfg, params, mesh, prompts, steps, *, seed=4, forced=None,
+                  check=True, faults=False, timed=SHARD_TIMED_STEPS):
+    """Phase 4's four prompts inserted one by one into a paged engine (bs 32,
+    the default pool) on ``mesh`` (None: one device), then ``steps`` greedy
+    decode steps with ``advance_slot`` for every slot first.  With
+    ``forced`` [B, steps + 1] (the one-device run's tokens) each step is fed
+    those tokens instead of its own (teacher forcing), so every step's
+    logits compare with the one-device run's on the same history.  The
+    first step also runs K3/K4's plain versions on each shard's own tensors
+    (``checked_kernels``); with ``faults`` every step is first run again
+    from copies of the cache with three planted faults (``sharded_faults``).
+    Counts the launches over the inserts and the steps (the faults' not),
+    audits, then times ``timed`` more steps and profiles three.  Returns the
+    prefill logits, every step's logits (and each fault's), the tokens, the
+    counts and the readings."""
+    import numpy as np
+
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.serving import Engine
+
+    rng = np.random.default_rng(seed)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))).to(DEVICE) for n in prompts]
+    eng = Engine.build(cfg, n_slots=len(prompts), capacity=CAPACITY, layout="paged",
+                       mesh=mesh, device=DEVICE)
+    pol = eng.bundle.policy
+    if (pol.pipeline, pol.budget, pol.block_size) != ("one_pass", BUDGET, BLOCK_SIZE):
+        raise AssertionError(f"the paged engine's policy is {pol}")
+    cache = eng.new_cache()
+    errs = new_errs()
+    reset_launch_counts()
+    tok = torch.zeros(len(prompts), dtype=torch.int32, device=DEVICE)
+    pre = []
+    for slot, t in enumerate(toks):
+        lg, cache = eng.insert(params, cache, t, t.shape[1], slot)
+        pre.append(lg.clone())
+        tok[slot] = torch.argmax(lg, -1)[0]
+    out, logits = [tok.clone()], []
+
+    def advance(cache):
+        for slot in range(len(prompts)):
+            ok, cache = eng.advance_slot(cache, slot)
+            if not ok:
+                raise AssertionError("the default pool ran dry")
+        return cache
+
+    fault_lg, fault_launches = {}, {}
+    for i in range(steps):
+        cache = advance(cache)
+        if faults:
+            before = launch_counts()  # the planted faults' launches are not the path's
+            for k, lg in sharded_faults(torch, eng, params, tok, cache).items():
+                fault_lg.setdefault(k, []).append(lg)
+            for k, n in launch_counts().items():
+                fault_launches[k] = fault_launches.get(k, 0) + n - before.get(k, 0)
+        if i == 0 and check:
+            ops.fier_retrieve, ops.fier_attend_selected = checked_kernels(
+                torch, errs, keep_plain=False)
+        try:
+            tok, lg, cache = eng.decode(params, tok, cache)
+        finally:
+            ops.fier_retrieve, ops.fier_attend_selected = fr.fier_retrieve, sa.fier_attend_selected
+        logits.append(lg.clone())
+        out.append(tok.clone())
+        if forced is not None:
+            tok = forced[:, i + 1].clone()
+    sync(torch)
+    counts = {k: n - fault_launches.get(k, 0) for k, n in launch_counts().items()}
+    eng.audit()
+    ms = []
+    for _ in range(timed):
+        sync(torch)
+        t0 = time.perf_counter()
+        cache = advance(cache)
+        tok, _, cache = eng.decode(params, tok, cache)
+        sync(torch)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    if DEVICE == "cuda" and timed:
+        profile_decode(torch, eng, params, tok, cache, None)
+    return dict(eng=eng, cache=cache, pre=torch.cat(pre), logits=torch.stack(logits),
+                toks=torch.stack(out, 1), counts=counts, errs=errs,
+                faults={k: torch.stack(v) for k, v in fault_lg.items()},
+                ms=median(ms) if ms else None)
+
+
+def sharded_faults(torch, eng, params, tok, cache):
+    """One decode step of a sharded engine from copies of ``cache``
+    with three planted faults: K4 fed idx+1 on every shard; K3's selection
+    of the last FIER layer handed to the neighbouring kv head on every
+    shard; and (DP meshes) DP shard 1 localizing its block table as shard 0
+    would, so it reads another shard's rows.  Returns each fault's logits."""
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.kvcache import sharded as kvsharded
+
+    spec = eng.shard
+    n_calls = [0]
+    last_layer = (eng.bundle.cfg.n_layers - SKIP - 1) * spec.n_tp * spec.n_dp
+
+    def shifted_attend(q, K, V, idx, lengths=None, **k):
+        S = k["block_table"].shape[1] * K.shape[1]  # the logical row of a pool
+        return sa.fier_attend_selected(q, K, V, (idx + 1) % S, lengths, **k)
+
+    def rolled_retrieve(*a, **k):
+        idx, tau, m = fr.fier_retrieve(*a, **k)
+        n_calls[0] += 1
+        if n_calls[0] > last_layer:
+            idx = torch.roll(idx, 1, dims=1)
+        return idx, tau, m
+
+    localize = kvsharded.localize_block_table
+
+    def foreign(block_table, d, n_local, n_dp):
+        return localize(block_table, max(d - 1, 0), n_local, n_dp)
+
+    out = {}
+    runs = [("K4 fed idx+1", dict(attend=shifted_attend)),
+            ("K3's last-layer selection on the next kv head", dict(retrieve=rolled_retrieve))]
+    if spec.n_dp > 1:
+        runs.append(("DP shard 1 reading shard 0's rows", dict(localize=foreign)))
+    for name, kw in runs:
+        n_calls[0] = 0
+        ops.fier_retrieve = kw.get("retrieve", fr.fier_retrieve)
+        ops.fier_attend_selected = kw.get("attend", sa.fier_attend_selected)
+        kvsharded.localize_block_table = kw.get("localize", localize)
+        try:
+            _, lg, _ = eng.decode(params, tok, clone_cache(torch, cache))
+            sync(torch)
+        finally:
+            ops.fier_retrieve, ops.fier_attend_selected = fr.fier_retrieve, sa.fier_attend_selected
+            kvsharded.localize_block_table = localize
+        out[name] = lg.clone()
+    return out
+
+
+def dense_rows_equal(torch, B, shards_b, shards_h, S=CAPACITY, seed=14):
+    """Whether dense decode attention (``full_attention_decode``, the skip
+    layers' path) over one shard's rows equals the same rows of the whole
+    call bit for bit, at B slots × 16 heads × d_head 128 split into
+    ``shards_b`` slot ranges × ``shards_h`` head ranges (cuBLAS picks its
+    GEMM by the batch count).  Returns (equal, max |Δ|)."""
+    from repro_torch.core.retrieval import full_attention_decode
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    H, D = 16, 128
+    K = torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    V = torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    q = torch.randn((B, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    length = torch.randint(S // 8, S, (B,), generator=gen, device=DEVICE).to(torch.int32)
+    whole = full_attention_decode(q, K, V, length)
+    b, h = B // shards_b, H // shards_h
+    part = full_attention_decode(q[:b, :h], K[:b, :, :h].contiguous(), V[:b, :, :h].contiguous(),
+                                 length[:b])
+    return bool(torch.equal(part, whole[:b, :h])), float((part - whole[:b, :h]).abs().max())
+
+
+def score_bytes_sharded(torch, eng, cache):
+    """``count_score_bytes`` of one sharded FIER layer's decode step (every
+    shard's share in one call) for one_pass and the reference pipeline."""
+    import dataclasses
+
+    from repro_torch.kvcache.sharded import sharded_paged_decode_step
+    from repro_torch.obs.flopcount import count_score_bytes
+
+    cfg, plan = eng.bundle.cfg, eng.bundle.plan
+    B = eng.n_slots
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=DEVICE).to(torch.bfloat16)
+    q = rnd(B, cfg.n_heads, cfg.d_head)
+    k_new, v_new = rnd(B, 1, cfg.n_kv_heads, cfg.d_head), rnd(B, 1, cfg.n_kv_heads, cfg.d_head)
+    rest = cache["rest"]
+    kp, vp, meta = rest["k"][0], rest["v"][0], rest["meta"].layer(0)
+    length = torch.clamp(cache["length"], max=eng.capacity - 1)
+    out = {}
+    for pipeline in ("one_pass", "reference"):
+        pol = dataclasses.replace(plan.policy, pipeline=pipeline)
+        p = dataclasses.replace(plan, policy=pol, pipeline=pipeline)
+        out[pipeline] = count_score_bytes(
+            lambda q: sharded_paged_decode_step(q, k_new, v_new, kp, vp, meta,
+                                                cache["block_table"], length, pol, p, p.shard),
+            eng.capacity, q)
+    return out
+
+
+def sharded_olmo(torch, cfg, params):
+    """(a) olmo-1b on tp2, dp2 and tp2×dp2 against the one-device paged
+    engine: prefill logits bit for bit; the 32 decode steps, teacher-forced
+    with the one-device tokens, bit for bit on SHARD_BITWISE's meshes and
+    on tp2×dp2 the first within SHARD_LOGIT_REL_TOL and every one within
+    SHARD_DRIFT_REL_TOL of the one-device step, its planted faults (read
+    at every step) beyond both; K3/K4 = 14 × steps × shards and nothing
+    else; clean audits; one_pass's score bytes 0 on every shard."""
+    from repro_torch.launch.mesh import make_mesh
+
+    n_fier = cfg.n_layers - SKIP
+    base = sharded_drive(torch, cfg, params, None, PROMPTS, SHARD_STEPS, check=False)
+    check_launches(base["counts"], PAGED_KERNELS, n_fier * SHARD_STEPS)
+    out = {"unsharded": dict(ms=base["ms"], launches=base["counts"])}
+    del base["eng"], base["cache"]
+    free(torch)
+    V = cfg.vocab  # the padded columns read −1e30 in every run
+    scale = float(base["logits"][..., :V].abs().max())
+    log(f"  one device: decode {base['ms']:.2f} ms/step (median of {SHARD_TIMED_STEPS}); "
+        f"max |logit| over {SHARD_STEPS} steps {scale:.4g}")
+    for name, shape, axes in SHARD_MESHES:
+        mesh = make_mesh(shape, axes, device=DEVICE)
+        shards = math.prod(shape)
+        exact = name in SHARD_BITWISE
+        got = sharded_drive(torch, cfg, params, mesh, PROMPTS, SHARD_STEPS, forced=base["toks"],
+                            faults=not exact)
+        spec = got["eng"].shard
+        step_gap = (got["logits"][..., :V] - base["logits"][..., :V]).abs().amax(dim=(1, 2))
+        gap, gap1 = float(step_gap.max()) / scale, float(step_gap[0]) / scale
+        first = int(torch.nonzero(step_gap).min()) if gap else None
+        top1 = int((got["logits"].argmax(-1).T == base["toks"][:, 1:]).sum())
+        bitwise = same(torch, got["logits"], base["logits"])
+        dense = dense_rows_equal(torch, len(PROMPTS), spec.n_dp, spec.n_tp)
+        fault_gaps = {}
+        for k, v in got["faults"].items():  # [steps, B, V]: each step against the one device's
+            g = (v[..., :V] - base["logits"][..., :V]).abs().amax(dim=(1, 2)) / scale
+            fault_gaps[k] = dict(first=float(g[0]), least=float(g.min()), most=float(g.max()))
+        sb = score_bytes_sharded(torch, got["eng"], got["cache"])
+        gates = ("bit for bit" if exact else
+                 f"gates: first step {SHARD_LOGIT_REL_TOL}, every step {SHARD_DRIFT_REL_TOL}")
+        log(f"  {name} (tp {spec.n_tp} x dp {spec.n_dp}; {gates}): prefill logits max |Δ| "
+            f"{float((got['pre'] - base['pre']).abs().max()):.6g} (gate 0); first decode step "
+            f"max |Δlogit| {gap1:.4g} of max|logit|; over {SHARD_STEPS} teacher-forced steps "
+            f"{gap:.4g}; bit for bit {bitwise}, first differing step {first}, top-1 "
+            f"{top1}/{base['toks'][:, 1:].numel()}; dense decode attention over a shard's rows "
+            f"bit for bit the whole call's: {dense[0]} (max |Δ| {dense[1]:.3g}); planted faults "
+            f"(first, least and largest step over {SHARD_STEPS}) {json.dumps(fault_gaps)}; "
+            f"decode {got['ms']:.2f} ms/step (one device {base['ms']:.2f}); launches "
+            f"{got['counts']}; score bytes of one layer {sb}")
+        log_errs(got["errs"], "K3", "K4")
+        check_launches(got["counts"], PAGED_KERNELS, n_fier * SHARD_STEPS * shards)
+        if not same(torch, got["pre"], base["pre"]):
+            raise AssertionError(f"{name}: the prefill logits differ from the one-device run's")
+        if exact and not (bitwise and same(torch, got["toks"], base["toks"])):
+            raise AssertionError(f"{name}: the decode steps differ from the one-device run's "
+                                 f"(first at step {first}, {gap:.4g} of max|logit|)")
+        if not exact and not (gap1 <= SHARD_LOGIT_REL_TOL and gap <= SHARD_DRIFT_REL_TOL):
+            raise AssertionError(f"{name}: first step {gap1:.4g} (gate {SHARD_LOGIT_REL_TOL}), "
+                                 f"{SHARD_STEPS} steps {gap:.4g} (band {SHARD_DRIFT_REL_TOL})")
+        if not all(g["first"] > SHARD_LOGIT_REL_TOL and g["most"] > SHARD_DRIFT_REL_TOL
+                   for g in fault_gaps.values()):
+            raise AssertionError(f"{name}: the gates do not see a planted fault: {fault_gaps}")
+        if not (sb["one_pass"] == 0 and sb["reference"] > 0):
+            raise AssertionError(f"{name}: the score-byte contract fails: {sb}")
+        if got["errs"]["calls"] != n_fier * shards:
+            raise AssertionError(f"{name}: {got['errs']['calls']} checked K3 calls")
+        out[name] = dict(ms=got["ms"], launches=got["counts"], gap=gap, gap1=gap1, bitwise=bitwise,
+                         first_diff=first, top1=top1, dense_bitwise=dense[0],
+                         faults=fault_gaps, score_bytes=sb, errs=got["errs"])
+        del got
+        free(torch)
+    return out
+
+
+def sharded_granite(torch):
+    """(b) granite-moe-1b-a400m (depth cut to GRANITE_SHARD_LAYERS) at tp2:
+    GQA under TP (4 kv heads × rep 2 per shard at d_head 64); the prefill
+    logits and the first decode step's equal the one-device engine's bit
+    for bit, K3/K4 per layer and shard."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving import Engine
+
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=GRANITE_SHARD_LAYERS)
+    params = Engine.build(cfg, n_slots=1, capacity=CAPACITY, device=DEVICE).bundle
+    params = params.compute_params(params.init(torch.Generator(device=DEVICE).manual_seed(0)))
+    n_fier = cfg.n_layers - SKIP
+    base = sharded_drive(torch, cfg, params, None, FAMILY_PROMPTS, 1, seed=9, check=False,
+                         timed=0)
+    del base["eng"], base["cache"]
+    got = sharded_drive(torch, cfg, params, make_mesh((2,), ("model",), device=DEVICE),
+                        FAMILY_PROMPTS, 1, seed=9, timed=0)
+    del got["eng"], got["cache"]
+    V = cfg.vocab
+    scale = float(base["logits"][..., :V].abs().max())
+    gap = float((got["logits"][..., :V] - base["logits"][..., :V]).abs().max())
+    log(f"  granite-moe ({cfg.n_layers} layers, {cfg.n_kv_heads} kv heads x rep "
+        f"{cfg.n_heads // cfg.n_kv_heads}, d_head {cfg.d_head}) tp2: first decode step max "
+        f"|Δlogit| {gap:.6g} ({gap / scale:.3g} of max|logit| {scale:.4g}; gate: bit for "
+        f"bit); launches {got['counts']}")
+    log_errs(got["errs"], "K3", "K4")
+    check_launches(base["counts"], PAGED_KERNELS, n_fier)
+    check_launches(got["counts"], PAGED_KERNELS, n_fier * 2)
+    if not same(torch, got["pre"], base["pre"]):
+        raise AssertionError("granite-moe tp2: the prefill logits differ from one device's")
+    if not (same(torch, got["logits"], base["logits"]) and same(torch, got["toks"], base["toks"])):
+        raise AssertionError(f"granite-moe tp2: the first decode step differs from one "
+                             f"device's by {gap:.4g}")
+    del params
+    free(torch)
+    return dict(launches=got["counts"], gap=gap / scale, errs=got["errs"])
+
+
+def record_logits(sched, eng, reqs, vocab, forced=None):
+    """Wrap the scheduler's sampling of a prefill's token and the engine's
+    decode so that every request keeps the logits row (f32, ``vocab``
+    wide) of each token it appends, position by position.  With ``forced``
+    ({rid: tokens} of another run) every decode step is fed, at each
+    running slot, that run's token at the slot's last position instead of
+    the slot's own (teacher forcing), so each position's logits compare
+    with that run's on the same history.  Returns {rid: [row per
+    position]}."""
+    rows = {r.rid: [] for r in reqs}
+    pending = {}
+    sample, decode = sched._sample, eng.decode
+
+    def sample_recorded(logits):
+        pending["prefill"] = logits.reshape(-1, logits.shape[-1])[0, :vocab].float()
+        return sample(logits)
+
+    def decode_recorded(params, tok, cache, **k):
+        if forced is not None:
+            tok = tok.clone()
+            for slot, req in sched.running.items():
+                tok[slot] = forced[req.rid][len(req.out) - 1]
+        nxt, lg, cache = decode(params, tok, cache, **k)
+        flat = lg.reshape(-1, lg.shape[-1])
+        for slot, req in sched.running.items():
+            pending[req.rid] = flat[slot, :vocab].float()
+        return nxt, lg, cache
+
+    class Out(list):
+        def __init__(self, rid):
+            super().__init__()
+            self.rid = rid
+
+        def append(self, tok):
+            rows[self.rid].append(pending.pop("prefill") if not self else pending.pop(self.rid))
+            super().append(tok)
+
+    sched._sample, eng.decode = sample_recorded, decode_recorded
+    for r in reqs:
+        r.out = Out(r.rid)
+    return rows
+
+
+def stream_run(torch, cfg, params, mesh, forced=None, gated=True):
+    """Phase 5's requests through ``ContinuousScheduler`` (chunk 2048, 8
+    slots × 8192, the default pool) on ``mesh`` (None: one device), every
+    appended token's logits recorded (``record_logits``, teacher-forced by
+    ``forced``).  ``gated``: every request finishes with no preemption,
+    downshift or leak, the audit is clean, K3/K4 = 14 × decode steps ×
+    shards, and a mesh shows per-shard pool gauges."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import Observability
+    from repro_torch.serving import ContinuousScheduler, Engine, serving_policy
+
+    eng = Engine.build(cfg, n_slots=8, capacity=CAPACITY, policy=serving_policy(
+        budget=BUDGET, layout="paged"), mesh=mesh, obs=Observability(), device=DEVICE)
+    sched = ContinuousScheduler(eng, params, chunk_tokens=2048)
+    reqs = stream_requests(cfg.vocab)
+    rows = record_logits(sched, eng, reqs, cfg.vocab, forced)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sched.run(reqs)
+    sync(torch)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    run = dict(toks={r: list(t) for r, t in res.items()}, steps=sched.steps, counts=counts,
+               wall_s=wall, rows={r: torch.stack(v) for r, v in rows.items()})
+    if not gated:
+        return run
+    eng.audit()
+    eng.sample_pool_gauges()
+    ps = eng.pool_stats()
+    shards = 1 if mesh is None else mesh.size
+    gauges = {s.labels for s in eng.obs.metrics.snapshot().series
+              if s.name == "pool_blocks_in_use"}
+    status = {o.status for o in res.outcomes.values()}
+    log(f"    {len(reqs)} requests, pool {eng.pool_blocks} blocks, {sched.steps} decode steps, "
+        f"{sched.preemptions} preemptions, {eng.downshifts} downshifts, prefix block hits "
+        f"{ps['pool_prefix_block_hits']}, wall {wall:.2f} s; launches {counts}; pool gauges "
+        f"{sorted(map(str, gauges))}")
+    check_launches(counts, PAGED_KERNELS, (cfg.n_layers - SKIP) * sched.steps * shards)
+    if sched.preemptions or eng.downshifts or ps["pool_blocks_in_use"]:
+        raise AssertionError("the stream preempted, downshifted or leaked")
+    if status != {"finished"}:
+        raise AssertionError(f"not every request finished: {status}")
+    if shards > 1 and len(gauges) < 3:
+        raise AssertionError(f"no per-shard pool gauges: {gauges}")
+    return run
+
+
+def stream_gaps(torch, one, other):
+    """Per request, the largest |Δlogit| of ``other``'s rows against
+    ``one``'s over its positions, × ``one``'s max|logit|."""
+    scale = max(float(v.abs().max()) for v in one["rows"].values())
+    out = {}
+    for rid, a in one["rows"].items():
+        b = other["rows"][rid]
+        if a.shape != b.shape:
+            raise AssertionError(f"request {rid}: {b.shape[0]} positions, not {a.shape[0]}")
+        out[rid] = float((a - b).abs().max()) / scale
+    return out
+
+
+def sharded_stream(torch, cfg, params):
+    """(c) phase 5's requests through ``ContinuousScheduler`` on one device
+    and on dp2 (``stream_run``, both gated: neither preempts or downshifts
+    with the default pool, one null block per DP shard), the dp2 run
+    teacher-forced with the one-device run's tokens: at every position of
+    every request its logits lie within SHARD_DRIFT_REL_TOL·max|logit| of
+    the one-device run's.  A third run on dp2, with DP shard 1 localizing
+    its block table as shard 0 would (it reads another shard's rows), must
+    lie beyond it."""
+    from repro_torch.kvcache import sharded as kvsharded
+    from repro_torch.launch.mesh import make_mesh
+
+    dp2 = make_mesh((2,), ("data",), device=DEVICE)
+    log("  one device:")
+    one = stream_run(torch, cfg, params, None)
+    free(torch)
+    log("  dp2, teacher-forced with the one-device tokens:")
+    dp = stream_run(torch, cfg, params, dp2, forced=one["toks"])
+    free(torch)
+    localize = kvsharded.localize_block_table
+    kvsharded.localize_block_table = (
+        lambda block_table, d, n_local, n_dp: localize(block_table, max(d - 1, 0), n_local, n_dp))
+    try:
+        fault = stream_run(torch, cfg, params, dp2, forced=one["toks"], gated=False)
+    finally:
+        kvsharded.localize_block_table = localize
+    free(torch)
+    gaps, fault_gaps = stream_gaps(torch, one, dp), stream_gaps(torch, one, fault)
+    top1 = sum(int((dp["rows"][r].argmax(-1) == torch.tensor(t, device=DEVICE)).sum())
+               for r, t in one["toks"].items())
+    n = sum(len(t) for t in one["toks"].values())
+    dense = dense_rows_equal(torch, 8, 2, 1)
+    gap, fault_gap = max(gaps.values()), max(fault_gaps.values())
+    log(f"  dp2 teacher-forced against one device, largest |Δlogit| over every position × "
+        f"max|logit| (band {SHARD_DRIFT_REL_TOL}): {gap:.4g}, per request "
+        f"{json.dumps({r: round(g, 6) for r, g in gaps.items()})}; top-1 {top1}/{n}; "
+        f"planted fault (DP shard 1 "
+        f"reading shard 0's rows) {fault_gap:.4g}, per request "
+        f"{json.dumps({r: round(g, 6) for r, g in fault_gaps.items()})}; dense decode attention "
+        f"over a shard's 4 slots bit for bit the 8-slot call's: {dense[0]} (max |Δ| "
+        f"{dense[1]:.3g})")
+    if not gap <= SHARD_DRIFT_REL_TOL:
+        raise AssertionError(f"dp2's stream lies {gap:.4g} of max|logit| from one device's "
+                             f"(band {SHARD_DRIFT_REL_TOL})")
+    if not fault_gap > SHARD_DRIFT_REL_TOL:
+        raise AssertionError(f"the band does not see the planted DP fault: {fault_gap:.4g}")
+    return dict(launches=dp["counts"], steps=dp["steps"], wall_s=dp["wall_s"],
+                wall_s_one_device=one["wall_s"], steps_one_device=one["steps"], gap=gap,
+                fault_gap=fault_gap, top1=top1, positions=n,
+                dense_bitwise=dense[0])
+
+
+def sharded_long(torch):
+    """(d) the sequence-sharded decode of one layer at ``long_500k``'s shape
+    over LONG_SHARDS shards of 131,072 tokens (K, V on the card from a
+    seeded generator): exact mode attends the single-device top-k's index
+    set up to scores within ε of τ; ``full_decode_sharded`` lies within
+    LONG_FULL_REL_TOL·max|out| of dense attention, and a planted fault (the
+    last shard dropped from the merge) beyond it; local mode's overlap with
+    the global top-k is reported; each timed (median of 3)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import retrieval as rt
+    from repro_torch.core.quantize import QuantizedKeys, quantize
+
+    B, Hkv, rep, D, S, budget = LONG_SEQ
+    n = LONG_SHARDS
+    S_loc = S // n
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    ch = torch.randn(D, generator=gen, device=DEVICE).exp()
+    K = (torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE) * ch).to(torch.bfloat16)
+    V = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    q = torch.randn((B, Hkv * rep, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    qk = quantize(K, GROUP)
+    length = torch.full((B,), S, dtype=torch.int32, device=DEVICE)
+    starts = [i * S_loc for i in range(n)]
+    part = lambda a, i, rows: a[:, i * rows:(i + 1) * rows]
+    K_l = [part(K, i, S_loc) for i in range(n)]
+    V_l = [part(V, i, S_loc) for i in range(n)]
+    qk_l = [QuantizedKeys(part(qk.codes, i, S_loc // 8), part(qk.scale, i, S_loc // GROUP),
+                          part(qk.zero, i, S_loc // GROUP), GROUP) for i in range(n)]
+
+    def timed(fn):
+        ms = []
+        for _ in range(3):
+            sync(torch)
+            t0 = time.perf_counter()
+            r = fn()
+            sync(torch)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return r, median(ms)
+
+    kv_scores = lambda q_, qk_: rt.reduce_over_query_group(rt.approx_scores(q_, qk_), Hkv)
+    kv = kv_scores(q, qk)
+    glob, ms_glob = timed(lambda: rt.select_topk(kv_scores(q, qk), budget, length))
+    want = torch.zeros((B, Hkv, S), dtype=torch.bool, device=DEVICE).scatter_(
+        2, glob.to(torch.int64), True)
+    tau = torch.topk(kv, budget, dim=-1).values[..., -1:]
+    eps = 2 * score_eps(q.reshape(B, Hkv, rep, D), qk)
+    got, readings = {}, {"single_device_select_ms": ms_glob}
+    for mode in ("exact", "local"):
+        sel, ms = timed(lambda: dist.select_sharded(
+            [kv_scores(q, c) for c in qk_l], budget, [length] * n, shard_start=starts,
+            n_shards=n, mode=mode))
+        got[mode] = dist.selected_mask(sel, starts, length, S)
+        _, ms_dec = timed(lambda: dist.fier_decode_sharded(
+            [q] * n, K_l, V_l, qk_l, budget, [length] * n, shard_start=starts, n_shards=n,
+            mode=mode))
+        readings[f"{mode}_select_ms"], readings[f"{mode}_decode_ms"] = ms, ms_dec
+    diff = got["exact"] ^ want
+    near = ((kv - tau).abs() <= eps) | (kv == tau)
+    readings["exact_diff"] = int(diff.sum())
+    readings["exact_diff_outside_eps"] = int((diff & ~near).sum())
+    readings["local_overlap"] = float((got["local"] & want).sum()) / float(want.sum())
+    dense, ms_dense = timed(lambda: rt.full_attention_decode(q, K, V, length))
+    full, ms_full = timed(lambda: dist.full_decode_sharded(
+        [q] * n, K_l, V_l, [length] * n, shard_start=starts))
+    dropped = dist.full_decode_sharded([q] * (n - 1), K_l[:-1], V_l[:-1], [length] * (n - 1),
+                                       shard_start=starts[:-1])
+    top = float(dense.float().abs().max())
+    rel = lambda a: float((a[0].float() - dense.float()).abs().max()) / top
+    readings.update(dense_ms=ms_dense, full_sharded_ms=ms_full, full_rel=rel(full),
+                    full_fault_rel=rel(dropped), eps=eps)
+    log(f"  long_500k (B {B}, {Hkv} kv heads, S {S}, budget {budget}) over {n} shards: "
+        f"{json.dumps(readings)}")
+    if not all(torch.equal(o, full[0]) for o in full):
+        raise AssertionError("full_decode_sharded's shards disagree")
+    if readings["exact_diff_outside_eps"]:
+        raise AssertionError(f"exact mode's index set differs beyond near-τ ties: {readings}")
+    if not (readings["full_rel"] <= LONG_FULL_REL_TOL < readings["full_fault_rel"]):
+        raise AssertionError(f"full_decode_sharded vs dense attention: {readings}")
+    del K, V, qk, K_l, V_l, qk_l, kv
+    free(torch)
+    return readings
+
+
+def sharded_path(torch):
+    """Phase 12: (a) olmo-1b on three meshes, (b) granite-moe at tp2, (c)
+    phase 5's stream on dp2, (d) the sequence-sharded decode at
+    long_500k."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    cfg = get_config("olmo-1b")
+    bundle = Engine.build(cfg, n_slots=1, capacity=CAPACITY, device=DEVICE).bundle
+    params = bundle.compute_params(bundle.init(torch.Generator(device=DEVICE).manual_seed(0)))
+    out, walls = {}, {}
+
+    def part(key, title, fn, *a):
+        log(f"  {title}")
+        t = time.perf_counter()
+        out[key] = fn(torch, *a)
+        walls[key] = round(time.perf_counter() - t, 1)
+
+    part("olmo", "(a) olmo-1b, paged one_pass, on tp2, dp2 and tp2 x dp2", sharded_olmo, cfg,
+         params)
+    part("stream", "(c) phase 5's stream through the scheduler on dp2", sharded_stream, cfg,
+         params)
+    del params, bundle
+    free(torch)
+    part("granite", "(b) granite-moe-1b-a400m at tp2", sharded_granite)
+    part("long", "(d) the sequence-sharded decode at long_500k", sharded_long)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 12 wall time {out['wall_s']:.1f} s: {walls}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4134,6 +4781,10 @@ def main() -> int:
     if "--training-only" in sys.argv:  # phase 11 alone after the build; no result line
         log("[training] flash backward, olmo-1b, restart, the families, train then serve")
         training_path(torch)
+        return 0
+    if "--sharded-only" in sys.argv:  # phase 12 alone after the build; no result line
+        log("[sharded] mesh-sharded serving, every shard on this card")
+        sharded_path(torch)
         return 0
 
     log("[kernels] each kernel against its plain version")
@@ -4214,6 +4865,9 @@ def main() -> int:
     log("[training] flash backward, olmo-1b, restart, the families, train then serve")
     p11 = training_path(torch)
 
+    log("[sharded] mesh-sharded serving, every shard on this card")
+    p12 = sharded_path(torch)
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "fier_retrieve": (csrc + "fier_retrieve.cu", "src/repro/kernels/fused_retrieval.py:284"),
@@ -4276,6 +4930,13 @@ def main() -> int:
         if name in PAGED_KERNELS:
             # launches above: the serving run (phase 5); the paged-vs-slab run too
             row["launches_paged_vs_slab"] = counts_p4[name]
+            # phase 12's mesh-sharded runs, each counted from 0: one launch per
+            # layer, step and shard
+            row["launches_sharded"] = {
+                **{m: p12["olmo"][m]["launches"][name] for m, _, _ in SHARD_MESHES},
+                "granite_tp2": p12["granite"]["launches"][name],
+                "stream_dp2": p12["stream"]["launches"][name],
+            }
         # phases 9 and 10's drives, each counted from 0 (paged: granite-moe's paged engine)
         fam_key = "launches_paged" if name in PAGED_KERNELS else "launches"
         row["launches_families"] = {a: r[fam_key][name] for a, r in fam.items()

@@ -15,7 +15,7 @@
 * bf16 leaves are stored as their uint16 bits (numpy has no bf16) under
   the dtype name ``bfloat16``.
 * ``restore(..., sharding=)`` (re-sharding onto another mesh) raises:
-  multiple GPUs wait for ROADMAP Queue 1 item 10.
+  multiple GPUs wait for ROADMAP Queue 1 item 10's training part.
 """
 from __future__ import annotations
 
@@ -145,7 +145,8 @@ class CheckpointManager:
         leaf a tensor with ``like``'s leaf's dtype on its device."""
         if sharding is not None:
             raise NotImplementedError(
-                "restoring onto a device mesh is not ported yet (ROADMAP Queue 1 item 10)"
+                "restoring onto a device mesh is not ported yet (ROADMAP Queue 1 item 10, "
+                "its training part)"
             )
         path = self._path(step)
         with open(os.path.join(path, "manifest.json")) as f:

@@ -17,8 +17,10 @@ the CUDA score scan)::
     meta = update_metadata(meta, K, pos, cfg)     # after an appended token
     out  = decode_attention(q, view, plan)
 
-Mesh-sharded plans raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+A plan may carry a mesh sharding spec (``kvcache.sharded.ShardSpec``):
+``DecodePlan.build(..., shard=spec)`` checks it against the backend's
+``supports_sharding`` modes, and the model's paged decode step runs the
+plan shard by shard (``kvcache.sharded.sharded_paged_decode_step``).
 """
 from __future__ import annotations
 
@@ -32,10 +34,6 @@ from . import quantize, quest, retrieval
 
 PIPELINES = ("reference", "two_pass", "one_pass")
 LAYOUTS = ("slab", "paged")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 # --------------------------------------------------------------- PolicyConfig
@@ -155,18 +153,28 @@ class AttentionBackend:
     on the card; ``skip_layers_fallback``:
     ``decode_attention(..., layer=l)`` with ``l < skip_layers`` attends
     densely (False for backends that are their own full-attention
-    substitute: full, slm)."""
+    substitute: full, slm).  ``supports_sharding``: the selection modes
+    the backend takes when the plan carries a mesh sharding spec; empty =
+    single-device only ("exact" promises the single-device result on the
+    TP×DP paged layout, "local" admits per-shard approximate selection, as
+    on the sequence-sharded slab path)."""
 
     name: str
     supports: frozenset
     build_metadata: Callable[[torch.Tensor, PolicyConfig], Any]
     update_metadata: Callable[[Any, torch.Tensor, Any, PolicyConfig], Any]
     decode: Callable[[torch.Tensor, CacheView, "DecodePlan"], torch.Tensor]
+    supports_sharding: frozenset = frozenset()
     needs_metadata: bool = True
     skip_layers_fallback: bool = True
 
     def supports_str(self) -> str:
         return ", ".join(f"{lo}×{pi}" for lo, pi in sorted(self.supports))
+
+    def sharding_str(self) -> str:
+        """The ``supports_sharding`` entry, rendered like the capability
+        matrix ('-' when the backend is single-device only)."""
+        return ", ".join(sorted(self.supports_sharding)) or "-"
 
 
 _REGISTRY: dict[str, AttentionBackend] = {}
@@ -178,6 +186,11 @@ def register_backend(backend: AttentionBackend) -> None:
     bad = {c for c in backend.supports if c[0] not in LAYOUTS or c[1] not in PIPELINES}
     if bad:
         raise ValueError(f"backend {backend.name!r}: invalid capabilities {bad}")
+    bad_modes = set(backend.supports_sharding) - {"local", "exact"}
+    if bad_modes:
+        raise ValueError(
+            f"backend {backend.name!r}: invalid sharding modes {sorted(bad_modes)}"
+        )
     _REGISTRY[backend.name] = backend
 
 
@@ -195,11 +208,20 @@ def get_backend(name: str) -> AttentionBackend:
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
     """A validated ``policy × layout × pipeline`` execution plan.  Build
-    via :meth:`build`; the constructor validates nothing."""
+    via :meth:`build`; the constructor validates nothing.
+
+    ``shard`` is the mesh sharding spec (``kvcache.sharded.ShardSpec``;
+    None = one device), carried on the plan so ``decode_attention``
+    composes TP×DP with every backend.  ``plan_rows`` is set only on a
+    shard's own plan, by the sharded step: the (batch, kv-head) rows of the
+    unsharded call, which the CUDA kernels size their split for (None =
+    the call's own rows)."""
 
     policy: PolicyConfig
     layout: str = "slab"
     pipeline: str = "reference"
+    shard: Any = None
+    plan_rows: int | None = None
 
     @property
     def backend(self) -> AttentionBackend:
@@ -217,8 +239,6 @@ class DecodePlan:
     ) -> "DecodePlan":
         layout = layout if layout is not None else policy.layout
         pipeline = pipeline if pipeline is not None else policy.pipeline
-        if shard is not None:
-            raise _not_ported("mesh-sharded decode", "ROADMAP Queue 1 item 10")
         backend = get_backend(policy.kind)
         if (layout, pipeline) not in backend.supports:
             raise UnsupportedPlanError(
@@ -237,7 +257,23 @@ class DecodePlan:
             check_block_size(
                 policy.block_size, policy.group if policy.kind == "fier" else 0
             )
-        plan = cls(policy, layout, pipeline)
+        if shard is not None:
+            # duck-typed (tp_axes/dp_axes/mode) so policy.py never imports
+            # kvcache.sharded — the kvcache modules import this one
+            axes = tuple(shard.tp_axes) + tuple(shard.dp_axes)
+            if layout != "paged":
+                raise UnsupportedPlanError(
+                    f"policy {policy.kind!r}: mesh-sharded decode over axes "
+                    f"{axes!r} requires layout='paged', got layout={layout!r}"
+                )
+            if shard.mode not in backend.supports_sharding:
+                raise UnsupportedPlanError(
+                    f"policy {policy.kind!r} does not support sharded decode "
+                    f"in mode={shard.mode!r} over mesh axes {axes!r}; backend "
+                    f"sharding modes: {backend.sharding_str()}; supported "
+                    f"layouts: {backend.supports_str()}"
+                )
+        plan = cls(policy, layout, pipeline, shard)
         if capacity is not None:
             plan.validate_capacity(capacity)
         return plan
@@ -332,7 +368,8 @@ def _fier_decode(q, view, plan):
         from repro_torch.kernels import ops as kops
 
         if plan.pipeline == "one_pass":
-            return kops.fier_decode_one_pass(q, view, cfg.budget, **sel)
+            return kops.fier_decode_one_pass(q, view, cfg.budget, plan_rows=plan.plan_rows,
+                                             **sel)
         return kops.fier_decode_two_pass(q, view, cfg.budget, **sel)
     K, V, meta = view.logical()
     return retrieval.fier_decode_reference(
@@ -384,6 +421,7 @@ register_backend(AttentionBackend(
     decode=lambda q, view, plan: _dense_decode(q, view),
     needs_metadata=False,
     skip_layers_fallback=False,  # decode *is* dense attention
+    supports_sharding=frozenset({"local", "exact"}),
 ))
 
 register_backend(AttentionBackend(
@@ -395,6 +433,7 @@ register_backend(AttentionBackend(
     build_metadata=_fier_build_metadata,
     update_metadata=_append_metadata,
     decode=_fier_decode,
+    supports_sharding=frozenset({"local", "exact"}),
 ))
 
 register_backend(AttentionBackend(

@@ -213,7 +213,7 @@ def _kernel():
 def fier_retrieve(
     q, codes, scale, zero, lengths, budget: int, *,
     group: int, group_reduce: str = "max", sink: int = 0, recent: int = 0,
-    block_table=None,
+    block_table=None, plan_rows: int | None = None,
 ):
     """One-pass retrieval.
 
@@ -228,6 +228,8 @@ def fier_retrieve(
 
     Any S that the shapes admit runs on the card: rows whose keys do not fit
     8 CTAs' shared memory take the long-row path (:func:`retrieval_plan`).
+    The split is sized for ``plan_rows`` rows when given (a mesh shard
+    passes the unsharded call's B·Hkv), else for this call's B·Hkv.
     """
     global launches, launches_paged
     paged = block_table is not None
@@ -246,7 +248,8 @@ def fier_retrieve(
         raise ValueError(f"fier_retrieve runs on cuda or cpu, not {dev}")
     check_kernel_shape(D, rep)
     n_sm = build.sm_count(dev)
-    plan = retrieval_plan(S, B * Hkv, n_sm, bs if paged else None, d_head=D, rep=rep)
+    plan = retrieval_plan(S, plan_rows or B * Hkv, n_sm, bs if paged else None,
+                          d_head=D, rep=rep)
     q = q.to(torch.bfloat16).contiguous()
     codes, scale, zero = codes.contiguous(), scale.contiguous(), zero.contiguous()
     table = block_table.contiguous() if paged else None

@@ -99,11 +99,13 @@ def retrieve(
     sink: int = 0,
     recent: int = 0,
     return_stats: bool = False,
+    plan_rows: int | None = None,
 ):
     """One-pass retrieval over a ``CacheView``: q [B, Hq, D] →
     idx int32 [B, Hkv, budget] (logical token positions).  With
     ``return_stats=True`` also (tau f32 [B, Hkv], m int32 [B, Hkv]): the
-    budget-th score and the strictly-greater count per row."""
+    budget-th score and the strictly-greater count per row.  ``plan_rows``:
+    the rows the kernel sizes its split for (``fier_retrieve``)."""
     qk = view.meta
     B, Hq, D = q.shape
     Hkv = qk.codes.shape[2]
@@ -121,20 +123,24 @@ def retrieve(
     idx, tau, m = fier_retrieve(
         q4, qk.codes, qk.scale, qk.zero, lens, budget, group=qk.group,
         group_reduce=group_reduce, sink=sink, recent=recent, block_table=table,
+        plan_rows=plan_rows,
     )
     if return_stats:
         return idx, tau, m
     return idx
 
 
-def attend_selected(q: torch.Tensor, view: CacheView, idx: torch.Tensor) -> torch.Tensor:
+def attend_selected(q: torch.Tensor, view: CacheView, idx: torch.Tensor, *,
+                    plan_rows: int | None = None) -> torch.Tensor:
     """Fused select-and-attend over a ``CacheView``: q [B, Hq, D],
-    idx [B, Hkv, budget] → [B, Hq, D] in q's dtype."""
+    idx [B, Hkv, budget] → [B, Hq, D] in q's dtype.  ``plan_rows``: the
+    rows the kernel sizes its split for (``fier_attend_selected``)."""
     B, Hq, D = q.shape
     Hkv = view.k.shape[2]
     q4 = q.reshape(B, Hkv, Hq // Hkv, D)
     table = view.block_table if view.layout == "paged" else None
-    out = fier_attend_selected(q4, view.k, view.v, idx, view.length, block_table=table)
+    out = fier_attend_selected(q4, view.k, view.v, idx, view.length, block_table=table,
+                               plan_rows=plan_rows)
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
@@ -146,11 +152,16 @@ def fier_decode_one_pass(
     group_reduce: str = "max",
     sink: int = 0,
     recent: int = 0,
+    plan_rows: int | None = None,
 ) -> torch.Tensor:
     """The ``one_pass`` FIER pipeline: K1/K3 retrieval (per-token scores
-    never in device memory) chained into K2/K4 select-and-attend."""
-    idx = retrieve(q, view, budget, group_reduce=group_reduce, sink=sink, recent=recent)
-    return attend_selected(q, view, idx)
+    never in device memory) chained into K2/K4 select-and-attend.  A shard
+    of a mesh passes ``plan_rows``, the unsharded call's B·Hkv, so both
+    kernels split its rows as they split the unsharded call's
+    (``kvcache.sharded.sharded_paged_decode_step``)."""
+    idx = retrieve(q, view, budget, group_reduce=group_reduce, sink=sink, recent=recent,
+                   plan_rows=plan_rows)
+    return attend_selected(q, view, idx, plan_rows=plan_rows)
 
 
 def fier_decode_two_pass(

@@ -248,7 +248,8 @@ def _kernel():
 
 
 @kernel_leaf
-def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None) -> torch.Tensor:
+def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None,
+                         plan_rows: int | None = None) -> torch.Tensor:
     """Fused select-and-attend.
 
     q [B, Hkv, rep, D]; K/V bf16 [B, S, Hkv, D]; idx int32 [B, Hkv, budget];
@@ -256,6 +257,10 @@ def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None) -> tor
 
     With ``block_table`` int32 [B, n_btab] (entries < N) K/V are pools
     [N, bs, Hkv, D], S = n_btab · bs, and idx holds logical positions (K4).
+
+    The split is sized for ``plan_rows`` rows when given (a mesh shard
+    passes the unsharded call's B·Hkv, so its partial softmax sums in the
+    unsharded order), else for this call's B·Hkv.
     """
     global launches, launches_paged
     paged = block_table is not None
@@ -268,7 +273,7 @@ def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None) -> tor
     if dev.type != "cuda":
         raise ValueError(f"fier_attend_selected runs on cuda or cpu, not {dev}")
     check_kernel_operands(q, K, V)
-    plan = _plan(dev, B * Hkv, budget, rep, D)
+    plan = _plan(dev, plan_rows or B * Hkv, budget, rep, D)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
     q_bf16 = q.dtype == torch.bfloat16  # read as it is; other types go to f32

@@ -406,11 +406,14 @@ class BlockAllocator:
         paths with no allocator state change."""
         self._fail_next += int(n)
 
-    def alloc(self) -> int | None:
+    def alloc(self, shard: int = 0) -> int | None:
         """Hand out a free block (ref=1), evicting the LRU free-cached
         trie leaf if the plain free list is empty (oldest parked node as
         a fallback when every parked node shields cached children).
-        None when dry."""
+        None when dry.  ``shard`` (here and in ``lookup`` / ``peek``) is
+        ignored: one pool takes the signature of
+        ``kvcache.sharded.ShardedBlockAllocator``, so the engine calls both
+        alike."""
         if self._fail_next > 0:
             self._fail_next -= 1
             self.injected_alloc_failures += 1
@@ -458,7 +461,7 @@ class BlockAllocator:
             return  # block already published under its own (older) key
         self.tree.insert(key, bid, parent_key)
 
-    def lookup(self, key: int) -> int | None:
+    def lookup(self, key: int, shard: int = 0) -> int | None:
         """Prefix hit: take a reference on the block registered under
         ``key`` (reviving it from the free-cached pool if parked)."""
         bid = self.tree.get(key)
@@ -474,7 +477,7 @@ class BlockAllocator:
         self.prefix_block_hits += 1
         return bid
 
-    def peek(self, keys: list[int]) -> tuple[int, int]:
+    def peek(self, keys: list[int], shard: int = 0) -> tuple[int, int]:
         """(hit prefix length, hits currently parked free-cached) for an
         admission-time block budget — no state change."""
         flags = self.peek_prefix(keys)

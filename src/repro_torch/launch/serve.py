@@ -1,11 +1,16 @@
 """Serving entry point: ``python -m repro_torch.launch.serve --arch olmo-1b ...``
 
-The port of ``repro.launch.serve`` on one device (the card unless
-``--device cpu``): the engine and the continuous-batching scheduler over
-synthetic requests from the data pipeline's stream, then one JSON line of
-throughput and occupancy.  Policy full | fier | quest; ``--paged`` serves
-from the block pool.  ``--model-axis`` above 1 raises (ROADMAP Queue 1
-item 10).
+The port of ``repro.launch.serve`` (the card unless ``--device cpu``): the
+engine and the continuous-batching scheduler over synthetic requests from
+the data pipeline's stream, then one JSON line of throughput and
+occupancy.  Policy full | fier | quest; ``--paged`` serves from the block
+pool.  ``--model-axis N`` builds a local ("data", "model") mesh with a
+model axis of N (``launch.mesh.make_local_mesh``: the visible cards, N
+shards on one card when there are fewer); with ``--paged`` the pool is
+sharded over it (``Engine.build(mesh=...)``: TP over KV heads × DP over
+slots).  The reference's CLI builds the mesh but serves ``--paged`` on one
+device; the port's sharded pool goes beyond it.  The slab layout runs on
+one device, so ``--model-axis`` above 1 without ``--paged`` is refused.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.data.pipeline import lm_tokens
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
 from repro_torch.serving import ContinuousScheduler, Engine, Request, SamplingConfig
 
@@ -48,13 +54,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            "--model-axis > 1 needs a device mesh; multiple GPUs are not ported yet "
-            "(ROADMAP Queue 1 item 10)"
-        )
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.model_axis > 1 and not args.paged:
+        raise ValueError(f"--model-axis {args.model_axis} shards the paged pool only: add "
+                         "--paged (the slab layout serves on one device)")
+    mesh = make_local_mesh(model_axis=args.model_axis, device=dev)
     layout = "paged" if args.paged else "slab"
     pol = None
     if args.policy != "full" and not cfg.attention_free:
@@ -69,11 +74,17 @@ def main(argv=None) -> dict:
     elif args.paged:
         pol = PolicyConfig(kind="full", layout="paged", block_size=args.block_size,
                            pool_blocks=args.pool_blocks)
-    bundle = build_model(cfg, pol, device=dev, max_positions=args.capacity)
+    sampling = SamplingConfig(temperature=0.0)
+    if args.paged and mesh.size > 1:
+        eng = Engine.build(cfg, n_slots=args.slots, capacity=args.capacity, policy=pol,
+                           sampling=sampling, mesh=mesh, device=dev,
+                           max_positions=args.capacity)
+        bundle = eng.bundle
+    else:
+        bundle = build_model(cfg, pol, device=dev, max_positions=args.capacity)
+        eng = Engine(bundle, n_slots=args.slots, capacity=args.capacity, sampling=sampling)
     params = bundle.init(torch.Generator(device=dev).manual_seed(args.seed))
 
-    eng = Engine(bundle, n_slots=args.slots, capacity=args.capacity,
-                 sampling=SamplingConfig(temperature=0.0))
     sched = ContinuousScheduler(eng, eng.compute_params(params), pad_prompt_to=args.prompt_len)
     toks = lm_tokens(args.seed, 0, args.n_requests, args.prompt_len, cfg.vocab)
     reqs = [Request(rid=i, tokens=toks[i, :args.prompt_len].tolist(), max_new=args.max_new)
@@ -88,6 +99,7 @@ def main(argv=None) -> dict:
         "tok_per_s": round(total_tokens / wall, 1),
         "decode_steps": sched.steps,
         "mean_occupancy": round(sched.mean_occupancy, 2),
+        "mesh": dict(mesh.shape) if args.paged else None,
     }
     if args.paged:
         report.update(sched.engine.pool_stats(), preemptions=sched.preemptions)

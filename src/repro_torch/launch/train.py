@@ -3,8 +3,8 @@
 The port of ``repro.launch.train`` on one device (the card unless
 ``--device cpu``): config → model → train step → deterministic data →
 checkpoint/restart (fault-injectable) → one JSON line per logged step and
-one at the end.  ``--model-axis`` above 1 (a device mesh) raises: multiple
-GPUs wait for ROADMAP Queue 1 item 10.  A run given ``--ckpt-dir`` resumes
+one at the end.  ``--model-axis`` above 1 (a device mesh) raises: sharded
+training waits for ROADMAP Queue 1 item 10's training part.  A run given ``--ckpt-dir`` resumes
 from the newest checkpoint there; without it (where the reference keeps a
 fixed ``/tmp/repro_ckpt``) the checkpoints go to a fresh temporary
 directory, removed at exit, so no run resumes from another's by accident.
@@ -59,8 +59,8 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.model_axis != 1:
         raise NotImplementedError(
-            "--model-axis > 1 needs a device mesh; multiple GPUs are not ported yet "
-            "(ROADMAP Queue 1 item 10)"
+            "--model-axis > 1 needs sharded training, which is not ported yet "
+            "(ROADMAP Queue 1 item 10, its training part)"
         )
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)

@@ -12,7 +12,7 @@ from .transformer import ModelBundle
 
 
 def build_model(
-    cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
+    cfg: ModelConfig, pol: PolicyConfig | None = None, dcfg=None, *, device="cuda",
     remat: bool = True, max_positions: int | None = None,
 ) -> ModelBundle:
     """The model bundle for ``cfg`` on ``device`` (CUDA by default; a
@@ -21,14 +21,18 @@ def build_model(
     ``max_positions`` sizes an encdec decoder's learned position table (the
     config's ``max_target_positions`` when None); other families ignore it.
     A paged layout is refused for every family but the transformer's, as in
-    the reference."""
+    the reference.  ``dcfg`` (``attention.DistConfig``) threads a mesh into
+    the transformer families; the other families take none yet."""
     if pol is not None and pol.layout == "paged" and cfg.family not in transformer.FAMILIES:
         raise ValueError(
             f"paged KV cache is only supported for transformer families, not {cfg.family!r}"
         )
     dev = resolve_device(device)
     if cfg.family in transformer.FAMILIES:
-        return transformer.build(cfg, pol, device=dev, remat=remat)
+        return transformer.build(cfg, pol, dcfg, device=dev, remat=remat)
+    if dcfg is not None and (dcfg.seq_axes or dcfg.shard is not None):
+        raise ValueError(f"a mesh-sharded decode is only built for the transformer "
+                         f"families, not {cfg.family!r}")
     if cfg.family == "ssm":
         return mamba2.build(cfg, device=dev, remat=remat)
     if cfg.family == "hybrid":

@@ -116,5 +116,6 @@ def moe_apply_masked(
 def moe_apply_ep(*args, **kwargs):
     """Expert-parallel dispatch over a device mesh: not ported."""
     raise NotImplementedError(
-        "expert-parallel MoE over a mesh is not ported yet (ROADMAP Queue 1 item 10)"
+        "expert-parallel MoE over a mesh is not ported yet (ROADMAP Queue 1 item 10, "
+        "its training part)"
     )

@@ -21,12 +21,16 @@ of a vision-language model: prefill takes precomputed vision embeddings
 * Decode splits the stack at ``skip``: the front layers attend densely
   (the paper's skip layers), the rest through the policy's ``DecodePlan``.
   On a paged cache the block table rides in ``cache["block_table"]``.
+* A ``DistConfig`` (``attention.DistConfig``) threads the mesh through:
+  its ``shard`` spec rides on both plans of a paged layout (the front
+  layers share the sharded pool), and its ``seq_axes`` shard the slab
+  cache's sequence in the layers past ``skip``.
 * The vocab is padded to a multiple of 256; padded columns get −1e30.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -61,6 +65,7 @@ class ModelBundle:
     prefill_chunk: Callable | None = None  # (params, batch, cache, *, final)
                                            # -> (logits | None, cache)
     train_loss: Callable | None = None     # (params, batch) -> (loss, metrics)
+    dcfg: Any = None                       # the attention.DistConfig it was built with
 
 
 def tree_map(fn, tree):
@@ -100,18 +105,22 @@ def _layer_cache(stack: dict, i: int) -> dict:
     return lc
 
 
-def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
+def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
+          dcfg: attn.DistConfig | None = None, *, device="cuda",
           remat: bool = True, loss_chunk: int = 1024) -> ModelBundle:
     if cfg.family not in FAMILIES:
         raise ValueError(f"transformer.build takes {FAMILIES}, not {cfg.family!r} "
                          f"(models.model_zoo.build_model dispatches the others)")
     device = device_ = torch.device(device)
     pol = pol or PolicyConfig(kind="full")
-    plan = DecodePlan.build(pol)
+    # a mesh sharding spec (dcfg.shard) rides on the plans of a paged layout;
+    # the front layers share the sharded pool, so plan_full carries it too
+    shard = dcfg.shard if dcfg is not None and pol.layout == "paged" else None
+    plan = DecodePlan.build(pol, shard=shard)
     plan_full = DecodePlan.build(PolicyConfig(
         kind="full", skip_layers=0, layout=pol.layout, block_size=pol.block_size,
         pool_blocks=pol.pool_blocks,
-    ))
+    ), shard=shard)
     paged = pol.layout == "paged"
     Vp = padded_vocab(cfg)
     cdt = _DTYPES[cfg.compute_dtype]
@@ -290,7 +299,10 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
         ``total`` tokens.  Its K/V are written through the layout's
         addressing (slab row / block table), then each layer attends over
         the logical prefix with ``q_offset=start`` — masked keys add exact
-        zeros, so the hidden states equal a monolithic prefill's.
+        zeros, so the hidden states equal a monolithic prefill's.  On a
+        mesh-sharded pool the writes go to the owning shards and the
+        logical prefix is gathered back whole (every head) before the
+        attention (``kvcache.sharded.ShardedPool``).
 
         Only the final chunk produces logits: it zeroes the slab/tail-block
         rows past ``total`` (as monolithic prefill's zero padding), rebuilds
@@ -376,7 +388,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
                 lc, layer_plan = _layer_cache(cache["rest"], l - skip), plan
             o = attn.decode_self_attention(
                 lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), lc, length, cfg,
-                layer_plan, block_table=block_table,
+                layer_plan, dcfg if l >= skip else None, block_table=block_table,
             )
             h, _ = _ffn_block(lp, h, o, decode=True)
         h = apply_norm(h, params["final_norm"], cfg.norm)[:, 0]
@@ -396,6 +408,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
         plan=plan,
         prefill_chunk=prefill_chunk,
         train_loss=train_loss,
+        dcfg=dcfg,
     )
 
 

@@ -5,8 +5,8 @@
 mean|g + e| and carries the error e to the next step (what a compressed
 all-reduce would deliver); ``compressed_wire_bytes`` counts the bytes such
 an all-reduce sends per shard.  ``compressed_psum`` is the collective
-itself and raises: collectives wait for the multi-GPU slice (ROADMAP Queue
-1 item 10)."""
+itself and raises: training's collectives wait for ROADMAP Queue 1 item
+10's training part."""
 from __future__ import annotations
 
 from typing import Any
@@ -35,8 +35,8 @@ def compress_decompress(grads: Any, ef: Any) -> tuple[Any, Any]:
 def compressed_psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     """The 1-bit all-reduce over a device mesh: not ported."""
     raise NotImplementedError(
-        "compressed_psum is a collective over a device mesh; multiple GPUs are not ported "
-        "yet (ROADMAP Queue 1 item 10)"
+        "compressed_psum is a collective over a device mesh of training; it is not "
+        "ported yet (ROADMAP Queue 1 item 10, its training part)"
     )
 
 

@@ -12,7 +12,7 @@ enforces (and tests verify bit-exactly):
 
 Across several GPUs the same loop would wrap the process group's
 re-initialisation and a restore onto the smaller mesh (the reference's
-runtime/elastic.py); that waits for ROADMAP Queue 1 item 10.
+runtime/elastic.py); that waits for ROADMAP Queue 1 item 10's training part.
 """
 from __future__ import annotations
 

@@ -32,7 +32,17 @@ by TTL (``prefix_ttl``, on the scheduler's virtual clock) and, with
 prefix walk runs off the device trie.  ``corrupt_slot_metadata`` is the
 fault injector's side-car scrambler.  The paper's baselines (``quest``,
 ``slm``) serve through ``Engine.build(..., policy=...)`` on the slab
-layout.  Mesh sharding waits for ROADMAP Queue 1 item 10.
+layout.
+
+Mesh sharding (``Engine.build(..., layout='paged', mesh=...)``): the pool
+splits over the mesh — axes named ``'model'`` run KV-head tensor
+parallelism, axes named ``'data'`` slot data parallelism
+(``kvcache.sharded``).  Slots split into contiguous per-shard ranges, each
+slot's blocks come from its home DP shard (``ShardedBlockAllocator``, one
+allocator and prefix trie per shard), prefill runs once unsharded and its
+K/V scatter into the owning shards, and the decode step runs the plan on
+every shard.  The engine's own code stays single-controller: it addresses
+blocks by global id, and the sharded pool leaves route each access.
 """
 from __future__ import annotations
 
@@ -54,6 +64,8 @@ from repro_torch.kvcache.paged import (
     SeqBlocks,
     block_hash_chain,
 )
+from repro_torch.kvcache.sharded import ShardedBlockAllocator, ShardSpec, shard_cache
+from repro_torch.models.attention import DistConfig
 from repro_torch.models.model_zoo import ModelBundle, build_model
 from repro_torch.obs import Observability
 
@@ -76,10 +88,6 @@ __all__ = [
 class PoolExhausted(RuntimeError):
     """The block pool ran dry mid-operation.  The operation has been rolled
     back — the caller can re-queue and retry."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def serving_policy(
@@ -187,6 +195,13 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         pol = bundle.policy
         self.paged = bool(pol is not None and pol.layout == "paged")
+        # mesh sharding: the ShardSpec the bundle's plans carry (the ladder's
+        # rebuilds keep it through the bundle's DistConfig)
+        self.shard = shard = bundle.plan.shard if bundle.plan is not None else None
+        self._n_dp = shard.n_dp if shard is not None else 1
+        if n_slots % self._n_dp:
+            raise ValueError(f"n_slots {n_slots} not divisible by {self._n_dp} DP shards")
+        self._slots_per_shard = n_slots // self._n_dp
         if bundle.plan is not None:
             bundle.plan.validate_capacity(capacity)
         self._decode_step = bundle.decode_step
@@ -212,8 +227,12 @@ class Engine:
                     f"capacity {capacity} not divisible by block_size {self.block_size}"
                 )
             self.n_btab = capacity // self.block_size
-            self.pool_blocks = pol.pool_blocks or (n_slots * self.n_btab + 1)
-            if self.pool_blocks - 1 < self.n_btab:
+            # a sharded pool reserves one null block per DP shard
+            self.pool_blocks = pol.pool_blocks or (n_slots * self.n_btab + self._n_dp)
+            if self.pool_blocks % self._n_dp:
+                raise ValueError(f"pool_blocks {self.pool_blocks} not divisible by "
+                                 f"{self._n_dp} DP shards")
+            if self.pool_blocks // self._n_dp - 1 < self.n_btab:
                 # the scheduler retires requests outgrowing the pool as
                 # `rejected` (livelock detection + admission-time bound)
                 warnings.warn(
@@ -228,8 +247,7 @@ class Engine:
             # and recalls them bit-identically at admission time
             self.prefix_ttl = prefix_ttl
             self.recall_cost = RECALL_COST
-            self.allocator = BlockAllocator(
-                self.pool_blocks, self.block_size, park_ttl=prefix_ttl)
+            self.allocator = self._make_allocator()
             self.offload: HostOffloadTier | None = (
                 HostOffloadTier(offload_blocks) if offload_blocks > 0 else None
             )
@@ -259,6 +277,7 @@ class Engine:
         offload_blocks: int = 0,
         prefix_ttl: float | None = None,
         mesh=None,
+        shard_mode: str = "exact",
         device="cuda",
         seed: int = 0,
         max_positions: int | None = None,
@@ -273,10 +292,17 @@ class Engine:
         after that many virtual-clock units (paged layout).  ``device``
         defaults to CUDA; a machine without a card raises unless
         ``device='cpu'`` is passed.  ``max_positions`` goes to
-        ``build_model`` (an encdec decoder's position table)."""
+        ``build_model`` (an encdec decoder's position table).
+
+        ``mesh`` (a ``launch.mesh.Mesh``) shards the paged pool over it:
+        axes named ``'model'`` run KV-head tensor parallelism, axes named
+        ``'data'`` slot data parallelism.  The spec rides on the
+        ``DecodePlan`` (checked against each backend's
+        ``supports_sharding`` for ``shard_mode``), the allocator becomes
+        per-shard (``kvcache.sharded.ShardedBlockAllocator``), and the
+        pool's default size gets one null block per DP shard.  The bundle,
+        the block tables and the host state stay on ``device``."""
         dev = resolve_device(device)
-        if mesh is not None:
-            raise _not_ported("mesh-sharded serving", "10")
         if policy is not None:
             pol = policy
         else:
@@ -284,11 +310,61 @@ class Engine:
             pol = dataclasses.replace(base, budget=min(base.budget, capacity))
         if layout is not None and layout != pol.layout:
             pol = dataclasses.replace(pol, layout=layout)
-        bundle = build_model(cfg, pol, device=dev, max_positions=max_positions)
+        dcfg = None
+        if mesh is not None:
+            if pol.layout != "paged":
+                raise ValueError(
+                    "Engine.build(mesh=...) shards the paged pool; pass "
+                    "layout='paged'"
+                )
+            names = tuple(mesh.axis_names)
+            unknown = [a for a in names if a not in ("model", "data")]
+            if unknown:
+                raise ValueError(
+                    f"mesh axes must be named 'model' (TP over KV heads) "
+                    f"or 'data' (DP over slots); got {unknown}"
+                )
+            spec = ShardSpec(
+                mesh=mesh,
+                tp_axes=tuple(a for a in names if a == "model"),
+                dp_axes=tuple(a for a in names if a == "data"),
+                mode=shard_mode,
+            )
+            if cfg.n_kv_heads % spec.n_tp:
+                raise ValueError(
+                    f"n_kv_heads {cfg.n_kv_heads} not divisible by TP "
+                    f"degree {spec.n_tp} (mesh axes "
+                    f"{spec.tp_axes!r})"
+                )
+            if not pol.pool_blocks and capacity % pol.block_size == 0:
+                # the engine's default pool (one null block per DP shard),
+                # so the cache the bundle builds splits evenly over the shards
+                n_btab = capacity // pol.block_size
+                pol = dataclasses.replace(pol, pool_blocks=n_slots * n_btab + spec.n_dp)
+            # DistConfig.mesh stays None: the paged path carries its mesh
+            # on the spec, and seq_axes would arm the slab sequence sharding
+            dcfg = DistConfig(shard=spec)
+        bundle = build_model(cfg, pol, dcfg, device=dev, max_positions=max_positions)
         return cls(
             bundle, n_slots=n_slots, capacity=capacity, sampling=sampling, seed=seed,
             obs=obs, offload_blocks=offload_blocks, prefix_ttl=prefix_ttl,
         )
+
+    # ------------------------------------------------------- shard routing
+    def _make_allocator(self):
+        """The host-side allocator for the layout: one pool, or one pool per
+        DP shard behind the global-id wrapper."""
+        if self._n_dp > 1:
+            return ShardedBlockAllocator(
+                self.pool_blocks, self.block_size, self._n_dp, park_ttl=self.prefix_ttl)
+        return BlockAllocator(self.pool_blocks, self.block_size, park_ttl=self.prefix_ttl)
+
+    def slot_shard(self, slot: int) -> int:
+        """Home DP shard of ``slot`` (0 on unsharded engines).  Slots split
+        into contiguous per-shard ranges matching the DP split of the slot
+        axis, so a slot's blocks always come from — and its decode reads
+        always stay on — one shard."""
+        return slot // self._slots_per_shard
 
     # ------------------------------------------------------------ lifecycle
     def compute_params(self, params: dict) -> dict:
@@ -304,8 +380,7 @@ class Engine:
             # the pool restarts empty: a fresh allocator, no prompt caches; the
             # host tier restarts empty too (a session must not see KV made
             # under another session's params), keeping its pinned buffers
-            self.allocator = BlockAllocator(
-                self.pool_blocks, self.block_size, park_ttl=self.prefix_ttl)
+            self.allocator = self._make_allocator()
             if self.offload is not None:
                 self.offload.clear()
             self.allocator.record_evictions = self.offload is not None
@@ -314,7 +389,10 @@ class Engine:
             self._recall_units = 0.0
             self._seq = {}
             self._prompt_logits = OrderedDict()
-        return self.bundle.init_cache(self.n_slots, self.capacity, length)
+        cache = self.bundle.init_cache(self.n_slots, self.capacity, length)
+        if self.shard is not None:
+            cache = shard_cache(cache, self.shard)
+        return cache
 
     def prefill_batch(self, params, batch):
         """Whole-batch prefill: (logits [B, Vp], slab cache of B slots)."""
@@ -399,7 +477,7 @@ class Engine:
         quantization — zeroing makes decode independent of pool history."""
         for part in ("front", "rest"):
             for pool in _pool_leaves(cache[part]):
-                pool[:, bid].zero_()
+                pool[:, bid] = 0
 
     def _read_block(self, cache, bid: int) -> list[torch.Tensor]:
         """A copy of block ``bid``'s rows in every pool leaf (front then rest:
@@ -409,13 +487,16 @@ class Engine:
                 for pool in _pool_leaves(cache[part])]
 
     def _block_views(self, cache, bid: int) -> list[torch.Tensor]:
+        """Block ``bid`` of every pool leaf: views (a copy, on a sharded
+        pool)."""
         return [pool[:, bid] for part in ("front", "rest") for pool in _pool_leaves(cache[part])]
 
     def _write_block(self, cache, payload, bid: int):
         """Commit a block payload (``_read_block``'s layout) into pool row
         ``bid`` — the device half of a recall; a round trip is bit-identical."""
-        for dst, src in zip(self._block_views(cache, bid), payload):
-            dst.copy_(src)
+        leaves = [pool for part in ("front", "rest") for pool in _pool_leaves(cache[part])]
+        for pool, src in zip(leaves, payload):
+            pool[:, bid] = src
         return cache
 
     # ----------------------------------------------------- host offload tier
@@ -464,7 +545,7 @@ class Engine:
             return cache
         fresh: list[int] = []
         for _ in ext:
-            bid = self.allocator.alloc()
+            bid = self.allocator.alloc(self.slot_shard(slot))
             if bid is None:
                 break
             fresh.append(bid)
@@ -526,10 +607,10 @@ class Engine:
         keys = block_hash_chain(toks, self.block_size)
         if not keys or keys[-1] not in self._prompt_logits:
             return None, cache
-        n_hit, _ = self.allocator.peek(keys)
+        n_hit, _ = self.allocator.peek(keys, self.slot_shard(slot))
         if n_hit < len(keys):
             return None, cache
-        blocks = [self.allocator.lookup(key) for key in keys]
+        blocks = [self.allocator.lookup(key, self.slot_shard(slot)) for key in keys]
         self.prefix_hits += 1
         self._prompt_logits.move_to_end(keys[-1])
         self._set_slot_state(cache, slot, blocks, len(toks))
@@ -550,13 +631,13 @@ class Engine:
         # longest shared prefix: take a reference on every hit block
         blocks: list[int] = []
         for key in keys:
-            bid = self.allocator.lookup(key)
+            bid = self.allocator.lookup(key, self.slot_shard(slot))
             if bid is None:
                 break
             blocks.append(bid)
         n_hit = len(blocks)
         for _ in range(n_hit, nb):
-            bid = self.allocator.alloc()
+            bid = self.allocator.alloc(self.slot_shard(slot))
             if bid is None:
                 for b in blocks:
                     self.allocator.free(b)
@@ -643,7 +724,7 @@ class Engine:
         L = len(toks)
         blocks: list[int] = []
         for key in keys:
-            bid = self.allocator.lookup(key)
+            bid = self.allocator.lookup(key, self.slot_shard(slot))
             if bid is None:
                 break
             blocks.append(bid)
@@ -687,7 +768,7 @@ class Engine:
             nb_needed = -(-end // self.block_size)
             fresh: list[int] = []
             while len(seq.blocks) + len(fresh) < nb_needed:
-                bid = self.allocator.alloc()
+                bid = self.allocator.alloc(self.slot_shard(slot))
                 if bid is None:
                     for b in fresh:
                         self.allocator.free(b)
@@ -742,7 +823,7 @@ class Engine:
             return True, cache
         j, off = divmod(pos, self.block_size)
         if off == 0:
-            bid = self.allocator.alloc()
+            bid = self.allocator.alloc(self.slot_shard(slot))
             if bid is None:
                 return False, cache
             cache = self._drain_evictions(cache)
@@ -752,7 +833,7 @@ class Engine:
         else:
             b = seq.blocks[j]
             if self.allocator.ref[b] > 1:
-                bid = self.allocator.alloc()
+                bid = self.allocator.alloc(self.slot_shard(slot))
                 if bid is None:
                     return False, cache
                 cache = self._drain_evictions(cache)
@@ -809,6 +890,10 @@ class Engine:
         m = self.obs.metrics
         if self.paged:
             m.set_gauges(self.allocator.stats())
+            if self._n_dp > 1:
+                # per-shard series beside the unlabelled aggregate
+                for i, st in enumerate(self.allocator.shard_stats()):
+                    m.set_gauges(st, shard=str(i))
             if self.offload is not None:
                 m.set_gauges(self.offload.stats())
         m.set_gauges(self.engine_stats())
@@ -829,8 +914,11 @@ class Engine:
         fn = self._budget_fns.get(budget)
         if fn is None:
             pol2 = dataclasses.replace(self.bundle.policy, budget=budget)
-            DecodePlan.build(pol2, capacity=self.capacity)
-            bundle2 = build_model(self.bundle.cfg, pol2, device=self.device)
+            DecodePlan.build(pol2, capacity=self.capacity,
+                             shard=self.shard if pol2.layout == "paged" else None)
+            # the DistConfig rides along so a degraded bundle keeps the mesh
+            # sharding (without it the sharded pool would meet the one-device step)
+            bundle2 = build_model(self.bundle.cfg, pol2, self.bundle.dcfg, device=self.device)
             fn = self._budget_fns[budget] = bundle2.decode_step
         self._decode_step = fn
         self.current_budget = budget

@@ -62,8 +62,16 @@ def test_modes_not_ported_raise():
     from repro_torch.core.policy import DecodePlan, PolicyConfig, UnsupportedPlanError
     from repro_torch.serving import Engine, serving_policy
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        DecodePlan.build(PolicyConfig(kind="fier", layout="paged"), shard=object())
+    from repro_torch.kvcache.sharded import ShardSpec
+    from repro_torch.launch.mesh import make_mesh
+
+    # mesh-sharded plans (ROADMAP Queue 1 item 10's serving part) are ported,
+    # on the paged layout only, as in the JAX package
+    spec = ShardSpec(mesh=make_mesh((1, 1), ("data", "model"), device="cpu"),
+                     tp_axes=("model",), dp_axes=("data",))
+    assert DecodePlan.build(PolicyConfig(kind="fier", layout="paged"), shard=spec).shard is spec
+    with pytest.raises(UnsupportedPlanError, match="requires layout='paged'"):
+        DecodePlan.build(PolicyConfig(kind="fier"), shard=spec)
     # the host tier and TTL (ROADMAP Queue 1 item 8) are ported: they build
     eng = Engine.build(reduced_config("olmo-1b"), n_slots=1, capacity=64, layout="paged",
                        offload_blocks=4, prefix_ttl=8.0, device="cpu")

@@ -297,5 +297,13 @@ def test_paged_entry_points_default_to_cuda_and_not_ported_hooks():
     cache = eng.new_cache()
     ok, same = eng.corrupt_slot_metadata(cache, 0)
     assert not ok and same is cache  # the slot holds no block yet
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Engine.build(cfg, n_slots=1, capacity=64, layout="paged", mesh=object(), device="cpu")
+    # mesh sharding (ROADMAP Queue 1 item 10's serving part) is ported: a mesh
+    # builds a sharded engine, and a mesh axis other than data/model raises
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    assert Engine.build(cfg, n_slots=1, capacity=64, layout="paged", mesh=mesh,
+                        device="cpu").shard.mesh is mesh
+    with pytest.raises(ValueError, match="must be named"):
+        Engine.build(cfg, n_slots=1, capacity=64, layout="paged",
+                     mesh=make_mesh((1,), ("expert",), device="cpu"), device="cpu")
