@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only  # phases 1-2 only, no result line
     python3 chip_smoke.py --training-only # phases 1 and 11 only, no result line
     python3 chip_smoke.py --sharded-only  # phases 1 and 12 only, no result line
+    python3 chip_smoke.py --sharded-train-only  # phases 1 and 13 only, no result line
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
@@ -261,12 +262,49 @@ result line):
    ``LONG_FULL_REL_TOL``·max|out| of dense attention and the merge with
    the last shard dropped beyond it, local mode's overlap with the global
    top-k is reported; all timed.
-13. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
-   bound and launch count (K1/K2: phase 3; K3/K4: phase 5, and phase 12's
-   per-shard counts in ``launches_sharded``; K6/K7: phase 6's generate;
-   K5/K8: phase 6's building blocks; phases 9, 10 and 11(e)'s beside
-   them), the card line, and as the last line ``{"ok": true, "device":
-   {...}}``.
+13. Training on meshes (``sharded_train_path``), every shard on this card.
+   (a) olmo-1b at full width, depth cut to 4 layers, phase 11(b)'s B 4 x
+   S 2048, seed 0, AdamW + cosine (lr 1e-3, warmup 0): the one-device step
+   and the steps on dp2, tp2 and tp2 x dp2 (``make_mesh``; the state placed
+   by ``param_shardings`` / ``opt_shardings``, TP over 'model', FSDP over
+   'data') from one initial state — the first step's loss, grad norm and
+   every leaf's gathered gradient within ``TRAIN_LOSS_REL_TOL``,
+   ``TRAIN_GNORM_REL_TOL`` and ``TRAIN_GRAD_REL_TOL``, the params after
+   AdamW within ``TRAIN_PARAM_REL_TOL`` where the gradient is clearly
+   non-zero (a near-zero gradient's sign may flip), every shard holding
+   exactly tree_bytes / n of each leaf split n ways, three planted faults
+   on tp2 x dp2 above every first-step gate (a DP shard fed another
+   shard's rows, TP shard 1's wo partial dropped, FSDP pieces gathered in
+   swapped order); then 4 more steps per mesh from the one device's state
+   after its first step (AdamW with non-zero moments), each step's loss
+   and grad norm within ``TRAIN_LOSS_REL_TOL`` and
+   ``TRAIN_TIMED_GNORM_REL_TOL`` of the one device's steps, two planted
+   optimizer faults on tp2 x dp2 above both (each split leaf's pieces
+   given the next piece's first moments, or none): ms/step (median), peak
+   memory and one profiled step.  (d) tp2 x dp2's state
+   saved and restored onto dp2 (``restore(sharding=)``) and onto one
+   device, bit for bit; 2 more steps on each within (a)'s gates; ``python
+   -m repro_torch.launch.train --arch olmo-1b --reduced --model-axis 2
+   --steps 6 --ckpt-every 2 --fail-at 3`` on the card: ``restarts: 1`` and
+   the uninterrupted run's final loss.  (e) the restored params served by
+   ``Engine.build(mesh=tp2)`` (paged one_pass, bs 32, phase 4's prompts)
+   against the one-device paged engine: prefill logits and 8
+   teacher-forced decode steps bit for bit, K3 = K4 = 2 FIER layers × 8 ×
+   2 shards and nothing else.  (c) ``compress_grads`` on tp2 x dp2, 2
+   steps: finite, each tensor's 1-bit scale within
+   ``COMPRESS_SCALE_REL_TOL`` of the one device's.  (b)
+   granite-moe-1b-a400m, depth cut to 2 layers, at tp2 (EP, 16 experts per
+   shard) and tp2 x dp2 (EP with FSDP-stored experts): at capacity 8.0 the
+   MoE output within ``MOE_Y_REL_TOL`` of ``moe_apply``'s and the first
+   loss within ``TRAIN_LOSS_REL_TOL`` of the one-device step's; at the
+   config's factor each shard's dropped share beside the one device's, and
+   the aux equal to the per-shard estimator (``MOE_AUX_REL_TOL``).
+14. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+   bound and launch count (K1/K2: phase 3; K3/K4: phase 5, phase 12's
+   per-shard counts in ``launches_sharded`` and phase 13(e)'s in
+   ``launches_sharded_train``; K6/K7: phase 6's generate; K5/K8: phase 6's
+   building blocks; phases 9, 10 and 11(e)'s beside them), the card line,
+   and as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4745,6 +4783,655 @@ def sharded_path(torch):
     return out
 
 
+# ------------------------------------------------------------ phase 13
+
+# (a)-(e): olmo-1b at full width, depth cut to this (2 FIER layers past
+# SKIP when (e) serves it); phase 11(b)'s B x S, seed 0, AdamW + cosine
+# (warmup 0, so the first step moves the params)
+SHARD_TRAIN_LAYERS = 4
+SHARD_TRAIN_MESHES = (("dp2", (2,), ("data",)), ("tp2", (2,), ("model",)),
+                      ("tp2xdp2", (2, 2), ("data", "model")))
+SHARD_TRAIN_LR = 1e-3
+SHARD_TRAIN_TIMED = 4      # more steps per mesh after the first, timed (median)
+GRANITE_TRAIN_LAYERS = 2   # (b)
+NO_DROP_FACTOR = 8.0       # (b): the capacity factor at which nothing drops
+EXPERT_LEAN = 0.05         # (b): the tokens' shift along expert 0's router column, × sqrt(d)
+ELASTIC_STEPS = 2          # (d): steps after the restore
+SERVE_TRAINED_STEPS = 8    # (e): teacher-forced decode steps
+# A sharded step against the one-device step from the same state, each gate
+# set between the largest sound reading and the smallest of the planted
+# faults' (first step: a DP shard fed another shard's rows, TP shard 1's wo
+# partial dropped, FSDP pieces gathered in swapped order, each read above
+# every first-step gate; the timed steps, AdamW with non-zero moments: each
+# split leaf's pieces updated with the next piece's first moment, or with
+# their first moments lost, each read above the loss and timed grad-norm
+# gates).  The loss gate holds the first step and every timed step.
+# Readings on one "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md §6, phase 13):
+TRAIN_LOSS_REL_TOL = 2e-4   # |Δloss| / loss: sound 3.93e-05 (granite 9.12e-05), faults 2.99e-04-8.20
+TRAIN_GNORM_REL_TOL = 1e-3  # first step |Δ grad norm| / norm: sound 1.59e-05, faults 0.0108-0.420
+# the timed steps' grad norm: where the first gradient was near zero, v̂ is
+# tiny and AdamW's next updates are sign-like, so summation order flips
+# such elements by 2·lr and the next gradients' norm moves a little
+TRAIN_TIMED_GNORM_REL_TOL = 0.01  # sound 1.86e-03, faults 0.150-817
+TRAIN_GRAD_REL_TOL = 0.1    # max over leaves of max|Δg| / max|g|: sound 0.01875, faults 1.12-1.67
+# AdamW's first step moves an element by lr·g/(|g| + eps) ≈ lr·sign(g), so
+# where a near-zero gradient's sign flips the two runs part by up to 2·lr.
+# The first step's params are held where the one device's |g| is at least
+# TRAIN_GRAD_REL_TOL of its leaf's max|g| — above the gradient gate, so a
+# sound run keeps the sign there — as max|Δp| / max|p| of the leaf
+TRAIN_PARAM_REL_TOL = 1e-4  # sound 2.37e-07, faults 0.0302
+# (d)'s two steps from a restored state with non-zero moments: every param
+# within 2·lr a step (AdamW moves an element by about lr·m̂/√v̂ a step)
+TRAIN_PARAM_BOUND = 2 * SHARD_TRAIN_LR * (1 + 1e-3)
+MOE_Y_REL_TOL = 0.02        # (b) EP's output vs moe_apply's, × max|y|: read 8.35e-06 / 0.00214
+MOE_AUX_REL_TOL = 1e-5      # (b) EP's aux vs the per-shard estimator: read 0
+COMPRESS_SCALE_REL_TOL = 0.01  # (c) a tensor's 1-bit scale vs the one device's: read 4.47e-04
+
+
+def mesh_dcfg(cfg, mesh):
+    """The train CLI's DistConfig for ``mesh``: the batch over its batch
+    axes, EP over 'model' for a MoE."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models.attention import DistConfig
+
+    ep = "model" if cfg.family == "moe" and mesh.shape.get("model", 1) > 1 else None
+    return DistConfig(mesh=mesh, batch_axes=batch_axes(mesh), ep_axis=ep)
+
+
+def place_state(state, mesh):
+    """``state`` placed on ``mesh`` as the train CLI places it (TP over
+    'model', FSDP over 'data'); returns (placed state, its shardings)."""
+    from repro_torch.core import placement as pl
+    from repro_torch.launch import sharding as shard
+
+    psh = shard.param_shardings(state["params"], mesh, ("data",))
+    sh = {"params": psh, "opt": shard.opt_shardings(state["opt"], psh, mesh)}
+    if "ef" in state:
+        sh["ef"] = psh
+    return pl.place_tree(state, sh), sh
+
+
+def grads_of(torch, bundle, params, batch):
+    """(loss, grad norm, the gradients as logical tensors) of one forward
+    and backward of ``bundle.train_loss``."""
+    from repro_torch.core import placement as pl
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.optim import clip_by_global_norm
+
+    loss, _, grads = _loss_and_grads(bundle, params, batch)
+    _, gn = clip_by_global_norm(grads, 1.0)
+    return float(loss), float(gn), pl.gather_tree(grads)
+
+
+def tree_gap(torch, got, ref) -> float:
+    """max over leaves of max|got − ref| / max|ref| of the leaf."""
+    from repro_torch.optim.tree import leaves
+
+    return max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+               for a, b in zip(leaves(got), leaves(ref)))
+
+
+def abs_gap(torch, got, ref) -> float:
+    from repro_torch.optim.tree import leaves
+
+    return max(float((a.float() - b.float()).abs().max()) for a, b in zip(leaves(got), leaves(ref)))
+
+
+def masked_param_gap(torch, got, ref, grads) -> float:
+    """max over leaves of max|got − ref| / max|ref| of the leaf, over the
+    elements whose |grads| is at least TRAIN_GRAD_REL_TOL of the leaf's
+    max (where AdamW's first step keeps its sign in a sound run)."""
+    from repro_torch.optim.tree import leaves
+
+    out = 0.0
+    for a, b, g in zip(leaves(got), leaves(ref), leaves(grads)):
+        g = g.float().abs()
+        keep = (g >= TRAIN_GRAD_REL_TOL * g.max()) & (g > 0)
+        if bool(keep.any()):
+            d = (a.float() - b.float()).abs()[keep].max()
+            out = max(out, float(d / b.float().abs().max().clamp_min(1e-30)))
+    return out
+
+
+def first_step_gaps(torch, bundle, step, placed, batch, ref, ref1) -> dict:
+    """One mesh's first step against the one device's from the same state:
+    loss, grad norm and every leaf's gradient against ``ref`` = (loss,
+    grad norm, grads); the params after AdamW against ``ref1``'s, masked
+    as ``masked_param_gap``."""
+    from repro_torch.core import placement as pl
+
+    loss, gn, g = grads_of(torch, bundle, placed["params"], batch)
+    gaps = dict(loss=abs(loss - ref[0]) / ref[0], grad_norm=abs(gn - ref[1]) / ref[1],
+                grad=tree_gap(torch, g, ref[2]))
+    del g
+    st1, _ = step(placed, batch)
+    gaps["params"] = masked_param_gap(torch, pl.gather_tree(st1["params"]), ref1["params"],
+                                      ref[2])
+    return gaps
+
+
+def metric_gaps(metrics, ref) -> dict:
+    """The largest |Δloss| / loss and |Δ grad norm| / norm over the steps of
+    two runs' metrics."""
+    return {k: max(abs(a[k] - b[k]) / b[k] for a, b in zip(metrics, ref))
+            for k in ("loss", "grad_norm")}
+
+
+# planted optimizer faults: what each split leaf's AdamW update is given
+# for its pieces' first moments
+OPTIMIZER_FAULTS = {
+    "each piece updated with the next piece's first moment": lambda mus: mus[1:] + mus[:1],
+    "the first moments of split leaves lost (zero) before each update":
+        lambda mus: [m.new_zeros(m.shape) for m in mus],
+}
+
+
+def optimizer_fault(torch, step, state, batches, ref_metrics, wrong_mu):
+    """The steps over ``batches`` with a planted optimizer fault: each split
+    leaf's pieces updated with ``wrong_mu(their first moments)``.  Returns
+    the metric gaps against ``ref_metrics``."""
+    from repro_torch.core.placement import Sharded
+    from repro_torch.optim import adamw
+
+    orig = adamw.map_leaves
+
+    def faulty(fn, tree, *rest):
+        if isinstance(tree, dict):
+            return {k: faulty(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        if isinstance(tree, Sharded) and len(tree.pieces) > 1 and len(rest) == 3:
+            mu, nu, p = rest
+            mus = wrong_mu(mu.pieces)
+            return tree.with_pieces([fn(*a) for a in zip(tree.pieces, mus, nu.pieces, p.pieces)])
+        return orig(fn, tree, *rest)
+
+    adamw.map_leaves = faulty
+    try:
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        adamw.map_leaves = orig
+    del state
+    return metric_gaps(metrics, ref_metrics)
+
+
+def train_faults(torch, measure):
+    """``measure()`` (a mesh's first-step gaps) with three planted faults:
+    DP shard 1 fed shard 0's rows; TP shard 1's wo partial dropped from the
+    psum; the FSDP pieces of the column-parallel weights gathered in
+    swapped order.  Returns each fault's gaps."""
+    from repro_torch.core import placement as pl
+    from repro_torch.models import sharded_train as st
+
+    split, row_sum, gather = st.split_batch, st._row_sum, pl._gather
+
+    def other_rows(b, mesh, axes):
+        parts = split(b, mesh, axes)
+        return [parts[0]] + [{k: None if v is None else v.to(p[k].device)
+                              for k, v in parts[0].items()} for p in parts[1:]]
+
+    def drop_wo(parts, name):
+        if name == "wo":
+            parts = [parts[0]] + [torch.zeros_like(p) for p in parts[1:]]
+        return row_sum(parts, name)
+
+    def swapped(xs, dim, device):
+        # the pieces of the column-parallel weights' contraction dim (wq, wk,
+        # wv, w1, w3: dim 0 of a layer's [d, ·] leaf) in swapped order.  A
+        # swap of every d-split leaf would not show: with olmo's
+        # parameter-free norm it permutes d consistently from the embedding
+        # to the head, a symmetry of the graph
+        return gather(list(reversed(xs)) if dim == 0 else xs, dim, device)
+
+    out = {}
+    for name, mod, attr, fn in (("a DP shard fed another shard's rows", st, "split_batch",
+                                 other_rows),
+                                ("TP shard 1's wo partial dropped", st, "_row_sum", drop_wo),
+                                ("FSDP pieces gathered in swapped order", pl, "_gather",
+                                 swapped)):
+        orig = getattr(mod, attr)
+        setattr(mod, attr, fn)
+        try:
+            out[name] = measure()
+        finally:
+            setattr(mod, attr, orig)
+        free(torch)
+    return out
+
+
+def train_steps_timed(torch, step_fn, state, batches):
+    """Steps over ``batches``, synchronized: (state, median ms, peak GiB
+    above the state, the metrics)."""
+    free(torch)
+    base = peak_base(torch)
+    ms, metrics = [], []
+    for b in batches:
+        sync(torch)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        sync(torch)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return state, median(ms), peak_gib(torch, base), metrics
+
+
+def sharded_train_olmo(torch):
+    """(a): olmo-1b (SHARD_TRAIN_LAYERS layers) on dp2, tp2 and tp2×dp2
+    against the one-device step from one initial state: the first step's
+    loss, grad norm and every leaf's gathered gradient within the gates,
+    the params after AdamW within TRAIN_PARAM_REL_TOL where the gradient
+    is clearly non-zero; each shard holds exactly tree_bytes / n of every
+    leaf split n ways; the planted faults (on tp2×dp2) above the gates.
+    Then SHARD_TRAIN_TIMED steps per mesh from the one device's state
+    after its first step (non-zero moments), placed on the mesh: timed,
+    with their peak memory and one profiled step, each step's loss and
+    grad norm within the gates of the one device's steps, and the
+    optimizer faults above them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import placement as pl
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.launch import sharding as shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import TrainHParams, init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import leaves
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=SHARD_TRAIN_LAYERS)
+    hp = TrainHParams(peak_lr=SHARD_TRAIN_LR, warmup=0, total_steps=16)
+    shape = ShapeConfig("p13", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = lambda s: make_train_batch(cfg, shape, s, seed=0, device=DEVICE)
+    one = build_model(cfg, device=DEVICE)
+    init = init_train_state(one, torch.Generator(device=DEVICE).manual_seed(0), hp)
+    b0 = batch(0)
+    timed_batches = lambda: [batch(s) for s in range(1, 1 + SHARD_TRAIN_TIMED)]
+    ref = grads_of(torch, one, init["params"], b0)
+    step_one = make_train_step(one, hp)
+    ref1, _ = step_one(init, b0)
+    _, ms_one, gib_one, metrics_one = train_steps_timed(torch, step_one, ref1, timed_batches())
+    prof_one = (profile_train_step(torch, step_one, ref1, batch(9)) if DEVICE == "cuda"
+                else None)
+    log(f"  one device ({cfg.n_layers} layers, B {TRAIN_BATCH} x S {TRAIN_SEQ}): first loss "
+        f"{ref[0]:.6f}, grad norm {ref[1]:.6f}; {ms_one:.1f} ms/step (median of "
+        f"{SHARD_TRAIN_TIMED}), peak {gib_one:.2f} GiB above the state; losses "
+        + " ".join(f"{m['loss']:.6f}" for m in metrics_one))
+    out = {"one": dict(loss=ref[0], grad_norm=ref[1], ms=ms_one, peak_gib=gib_one,
+                       profile=prof_one, losses=[m["loss"] for m in metrics_one])}
+    keep = None
+    for name, mshape, axes in SHARD_TRAIN_MESHES:
+        mesh = make_mesh(mshape, axes, device=DEVICE)
+        bundle = build_model(cfg, None, mesh_dcfg(cfg, mesh), device=DEVICE)
+        placed, sh = place_state(init, mesh)
+        for x in leaves(placed["params"]):
+            if isinstance(x, pl.Sharded) and pl.shard_bytes(x) != [
+                    shard.tree_bytes(x) // len(x.pieces)] * len(x.pieces):
+                raise AssertionError(f"{name}: a shard does not hold tree_bytes / n of {x}")
+        split = sum(isinstance(x, pl.Sharded) and len(x.pieces) > 1
+                    for x in leaves(placed["params"]))
+        step = make_train_step(bundle, hp)
+        measure = lambda: first_step_gaps(torch, bundle, step, placed, b0, ref, ref1)
+        gaps = measure()
+        faults = train_faults(torch, measure) if name == "tp2xdp2" else {}
+        start = place_state(ref1, mesh)[0]
+        if name == "tp2xdp2":
+            for fault, wrong_mu in OPTIMIZER_FAULTS.items():
+                faults[fault] = optimizer_fault(torch, step, start, timed_batches(), metrics_one,
+                                                wrong_mu)
+        st, ms, gib, metrics = train_steps_timed(torch, step, start, timed_batches())
+        timed = metric_gaps(metrics, metrics_one)
+        prof = (profile_train_step(torch, step, st, batch(9)) if DEVICE == "cuda" else None)
+        log(f"  {name}: first step |Δloss|/loss {gaps['loss']:.3g} (gate {TRAIN_LOSS_REL_TOL}), "
+            f"|Δ grad norm|/norm {gaps['grad_norm']:.3g} (gate {TRAIN_GNORM_REL_TOL}), "
+            f"gradients max over leaves of max|Δg|/max|g| {gaps['grad']:.4g} (gate "
+            f"{TRAIN_GRAD_REL_TOL}), params after AdamW where |g| >= {TRAIN_GRAD_REL_TOL} max|g| "
+            f"max|Δp|/max|p| {gaps['params']:.3g} (gate {TRAIN_PARAM_REL_TOL}); "
+            f"{SHARD_TRAIN_TIMED} timed steps from its state vs the one device's: |Δloss|/loss "
+            f"{timed['loss']:.3g}, |Δ grad norm|/norm {timed['grad_norm']:.3g} (gate "
+            f"{TRAIN_TIMED_GNORM_REL_TOL}); {split} leaves "
+            f"split, every shard holding tree_bytes / n; planted faults {json.dumps(faults)}; "
+            f"{ms:.1f} ms/step (median of {SHARD_TRAIN_TIMED}; one device {ms_one:.1f}), peak "
+            f"{gib:.2f} GiB above the state; losses " + " ".join(f"{m['loss']:.6f}" for m in metrics))
+        if not (gaps["loss"] <= TRAIN_LOSS_REL_TOL and gaps["grad_norm"] <= TRAIN_GNORM_REL_TOL
+                and gaps["grad"] <= TRAIN_GRAD_REL_TOL and gaps["params"] <= TRAIN_PARAM_REL_TOL
+                and timed["loss"] <= TRAIN_LOSS_REL_TOL
+                and timed["grad_norm"] <= TRAIN_TIMED_GNORM_REL_TOL):
+            raise AssertionError(f"{name}: the sharded steps leave the one device's: {gaps}, "
+                                 f"timed {timed}")
+        if not all(f["loss"] > TRAIN_LOSS_REL_TOL
+                   and f["grad_norm"] > (TRAIN_GNORM_REL_TOL if "grad" in f
+                                         else TRAIN_TIMED_GNORM_REL_TOL)
+                   and f.get("grad", math.inf) > TRAIN_GRAD_REL_TOL
+                   and f.get("params", math.inf) > TRAIN_PARAM_REL_TOL for f in faults.values()):
+            raise AssertionError(f"{name}: a gate does not see a planted fault: {faults}")
+        if not all(math.isfinite(m["loss"]) for m in metrics):
+            raise AssertionError(f"{name}: a non-finite loss: {metrics}")
+        out[name] = dict(gaps, timed=timed, faults=faults, ms=ms, peak_gib=gib, profile=prof,
+                         losses=[m["loss"] for m in metrics], split_leaves=split)
+        if name == "tp2xdp2":
+            keep = dict(state=st, shardings=sh, mesh=mesh)
+        del placed, start, st, bundle, measure, step
+        free(torch)
+    del init, ref1, ref
+    free(torch)
+    return out, cfg, hp, keep
+
+
+def ep_drop_shares(torch, x, router, cfg, n_tok, n_model):
+    """Each (token shard, expert shard)'s dropped share of its routed
+    (token, k) slots at ``cfg``'s capacity, and the one device's."""
+    from repro_torch.models import moe
+
+    E, k = cfg.n_experts, cfg.topk_experts
+    share = lambda keep, sel: float((~keep[sel]).sum()) / max(int(sel.sum()), 1)
+    _, eidx, _ = moe._route(x, {"router": router}, k)
+    _, keep = moe.dispatch_slots(eidx, E, moe.capacity(x.shape[0], cfg))
+    one = share(keep, torch.ones_like(keep))
+    shards = {}
+    for t, xt in enumerate(x.chunk(n_tok)):
+        _, e_t, _ = moe._route(xt, {"router": router}, k)
+        _, keep_t = moe.dispatch_slots(e_t, E, moe.capacity(xt.shape[0], cfg))
+        for m in range(n_model):
+            sel = (e_t.reshape(-1) // (E // n_model)) == m
+            shards[f"t{t}m{m}"] = share(keep_t, sel)
+    return one, shards
+
+
+def sharded_train_granite(torch):
+    """(b): granite-moe-1b-a400m (GRANITE_TRAIN_LAYERS layers) at tp2 with
+    EP (16 experts per shard) and at tp2×dp2 with FSDP-stored experts.  At
+    capacity NO_DROP_FACTOR the MoE output within MOE_Y_REL_TOL of
+    ``moe_apply``'s on layer 0's weights and the first step's loss within
+    TRAIN_LOSS_REL_TOL of the one-device step's; at the config's own factor
+    each shard's dropped share beside the one device's, and EP's aux equal
+    to the per-shard estimator from the same routing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import placement as pl
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.launch import sharding as shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import TrainHParams, init_train_state
+    from repro_torch.models import build_model, moe
+
+    base = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=GRANITE_TRAIN_LAYERS)
+    cfg8 = dataclasses.replace(base, capacity_factor=NO_DROP_FACTOR)
+    hp = TrainHParams(peak_lr=SHARD_TRAIN_LR, warmup=0, total_steps=16)
+    b0 = make_train_batch(cfg8, ShapeConfig("p13b", TRAIN_SEQ, TRAIN_BATCH, "train"), 0, seed=0,
+                          device=DEVICE)
+    one = build_model(cfg8, device=DEVICE)
+    params = init_train_state(one, torch.Generator(device=DEVICE).manual_seed(0), hp)["params"]
+    ref_loss = grads_of(torch, one, params, b0)[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    p0 = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    # tokens leaning on expert 0 (shifted along its router column), so its
+    # bucket overflows at the config's factor: iid tokens load every expert
+    # within 1.25x of the mean and nothing drops
+    lean = p0["router"][:, 0] / p0["router"][:, 0].norm()
+    x = (torch.randn((TRAIN_BATCH * TRAIN_SEQ, base.d_model), generator=gen, device=DEVICE)
+         + EXPERT_LEAN * base.d_model**0.5 * lean).to(torch.bfloat16)
+    with torch.no_grad():
+        y_ref, _ = moe.moe_apply(x, p0, cfg8)
+    scale = float(y_ref.float().abs().max())
+    out = {}
+    for name, mshape, axes in (("tp2", (2,), ("model",)), ("tp2xdp2", (2, 2), ("data", "model"))):
+        mesh = make_mesh(mshape, axes, device=DEVICE)
+        n_tok = mesh.shape.get("data", 1)
+        pe = {k: pl.place(v, pl.NamedSharding(mesh, shard.param_pspec(
+            f"layers/moe/{k}", v.dim(), ("data",)))) for k, v in p0.items()}
+        with torch.no_grad():
+            y, _ = moe.moe_apply_ep(x, pe, cfg8, mesh=mesh, token_axes=("data",),
+                                    model_axis="model")
+            y_gap = float((y.float() - y_ref.float()).abs().max()) / scale
+            own_one, own_shards = ep_drop_shares(torch, x, p0["router"], base, n_tok,
+                                                 mesh.shape["model"])
+            _, aux = moe.moe_apply_ep(x, pe, base, mesh=mesh, token_axes=("data",),
+                                      model_axis="model")
+            est = torch.stack([moe._aux(*moe._route(xt, {"router": p0["router"]},
+                                                    base.topk_experts)[:2],
+                                        base.n_experts, base.topk_experts)
+                               for xt in x.chunk(n_tok)]).mean()
+        aux_gap = abs(float(aux) - float(est)) / float(est)
+        bundle = build_model(cfg8, None, mesh_dcfg(cfg8, mesh), device=DEVICE)
+        placed = pl.place_tree(params, shard.param_shardings(params, mesh, ("data",)))
+        loss = grads_of(torch, bundle, placed, b0)[0]
+        loss_gap = abs(loss - ref_loss) / ref_loss
+        log(f"  {name} (EP, {base.n_experts // mesh.shape['model']} experts per shard"
+            f"{', experts FSDP-stored over data' if n_tok > 1 else ''}): at capacity "
+            f"{NO_DROP_FACTOR} the MoE output max|Δy| {y_gap:.3g} of max|y| (gate "
+            f"{MOE_Y_REL_TOL}), first-step loss |Δ|/loss {loss_gap:.3g} (gate "
+            f"{TRAIN_LOSS_REL_TOL}); at the config's factor {base.capacity_factor}: dropped "
+            f"share one device {own_one:.4f}, per shard {json.dumps(own_shards)}; aux "
+            f"{float(aux):.6f} vs the per-shard estimator {float(est):.6f} (|Δ|/est "
+            f"{aux_gap:.3g}, gate {MOE_AUX_REL_TOL})")
+        if not (y_gap <= MOE_Y_REL_TOL and loss_gap <= TRAIN_LOSS_REL_TOL
+                and aux_gap <= MOE_AUX_REL_TOL):
+            raise AssertionError(f"granite {name}: y {y_gap}, loss {loss_gap}, aux {aux_gap}")
+        out[name] = dict(y_gap=y_gap, loss_gap=loss_gap, drop_one=own_one, drop_shards=own_shards,
+                         aux=float(aux), aux_estimator=float(est), aux_gap=aux_gap)
+        del placed, pe, bundle
+        free(torch)
+    del params, one
+    free(torch)
+    return out
+
+
+def compress_run(torch, cfg, hp):
+    """(c): compress_grads on tp2×dp2 for 2 steps from the one-device
+    state's init: finite, each tensor's 1-bit scale within
+    COMPRESS_SCALE_REL_TOL of the one-device run's at every step."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import placement as pl
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import leaves
+
+    hp = dataclasses.replace(hp, compress_grads=True)
+    shape = ShapeConfig("p13c", TRAIN_SEQ, TRAIN_BATCH, "train")
+    one = build_model(cfg, device=DEVICE)
+    init = init_train_state(one, torch.Generator(device=DEVICE).manual_seed(0), hp)
+    orig = steps_mod.compress_decompress
+    scales = []
+
+    def recorded(grads, ef):
+        q, e = orig(grads, ef)
+        scales.append([float(x.abs().max()) for x in leaves(pl.gather_tree(q))])
+        return q, e
+
+    steps_mod.compress_decompress = recorded
+    try:
+        runs = {}
+        mesh = make_mesh((2, 2), ("data", "model"), device=DEVICE)
+        for name, bundle, state in (
+                ("one", one, init),
+                ("tp2xdp2", build_model(cfg, None, mesh_dcfg(cfg, mesh), device=DEVICE),
+                 place_state(init, mesh)[0])):
+            scales.clear()
+            step = make_train_step(bundle, hp)
+            losses = []
+            for s in range(2):
+                state, m = step(state, make_train_batch(cfg, shape, s, seed=0, device=DEVICE))
+                losses.append(float(m["loss"]))
+            runs[name] = dict(scales=[list(x) for x in scales], losses=losses)
+            del state
+            free(torch)
+    finally:
+        steps_mod.compress_decompress = orig
+    gap = max(abs(a - b) / b for sa, sb in zip(runs["tp2xdp2"]["scales"], runs["one"]["scales"])
+              for a, b in zip(sa, sb) if b > 0)
+    log(f"  compress_grads, 2 steps: losses one device {runs['one']['losses']}, tp2xdp2 "
+        f"{runs['tp2xdp2']['losses']}; each tensor's scale vs the one device's max |Δ|/scale "
+        f"{gap:.3g} (gate {COMPRESS_SCALE_REL_TOL}) over {len(runs['one']['scales'][0])} tensors")
+    if not (all(math.isfinite(x) for x in runs["tp2xdp2"]["losses"])
+            and gap <= COMPRESS_SCALE_REL_TOL):
+        raise AssertionError(f"compress_grads on tp2xdp2: scale gap {gap}, {runs}")
+    return dict(scale_gap=gap, losses=runs["tp2xdp2"]["losses"],
+                losses_one=runs["one"]["losses"])
+
+
+def elastic_run(torch, cfg, hp, keep):
+    """(d): (a)'s tp2×dp2 state saved, restored onto dp2 (``sharding=``)
+    and onto one device: bit for bit the saved arrays; then ELASTIC_STEPS
+    steps on each, within (a)'s gates of each other; then the train CLI at
+    ``--model-axis 2 --reduced --steps 6`` with one fault at step 3 (and a
+    checkpoint every 2 steps, so the restart resumes from step 2 onto the
+    mesh) beside an uninterrupted run: ``restarts: 1`` and the same final
+    loss.  Returns (the restored one-device params, the readings)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import placement as pl
+    from repro_torch.data.pipeline import make_train_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import leaves
+
+    shape = ShapeConfig("p13d", TRAIN_SEQ, TRAIN_BATCH, "train")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="p13_ckpt_", dir=os.path.join(HERE, "build"))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        saved = pl.gather_tree(keep["state"])
+        CheckpointManager(ckdir).save(1, keep["state"])
+        out["save_s"] = time.perf_counter() - t0
+        dp2 = make_mesh((2,), ("data",), device=DEVICE)
+        like = keep["state"]
+        t0 = time.perf_counter()
+        on_dp2 = CheckpointManager(ckdir).restore(1, like, sharding=place_state(saved, dp2)[1])
+        on_one = CheckpointManager(ckdir).restore(1, saved)
+        out["restore_s"] = time.perf_counter() - t0
+        diff = sum(not torch.equal(a, b) for a, b in zip(leaves(saved),
+                                                         leaves(pl.gather_tree(on_dp2))))
+        diff += sum(not torch.equal(a, b) for a, b in zip(leaves(saved), leaves(on_one)))
+        del saved, keep["state"]
+        free(torch)
+        runs = {}
+        for name, state, dcfg in (("dp2", on_dp2, mesh_dcfg(cfg, dp2)), ("one", on_one, None)):
+            step = make_train_step(build_model(cfg, None, dcfg, device=DEVICE), hp)
+            ms = []
+            for s in range(ELASTIC_STEPS):
+                state, m = step(state, make_train_batch(cfg, shape, 10 + s, seed=0,
+                                                        device=DEVICE))
+                ms.append({k: float(v) for k, v in m.items()})
+            runs[name] = (pl.gather_tree(state), ms)
+            del state
+        del on_dp2
+        (p_dp2, m_dp2), (p_one, m_one) = runs["dp2"], runs["one"]
+        gaps = dict(loss=max(abs(a["loss"] - b["loss"]) / b["loss"] for a, b in zip(m_dp2, m_one)),
+                    grad_norm=max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                                  for a, b in zip(m_dp2, m_one)),
+                    params=abs_gap(torch, p_dp2["params"], p_one["params"]))
+        bound = TRAIN_PARAM_BOUND * ELASTIC_STEPS
+        log(f"  elastic: saved tp2xdp2 in {out['save_s']:.1f} s, restored onto dp2 and one "
+            f"device in {out['restore_s']:.1f} s, {diff} leaves differing from the saved arrays; "
+            f"{ELASTIC_STEPS} more steps, dp2 vs one device: |Δloss|/loss {gaps['loss']:.3g}, "
+            f"|Δ grad norm|/norm {gaps['grad_norm']:.3g}, params max|Δ| {gaps['params']:.3g} "
+            f"(bound {bound:.4g})")
+        if diff or not (gaps["loss"] <= TRAIN_LOSS_REL_TOL
+                        and gaps["grad_norm"] <= TRAIN_GNORM_REL_TOL and gaps["params"] <= bound):
+            raise AssertionError(f"elastic restore: {diff} leaves differ, gaps {gaps}")
+        out.update(gaps, leaves_differing=diff)
+        params_one = p_one["params"]
+        del runs, p_dp2
+        free(torch)
+        # the CLI, on the card, in a process of its own
+        cli = {}
+        for tag, extra in (("fault", ["--fail-at", "3"]), ("clean", [])):
+            d = os.path.join(ckdir, "cli_" + tag)
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "olmo-1b",
+                   "--reduced", "--model-axis", "2", "--steps", "6", "--ckpt-every", "2",
+                   "--log-every", "1", "--device", DEVICE, "--ckpt-dir", d] + extra
+            env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+            if r.returncode:
+                raise AssertionError(f"train CLI ({tag}) exited {r.returncode}: {r.stderr[-2000:]}")
+            lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+            cli[tag] = dict(done=lines[-1], last=lines[-2], s=time.perf_counter() - t0)
+        log(f"  train --model-axis 2 --reduced --steps 6 --fail-at 3: {cli['fault']['done']}, "
+            f"last loss {cli['fault']['last']['loss']!r} ({cli['fault']['s']:.1f} s); "
+            f"uninterrupted {cli['clean']['last']['loss']!r} ({cli['clean']['s']:.1f} s)")
+        if not (cli["fault"]["done"]["restarts"] == 1 and cli["fault"]["last"]["step"] == 5
+                and cli["fault"]["last"]["loss"] == cli["clean"]["last"]["loss"]):
+            raise AssertionError(f"the CLI's recovery onto the mesh: {cli}")
+        out["cli"] = {k: dict(v["done"], last_loss=v["last"]["loss"]) for k, v in cli.items()}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return params_one, out
+
+
+def serve_trained(torch, cfg, params):
+    """(e): the restored params (one device) served by the one-device paged
+    engine and by ``Engine.build(mesh=tp2)`` (paged one_pass, bs 32, phase
+    4's prompts): prefill logits and SERVE_TRAINED_STEPS teacher-forced
+    decode steps bit for bit; K3 = K4 = FIER layers × steps × 2 shards on
+    tp2, and nothing else."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    params = build_model(cfg, device=DEVICE).compute_params(params)
+    n_fier = cfg.n_layers - SKIP
+    base = sharded_drive(torch, cfg, params, None, PROMPTS, SERVE_TRAINED_STEPS, check=False,
+                         timed=0)
+    del base["eng"], base["cache"]
+    got = sharded_drive(torch, cfg, params, make_mesh((2,), ("model",), device=DEVICE), PROMPTS,
+                        SERVE_TRAINED_STEPS, forced=base["toks"], check=False, timed=0)
+    del got["eng"], got["cache"]
+    bitwise = same(torch, got["pre"], base["pre"]) and same(torch, got["logits"], base["logits"])
+    gap = float((got["logits"] - base["logits"]).abs().max())
+    log(f"  served on tp2 vs one device: prefill logits and {SERVE_TRAINED_STEPS} teacher-forced "
+        f"decode steps bit for bit {bitwise} (max |Δlogit| {gap:.3g}); launches {got['counts']}")
+    check_launches(got["counts"], PAGED_KERNELS, n_fier * SERVE_TRAINED_STEPS * 2)
+    if not bitwise:
+        raise AssertionError(f"the trained model served on tp2 differs: {gap}")
+    return dict(bitwise=bitwise, launches=got["counts"])
+
+
+def sharded_train_path(torch):
+    """Phase 13: (a) olmo-1b on dp2, tp2, tp2×dp2, (d) elastic restore and
+    the CLI, (e) serve what the mesh trained through K3/K4 per shard, (c)
+    compress_grads, (b) granite-moe with EP."""
+    t0 = time.perf_counter()
+    out, walls = {}, {}
+
+    def part(key, title, fn, *a):
+        log(f"  {title}")
+        t = time.perf_counter()
+        res = fn(torch, *a)
+        walls[key] = round(time.perf_counter() - t, 1)
+        return res
+
+    out["olmo"], cfg, hp, keep = part("olmo", "(a) olmo-1b, depth cut, on dp2, tp2 and tp2 x dp2",
+                                      sharded_train_olmo)
+    params, out["elastic"] = part("elastic", "(d) elastic restore and the train CLI", elastic_run,
+                                  cfg, hp, keep)
+    del keep
+    free(torch)
+    out["serve"] = part("serve", "(e) serve what the mesh trained, tp2 vs one device",
+                        serve_trained, cfg, params)
+    del params
+    free(torch)
+    out["compress"] = part("compress", "(c) compress_grads on tp2 x dp2", compress_run, cfg, hp)
+    out["granite"] = part("granite", "(b) granite-moe-1b-a400m with expert parallelism",
+                          sharded_train_granite)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 13 wall time {out['wall_s']:.1f} s: {walls}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4785,6 +5472,10 @@ def main() -> int:
     if "--sharded-only" in sys.argv:  # phase 12 alone after the build; no result line
         log("[sharded] mesh-sharded serving, every shard on this card")
         sharded_path(torch)
+        return 0
+    if "--sharded-train-only" in sys.argv:  # phase 13 alone after the build; no result line
+        log("[sharded training] training on meshes, every shard on this card")
+        sharded_train_path(torch)
         return 0
 
     log("[kernels] each kernel against its plain version")
@@ -4868,6 +5559,9 @@ def main() -> int:
     log("[sharded] mesh-sharded serving, every shard on this card")
     p12 = sharded_path(torch)
 
+    log("[sharded training] training on meshes, every shard on this card")
+    p13 = sharded_train_path(torch)
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
         "fier_retrieve": (csrc + "fier_retrieve.cu", "src/repro/kernels/fused_retrieval.py:284"),
@@ -4937,6 +5631,8 @@ def main() -> int:
                 "granite_tp2": p12["granite"]["launches"][name],
                 "stream_dp2": p12["stream"]["launches"][name],
             }
+            # phase 13(e): the model trained on the meshes, served on tp2
+            row["launches_sharded_train"] = p13["serve"]["launches"][name]
         # phases 9 and 10's drives, each counted from 0 (paged: granite-moe's paged engine)
         fam_key = "launches_paged" if name in PAGED_KERNELS else "launches"
         row["launches_families"] = {a: r[fam_key][name] for a, r in fam.items()

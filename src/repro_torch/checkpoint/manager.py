@@ -14,8 +14,12 @@
 * ``keep_n`` keeps the newest steps and deletes the rest.
 * bf16 leaves are stored as their uint16 bits (numpy has no bf16) under
   the dtype name ``bfloat16``.
-* ``restore(..., sharding=)`` (re-sharding onto another mesh) raises:
-  multiple GPUs wait for ROADMAP Queue 1 item 10's training part.
+* A mesh's sharded leaf (``core.placement.Sharded``) is saved as its
+  logical array, so a checkpoint does not depend on the mesh it was
+  written from, and the reference's manager reads it.
+* ``restore(..., sharding=)`` places every leaf by one sharding or by a
+  tree of them (``core.placement.place``): the elastic path, where a
+  checkpoint saved on mesh A loads onto mesh B.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.core.placement import Sharded, place_tree
 
 
 def _flatten(tree: Any, path: str = ""):
@@ -58,6 +64,8 @@ def _rebuild(like: Any, fn) -> Any:
 
 
 def _to_host(x) -> np.ndarray:
+    if isinstance(x, Sharded):
+        x = x.full()
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -67,7 +75,7 @@ def _to_host(x) -> np.ndarray:
 
 
 def _dtype_name(x) -> str:
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, Sharded)):
         return str(x.dtype).removeprefix("torch.")
     return str(np.asarray(x).dtype)
 
@@ -142,12 +150,11 @@ class CheckpointManager:
 
     def restore(self, step: int, like: Any, *, sharding: Any = None) -> Any:
         """The checkpoint of ``step`` in the structure of ``like``, each
-        leaf a tensor with ``like``'s leaf's dtype on its device."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "restoring onto a device mesh is not ported yet (ROADMAP Queue 1 item 10, "
-                "its training part)"
-            )
+        leaf a tensor with ``like``'s leaf's dtype on its device (a Sharded
+        leaf's: its first piece's).  ``sharding``: a NamedSharding for every
+        leaf, or a tree of them matching ``like``, to place the leaves by —
+        the elastic path: a checkpoint saved on mesh A loads onto mesh B by
+        passing B's shardings here."""
         path = self._path(step)
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -165,8 +172,9 @@ class CheckpointManager:
                 t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(a))
-            if isinstance(ref, torch.Tensor):
+            if isinstance(ref, (torch.Tensor, Sharded)):
                 return t.to(device=ref.device, dtype=ref.dtype)
             return t
 
-        return _rebuild(like, load)
+        tree = _rebuild(like, load)
+        return tree if sharding is None else place_tree(tree, sharding)

@@ -30,7 +30,12 @@ kernel), so plain PyTorch is the port.
 The collectives take one tensor per shard of a group and give each shard
 the result on its own device.  Their reduction order is fixed — shard 0
 first, then 1, 2, … — so a result does not depend on which shard computes
-it.
+it.  They are built from ``torch.add``, ``torch.maximum``, ``torch.cat``
+and ``.to(device)``, so they are differentiable: inside one autograd graph
+(the single-controller train step, ``models/sharded_train.py``) the backward of
+an all-gather hands each shard its slice of the summed gradient (a
+reduce-scatter) and the backward of a psum hands every shard the whole
+gradient (a broadcast), with no hand-written transpose.
 """
 from __future__ import annotations
 
@@ -70,6 +75,18 @@ def all_gather(xs: Sequence[torch.Tensor], dim: int) -> list[torch.Tensor]:
     home = xs[0].device
     cat = torch.cat([x.to(home) for x in xs], dim=dim)
     return [cat.to(x.device) for x in xs]
+
+
+def pmean(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Mean over one axis group (the psum over the shard count), on every
+    shard."""
+    return [x / len(xs) for x in psum(xs)]
+
+
+def gather(xs: Sequence[torch.Tensor], dim: int, device) -> torch.Tensor:
+    """One shard's result of the tiled all-gather: the shards' tensors
+    concatenated along ``dim`` in shard order, on ``device``."""
+    return torch.cat([x.to(device) for x in xs], dim=dim)
 
 
 # --------------------------------------------------------- partial attention

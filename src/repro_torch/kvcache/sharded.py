@@ -52,7 +52,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import policy as core_policy
-from repro_torch.launch.mesh import axis_coords
+from repro_torch.core.placement import axis_coords
 
 from .paged import BlockAllocator, EvictedBlock, paged_append_kv, paged_append_token_metadata
 

@@ -1,4 +1,5 @@
-"""Train and serve entry points and device meshes: the port of
-``repro.launch`` (``serve --model-axis`` shards the paged pool over a
-mesh; the FSDP specs, sharded training and the dry run wait for ROADMAP
-Queue 1 item 10's training part)."""
+"""Train and serve entry points, device meshes and the sharding plan: the
+port of ``repro.launch`` (``serve --model-axis`` shards the paged pool over
+a mesh, ``train --model-axis`` trains over one).  The reference's XLA dry
+run (``dryrun.py``, ``specs.py``) has no counterpart: ROADMAP, Modules
+with no counterpart."""

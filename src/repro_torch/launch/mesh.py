@@ -10,12 +10,13 @@ The grid may repeat a device — every shard on ``cpu`` (the tests), or two or
 four shards on one card — so a mesh never needs more cards than there are.
 
 Axis meanings, as in the reference:
-    data   — data parallel: slots (serving), batch (training)
-    model  — tensor parallel over KV heads + decode-time KV sequence sharding
+    pod    — data parallel across hosts (a mesh of one host has none)
+    data   — data parallel: slots (serving), batch and FSDP storage (training)
+    model  — tensor / expert parallel + decode-time KV sequence sharding
 
-``make_production_mesh`` (the 512-chip TPU v5e layout) goes with the
-dry-run decision of ROADMAP Queue 1 item 10's training part, and the
-reference's ``batch_axes`` / ``fsdp_axes`` with that part's FSDP specs.
+The reference's ``make_production_mesh`` (the 512-chip TPU v5e layout) has
+no counterpart: it exists for the XLA dry run, which the port does not
+have (ROADMAP, Modules with no counterpart).
 """
 from __future__ import annotations
 
@@ -69,18 +70,6 @@ class Mesh:
         return f"Mesh({self.shape}, devices={sorted({str(d) for d in self.devices})})"
 
 
-def axis_coords(mesh: Mesh, axes: Sequence[str], index: int) -> dict[str, int]:
-    """The coordinates along ``axes`` of shard ``index`` of the group they
-    span, row-major over ``axes`` in the given order (the linear index that
-    ``jax.lax.axis_index`` over several axes counts)."""
-    coords = {}
-    for ax in reversed(tuple(axes)):
-        index, coords[ax] = divmod(index, mesh.shape[ax])
-    if index:
-        raise IndexError(f"shard index out of range for axes {tuple(axes)}")
-    return coords
-
-
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> Mesh:
     """A mesh of ``shape`` over ``axes`` with every shard on one device (the
     CUDA card unless ``device='cpu'``): the tests' mesh, and the one card's."""
@@ -108,3 +97,16 @@ def make_local_mesh(model_axis: int = 1, *, device="cuda") -> Mesh:
         return Mesh((1, model_axis), ("data", "model"),
                     [devs[i % n] for i in range(model_axis)])
     raise ValueError(f"{n} devices cannot form a mesh with model axis {model_axis}")
+
+
+def batch_axes(mesh: Mesh) -> tuple[str, ...]:
+    """The mesh axes a training batch splits over."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def fsdp_axes(mesh: Mesh, param_bytes: float) -> tuple[str, ...]:
+    """FSDP policy: everything shards over 'data'; >50 GB param trees also
+    shard over 'pod' (ZeRO-3 across pods)."""
+    if param_bytes > 50e9 and "pod" in mesh.axis_names:
+        return ("pod", "data")
+    return ("data",)

@@ -2,7 +2,10 @@
 
 The train state is one tree, ``{"params", "opt": AdamWState[, "ef"]}``, so
 checkpointing and recovery handle one object.  A step is functional: it
-returns a new state and leaves the one it was given as it was.
+returns a new state and leaves the one it was given as it was.  A bundle
+built on a mesh takes a state placed by ``core.placement.place_tree``: the
+same step then differentiates its mesh ``train_loss`` piece by piece, and
+the optimizer runs per piece (``optim.tree.map_leaves``).
 """
 from __future__ import annotations
 

@@ -1,16 +1,19 @@
 """Training entry point: ``python -m repro_torch.launch.train --arch olmo-1b ...``
 
-The port of ``repro.launch.train`` on one device (the card unless
-``--device cpu``): config → model → train step → deterministic data →
-checkpoint/restart (fault-injectable) → one JSON line per logged step and
-one at the end.  ``--model-axis`` above 1 (a device mesh) raises: sharded
-training waits for ROADMAP Queue 1 item 10's training part.  A run given ``--ckpt-dir`` resumes
+The port of ``repro.launch.train`` (the card unless ``--device cpu``):
+config → model → train step → deterministic data → checkpoint/restart
+(fault-injectable) → one JSON line per logged step and one at the end.
+``--model-axis N`` above 1 trains over ``make_local_mesh(N)`` — on one card
+or the CPU the (1, N) grid, every shard on it — with the params and AdamW
+moments placed by ``param_shardings`` / ``opt_shardings`` (Megatron TP over
+'model', FSDP over 'data', EP for a MoE); recovery restores onto the mesh
+(``runtime.reshard_tree`` as ``on_restore``).  A run given ``--ckpt-dir`` resumes
 from the newest checkpoint there; without it (where the reference keeps a
 fixed ``/tmp/repro_ckpt``) the checkpoints go to a fresh temporary
 directory, removed at exit, so no run resumes from another's by accident.
 
     python -m repro_torch.launch.train --arch olmo-1b --reduced --device cpu \\
-        --steps 20 --fail-at 7 --ckpt-dir CKPT
+        --steps 20 --fail-at 7 --ckpt-dir CKPT [--model-axis 2]
 """
 from __future__ import annotations
 
@@ -27,9 +30,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import make_train_batch
+from repro_torch.launch import sharding as shard
+from repro_torch.launch.mesh import batch_axes, fsdp_axes, make_local_mesh
 from repro_torch.launch.steps import TrainHParams, init_train_state, make_train_step
 from repro_torch.models import build_model
-from repro_torch.runtime import FaultInjector, StragglerMonitor, run_with_recovery
+from repro_torch.models.attention import DistConfig
+from repro_torch.runtime import FaultInjector, StragglerMonitor, reshard_tree, run_with_recovery
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,11 +63,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            "--model-axis > 1 needs sharded training, which is not ported yet "
-            "(ROADMAP Queue 1 item 10, its training part)"
-        )
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     schedule = args.schedule or ("wsd" if "minicpm" in args.arch else "cosine")
@@ -70,9 +71,25 @@ def main(argv=None) -> None:
         schedule=schedule, compress_grads=args.compress_grads,
     )
     max_pos = args.seq if cfg.family == "encdec" else None
-    bundle = build_model(cfg, device=dev, max_positions=max_pos)
+    dcfg, on_restore = None, None
+    if args.model_axis > 1:
+        mesh = make_local_mesh(args.model_axis, device=dev)
+        dcfg = DistConfig(
+            mesh=mesh, batch_axes=batch_axes(mesh),
+            ep_axis="model" if cfg.family == "moe" and mesh.shape["model"] > 1 else None,
+        )
+    bundle = build_model(cfg, None, dcfg, device=dev, max_positions=max_pos)
     train_step = make_train_step(bundle, hp)
     state = init_train_state(bundle, torch.Generator(device=dev).manual_seed(args.seed), hp)
+    if dcfg is not None:
+        params_sh = shard.param_shardings(state["params"], mesh,
+                                          fsdp_axes(mesh, cfg.param_count() * 4))
+        state_sh = {"params": params_sh,
+                    "opt": shard.opt_shardings(state["opt"], params_sh, mesh)}
+        if "ef" in state:
+            state_sh["ef"] = params_sh
+        state = reshard_tree(state, state_sh)
+        on_restore = lambda st: reshard_tree(st, state_sh)  # noqa: E731
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
 
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
@@ -97,6 +114,7 @@ def main(argv=None) -> None:
     try:
         state, stats = run_with_recovery(
             one_step, state, args.steps, ckpt, ckpt_every=args.ckpt_every, state_like=state,
+            on_restore=on_restore,
         )
     finally:
         if args.ckpt_dir is None:

@@ -20,11 +20,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import distributed as dist
 from repro_torch.core import policy as core_policy
+from repro_torch.core.placement import axis_coords
 from repro_torch.core.policy import CacheView, DecodePlan, PolicyConfig
 from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
 from repro_torch.kvcache import sharded as kvsharded
-from repro_torch.launch.mesh import axis_coords
 
 from .layers import apply_rope, flash_attention, init_linear
 
@@ -39,13 +39,16 @@ class DistConfig:
     over on that path.  shard: the mesh sharding spec of the *paged* pool
     (``kvcache.sharded.ShardSpec``: TP over KV heads × DP over slots),
     threaded into ``DecodePlan.build`` so the plan carries it; None = one
-    device.  The reference's ``ep_axis`` / ``fsdp_axes`` (expert
-    parallelism and FSDP) come with the training half of the mesh work."""
+    device.  In training (a bundle built with a mesh trains over it,
+    ``models/sharded_train.py``): batch_axes are the axes the batch splits
+    over; ep_axis the mesh axis of MoE expert parallelism
+    (``moe.moe_apply_ep``)."""
 
     mesh: Any = None
     seq_axes: tuple[str, ...] = ()
     mode: str = "local"
     batch_axes: tuple[str, ...] = ()
+    ep_axis: str | None = None
     shard: Any = None
 
 

@@ -36,7 +36,7 @@ from repro_torch.kvcache import cache as kvcache
 from . import attention as attn
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
 from .transformer import (_DTYPES, ModelBundle, _layer_cache, _layer_params, _masked_logits,
-                          checkpointed, chunked_ce, tree_map, unstack)
+                          checkpointed, lm_loss, tree_map, unstack)
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -153,17 +153,20 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
 
     dec_layer_train = checkpointed(_dec_layer, remat)
 
-    def train_loss(params, batch):
-        """(loss, {loss, moe_aux: 0, tokens}) over {frames [B, enc_ctx, d],
-        tokens, targets, loss_mask}."""
+    def train_hidden(params, batch):
+        """(the final-normed decoder states, the tied head, aux 0) over
+        {frames [B, enc_ctx, d], tokens}."""
         enc = encode(params, batch["frames"], train=True)
         h = _dec_embed(params, batch["tokens"])
         for lp in unstack(params["dec_layers"], L):
             h = dec_layer_train(h, lp, enc)
         h = apply_norm(h, params["dec_norm"], cfg.norm)
-        loss, n = chunked_ce(h, params["embed"].T, batch["targets"], batch["loss_mask"],
-                             cfg.vocab, Vp, loss_chunk)
-        return loss, {"loss": loss, "moe_aux": torch.zeros((), device=h.device), "tokens": n}
+        return h, params["embed"].T, torch.zeros((), device=h.device)
+
+    def train_loss(params, batch):
+        """(loss, {loss, moe_aux: 0, tokens}) over {frames, tokens, targets,
+        loss_mask}."""
+        return lm_loss(*train_hidden(params, batch), batch, cfg.vocab, Vp, loss_chunk)
 
     # -------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
@@ -250,5 +253,6 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
         policy=pol, plan=plan, train_loss=train_loss,
+        train_hidden=train_hidden, loss_chunk=loss_chunk,
     )
     return bundle

@@ -34,7 +34,7 @@ from . import mamba2
 from .layers import (apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply,
                      rms_norm)
 from .transformer import (_DTYPES, ModelBundle, _layer_cache, _layer_params, _masked_logits,
-                          checkpointed, chunked_ce, tree_map, unstack)
+                          checkpointed, lm_loss, tree_map, unstack)
 
 
 def _n_apps(cfg: ModelConfig) -> tuple[int, int]:
@@ -107,19 +107,23 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
         return _ffn(sp, h, attn.attention_train(sp["attn"], xn, cfg))
 
     super_train = checkpointed(_super_train, remat)
+    tail_train = checkpointed(lambda h, lp: mamba2.mamba_block_train(h, lp, cfg), False)
 
-    def train_loss(params, batch):
-        """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
+    def train_hidden(params, batch):
+        """(the final-normed hidden states, the tied head, aux 0) over
+        {tokens}."""
         x0 = h = params["embed"][batch["tokens"]].to(cdt)
         for app in unstack(params["mamba"], n_apps):
             h = super_train(h, x0, unstack(app, E), params["shared"])
         if tail:
             for lp in unstack(params["mamba_tail"], tail):
-                h = mamba2.mamba_block_train(h, lp, cfg)
+                h = tail_train(h, lp)
         h = rms_norm(h, params["final_norm"])
-        loss, n = chunked_ce(h, params["embed"].T, batch["targets"], batch["loss_mask"],
-                             cfg.vocab, Vp, loss_chunk)
-        return loss, {"loss": loss, "moe_aux": torch.zeros((), device=h.device), "tokens": n}
+        return h, params["embed"].T, torch.zeros((), device=h.device)
+
+    def train_loss(params, batch):
+        """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
+        return lm_loss(*train_hidden(params, batch), batch, cfg.vocab, Vp, loss_chunk)
 
     # -------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
@@ -208,5 +212,6 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
         policy=pol, plan=plan, train_loss=train_loss,
+        train_hidden=train_hidden, loss_chunk=loss_chunk,
     )
     return bundle

@@ -31,7 +31,7 @@ from repro_torch.kvcache import cache as kvcache
 
 from .layers import init_embedding, init_linear, rms_norm, silu
 from .transformer import (_DTYPES, ModelBundle, _layer_params, _masked_logits, checkpointed,
-                          chunked_ce, tree_map, unstack)
+                          lm_loss, tree_map, unstack)
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -260,15 +260,18 @@ def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
 
     block_train = checkpointed(lambda h, lp: mamba_block_train(h, lp, cfg), remat)
 
-    def train_loss(params, batch):
-        """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
+    def train_hidden(params, batch):
+        """(the final-normed hidden states, the tied head, aux 0) over
+        {tokens}."""
         h = params["embed"][batch["tokens"]].to(cdt)
         for lp in unstack(params["layers"], L):
             h = block_train(h, lp)
         h = rms_norm(h, params["final_norm"])
-        loss, n = chunked_ce(h, params["embed"].T, batch["targets"], batch["loss_mask"],
-                             cfg.vocab, Vp, loss_chunk)
-        return loss, {"loss": loss, "moe_aux": torch.zeros((), device=h.device), "tokens": n}
+        return h, params["embed"].T, torch.zeros((), device=h.device)
+
+    def train_loss(params, batch):
+        """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
+        return lm_loss(*train_hidden(params, batch), batch, cfg.vocab, Vp, loss_chunk)
 
     def prefill(params, batch, capacity: int | None = None):
         """Sequential-state prefill (``capacity`` unused: the state is O(1)).
@@ -307,5 +310,7 @@ def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
         train_loss=train_loss,
+        train_hidden=train_hidden,
+        loss_chunk=loss_chunk,
     )
     return bundle

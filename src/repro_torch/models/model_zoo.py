@@ -7,7 +7,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policy import PolicyConfig
 
-from . import encdec, hybrid, mamba2, transformer
+from . import encdec, hybrid, mamba2, sharded_train, transformer
 from .transformer import ModelBundle
 
 
@@ -21,8 +21,10 @@ def build_model(
     ``max_positions`` sizes an encdec decoder's learned position table (the
     config's ``max_target_positions`` when None); other families ignore it.
     A paged layout is refused for every family but the transformer's, as in
-    the reference.  ``dcfg`` (``attention.DistConfig``) threads a mesh into
-    the transformer families; the other families take none yet."""
+    the reference.  ``dcfg`` (``attention.DistConfig``) threads a mesh: a
+    bundle built with ``dcfg.mesh`` trains over it (``sharded_train``:
+    Megatron TP × DP for the transformer families, DP for the others), and
+    the transformer families also decode over it."""
     if pol is not None and pol.layout == "paged" and cfg.family not in transformer.FAMILIES:
         raise ValueError(
             f"paged KV cache is only supported for transformer families, not {cfg.family!r}"
@@ -34,9 +36,14 @@ def build_model(
         raise ValueError(f"a mesh-sharded decode is only built for the transformer "
                          f"families, not {cfg.family!r}")
     if cfg.family == "ssm":
-        return mamba2.build(cfg, device=dev, remat=remat)
-    if cfg.family == "hybrid":
-        return hybrid.build(cfg, pol, device=dev, remat=remat)
-    if cfg.family == "encdec":
-        return encdec.build(cfg, pol, device=dev, remat=remat, max_positions=max_positions)
-    raise ValueError(f"unknown family {cfg.family!r}")
+        bundle = mamba2.build(cfg, device=dev, remat=remat)
+    elif cfg.family == "hybrid":
+        bundle = hybrid.build(cfg, pol, device=dev, remat=remat)
+    elif cfg.family == "encdec":
+        bundle = encdec.build(cfg, pol, device=dev, remat=remat, max_positions=max_positions)
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if dcfg is not None and dcfg.mesh is not None:
+        bundle.train_loss = sharded_train.data_parallel_loss(bundle, dcfg)
+        bundle.dcfg = dcfg
+    return bundle

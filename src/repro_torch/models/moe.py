@@ -12,16 +12,23 @@ The reference is plain jnp with no Pallas kernel, so this is plain PyTorch:
   prompt padding included, so the port drops exactly the reference's slots.
 * :func:`moe_apply_masked` (decode): every expert on every token, weighted
   by the renormalised top-k gates (zero for the others).
+* :func:`moe_apply_ep` (training on a mesh with ``DistConfig.ep_axis``):
+  expert parallelism over token shards × expert shards, capacity per
+  token shard.
 
 The router multiplies in f32 (``x.astype(f32) @ router``); the experts run
 in the compute dtype with ``layers.silu``'s per-op rounding.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed as dist
+from repro_torch.core.placement import as_sharded, axis_coords
 
 from .layers import _normal, init_linear, silu
 
@@ -113,9 +120,87 @@ def moe_apply_masked(
     return y.to(x.dtype), _aux(logits, eidx, E, k)
 
 
-def moe_apply_ep(*args, **kwargs):
-    """Expert-parallel dispatch over a device mesh: not ported."""
-    raise NotImplementedError(
-        "expert-parallel MoE over a mesh is not ported yet (ROADMAP Queue 1 item 10, "
-        "its training part)"
-    )
+def moe_apply_ep(
+    x,
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    mesh,
+    token_axes: tuple[str, ...],
+    model_axis: str = "model",
+):
+    """Expert-parallel MoE over token shards (``token_axes``) × expert
+    shards (``model_axis``), single-controller (the reference's
+    ``shard_map`` body, ``repro/models/moe.py:78-174``).
+
+    ``x``: one [T, d] tensor, split evenly over the token shards, or a list
+    of the token shards' [T_loc, d] tensors in order over ``token_axes``.
+    ``p``: router [d, E], w1/w3 [E, d, ff], w2 [E, ff, d] — plain tensors or
+    a mesh's ``core.placement.Sharded`` leaves (experts over
+    ``model_axis``).  Expert pieces FSDP-stored over other axes are always
+    gathered inside the body (where the reference gathers the axes its
+    ``fsdp_axes`` names).  Each (token, expert) shard, on its mesh
+    device, holds E / n_model experts, sizes its capacity C from its
+    *local* token count, dispatches as a scatter of token indices and a
+    gather, runs its experts, and combines unrolled over k; then a psum
+    over the expert shards gives each token shard its output, and the aux
+    loss is the pmean over every shard of the local Switch estimates.
+    Returns (y like ``x`` in x's dtype, each token shard's on the device of
+    its first expert shard; aux f32).  Gradients flow through the
+    collectives (``core/distributed.py``)."""
+    E, k = cfg.n_experts, cfg.topk_experts
+    n_model = mesh.shape.get(model_axis, 1)
+    if E % n_model:
+        raise ValueError(f"{E} experts do not divide over {n_model} expert shards")
+    E_loc = E // n_model
+    tok = [a for a in token_axes if a in mesh.shape]
+    n_tok = math.prod(mesh.shape[a] for a in tok)
+    whole = isinstance(x, torch.Tensor)
+    xs = list(x.chunk(n_tok, dim=0)) if whole else list(x)
+    if len(xs) != n_tok:
+        raise ValueError(f"{len(xs)} token shards for a mesh of {n_tok}")
+    ys, auxs = [], []
+    for t, xt in enumerate(xs):
+        parts = []
+        for m in range(n_model):
+            coords = dict(axis_coords(mesh, tok, t), **({model_axis: m} if model_axis in mesh.shape
+                                                        else {}))
+            dev = mesh.device_at(coords)
+            # expert shard m's block of each expert-major weight, every other
+            # split dim gathered whole (FSDP storage, gathered in the body)
+            w1, w3, w2 = (as_sharded(p[n], mesh).view(coords, {0: (model_axis,)}, dev)
+                          for n in ("w1", "w3", "w2"))
+            router = as_sharded(p["router"], mesh).view(coords, {}, dev)
+            xl = xt.to(dev)
+            T_loc, d = xl.shape
+            C = capacity(T_loc, cfg)
+            logits, eidx, gates = _route(xl, {"router": router}, k)
+            e_flat = eidx.reshape(-1)
+            e_rel = e_flat - m * E_loc
+            local = (e_rel >= 0) & (e_rel < E_loc)
+            e_loc = torch.where(local, e_rel, torch.full_like(e_rel, E_loc))
+            onehot = F.one_hot(e_loc, E_loc + 1)
+            pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, e_loc[:, None])[:, 0]
+            keep = local & (pos < C)
+            slot = torch.where(keep, e_loc * C + pos, torch.full_like(e_loc, E_loc * C))
+            # dispatch as a scatter of token INDICES + one gather; empty slots
+            # point at a zero row past the tokens (kept slots are unique, only
+            # the dump row E_loc·C takes several writes, and it is never read)
+            slot_tok = torch.full((E_loc * C + 1,), T_loc, dtype=torch.int64, device=dev)
+            slot_tok[slot] = torch.arange(e_flat.shape[0], device=dev) // k
+            xp = torch.cat([xl, torch.zeros((1, d), dtype=xl.dtype, device=dev)])
+            hb = xp[slot_tok[: E_loc * C]].reshape(E_loc, C, d)
+            h1 = silu(torch.bmm(hb, w1.to(xl.dtype))) * torch.bmm(hb, w3.to(xl.dtype))
+            ob = torch.bmm(h1, w2.to(xl.dtype)).reshape(-1, d)
+            ob = torch.cat([ob, torch.zeros((1, d), dtype=ob.dtype, device=dev)])
+            # combine unrolled over k; the gate products and their sum in f32,
+            # rounded once after the psum, as moe_apply rounds its f32 sum
+            # (for f32 x this is the reference's combine)
+            slot_t = slot.reshape(T_loc, k)
+            gk = gates.to(ob.dtype).to(torch.float32)
+            y_part = sum(ob[slot_t[:, j]].to(torch.float32) * gk[:, j, None] for j in range(k))
+            parts.append(y_part)
+            auxs.append(_aux(logits, eidx, E, k))
+        ys.append(dist.psum(parts)[0].to(xt.dtype))
+    aux = dist.pmean(auxs)[0]
+    return (torch.cat([y.to(ys[0].device) for y in ys]) if whole else ys), aux

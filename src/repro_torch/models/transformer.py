@@ -39,6 +39,7 @@ from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
+from repro_torch.core.placement import AtUse, Sharded, resolve_at_use
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -66,6 +67,8 @@ class ModelBundle:
                                            # -> (logits | None, cache)
     train_loss: Callable | None = None     # (params, batch) -> (loss, metrics)
     dcfg: Any = None                       # the attention.DistConfig it was built with
+    train_hidden: Callable | None = None   # (params, batch) -> (final hidden, head, aux)
+    loss_chunk: int = 1024                 # train_loss's sequence chunk of the CE
 
 
 def tree_map(fn, tree):
@@ -82,20 +85,26 @@ def unstack(tree: dict, n: int) -> list[dict]:
     """The n per-layer trees of a tree stacked along axis 0, through one
     ``torch.unbind`` per leaf: its backward stacks the layers' gradients
     once, where indexing each layer would add a full-size zero gradient per
-    layer."""
+    layer.  A mesh's sharded leaf (``core.placement.Sharded`` or
+    ``AtUse``) unstacks piece by piece."""
     if isinstance(tree, dict):
         parts = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    if isinstance(tree, (Sharded, AtUse)):
+        return tree.unstack(n)
     return list(torch.unbind(tree, 0))
 
 
 def checkpointed(fn: Callable, enabled: bool) -> Callable:
     """``fn`` recomputed in the backward instead of keeping its activations
-    (the reference's ``jax.checkpoint``), when ``enabled``."""
+    (the reference's ``jax.checkpoint``), when ``enabled``.  Either way an
+    ``AtUse`` argument (a data shard's FSDP-stored layer weights) is
+    gathered inside, so with ``enabled`` the backward regathers it."""
+    run = lambda *args: fn(*resolve_at_use(args))
     if not enabled:
-        return fn
+        return run
     # the models draw no random numbers, so the RNG state need not be kept
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return lambda *args: checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _layer_cache(stack: dict, i: int) -> dict:
@@ -199,20 +208,30 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
 
     layer_train = checkpointed(_layer_train, remat)
 
-    def train_loss(params, batch):
-        """(loss + MOE_AUX_COEF · mean aux, {loss, moe_aux, tokens}) over
-        ``batch`` = {tokens [B, St], targets [B, S], loss_mask [B, S][,
-        vision_embeds [B, n_vision, d]]} (S = n_vision + St)."""
+    def train_hidden(params, batch):
+        """(the final-normed hidden states [B, S, d], the head [d, Vp], the
+        mean MoE aux) over ``batch`` = {tokens [B, St][, vision_embeds [B,
+        n_vision, d]]} (S = n_vision + St)."""
         h = _embed_inputs(params, batch)
         auxs = []
         for lp in unstack(params["layers"], L):
             h, aux = layer_train(h, lp)
             auxs.append(aux)
         h = apply_norm(h, params["final_norm"], cfg.norm)
-        loss, n_tok = chunked_ce(h, _head(params), batch["targets"], batch["loss_mask"],
-                                 cfg.vocab, Vp, loss_chunk)
         aux = torch.stack(auxs).mean() if is_moe else torch.zeros((), device=h.device)
-        return loss + MOE_AUX_COEF * aux, {"loss": loss, "moe_aux": aux, "tokens": n_tok}
+        return h, _head(params), aux
+
+    def train_loss(params, batch):
+        """(loss + MOE_AUX_COEF · mean aux, {loss, moe_aux, tokens}) over
+        ``batch`` = {tokens, targets [B, S], loss_mask [B, S][,
+        vision_embeds]}."""
+        return lm_loss(*train_hidden(params, batch), batch, cfg.vocab, Vp, loss_chunk)
+
+    if dcfg is not None and dcfg.mesh is not None:
+        # a mesh: the train step runs over its data and model shards
+        from .sharded_train import transformer_mesh_loss
+
+        train_loss = transformer_mesh_loss(cfg, dcfg, remat=remat, loss_chunk=loss_chunk)
 
     # ------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
@@ -409,6 +428,8 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         prefill_chunk=prefill_chunk,
         train_loss=train_loss,
         dcfg=dcfg,
+        train_hidden=train_hidden,
+        loss_chunk=loss_chunk,
     )
 
 
@@ -434,17 +455,31 @@ def _ce_chunk(hs, W, col_mask, ts, ms):
     return nll.sum(), ms.sum()
 
 
+def ce_chunk_size(S: int, chunk: int) -> int:
+    """min(chunk, S), halved while it does not divide S."""
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    return chunk
+
+
 def chunked_ce(h: torch.Tensor, W: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
                vocab: int, Vp: int, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Sequence-chunked cross-entropy (the reference's ``_chunked_ce``):
     the f32 logits live one [B, chunk, Vp] slice at a time, padded vocab
     columns at −1e30, and each chunk's logits are recomputed in the backward
-    rather than kept.  The chunk is min(chunk, S), halved while it does not
-    divide S.  Returns (mean NLL over the mask, the mask's sum)."""
+    rather than kept (``ce_chunk_size``).  Returns (mean NLL over the mask,
+    the mask's sum)."""
+    tot, cnt = chunked_ce_sum(h, W, targets, mask, vocab, Vp, chunk)
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def chunked_ce_sum(h: torch.Tensor, W: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                   vocab: int, Vp: int, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``chunked_ce``'s (NLL summed over the mask, the mask's sum): what a
+    data shard contributes to the global loss."""
     S = h.shape[1]
-    chunk = min(chunk, S)
-    while S % chunk:
-        chunk //= 2
+    chunk = ce_chunk_size(S, chunk)
     col_mask = _vocab_col_mask(vocab, Vp, h.device)
     Wf = W.to(torch.float32)
     targets, mask = targets.to(torch.int64), mask.to(torch.float32)
@@ -454,4 +489,12 @@ def chunked_ce(h: torch.Tensor, W: torch.Tensor, targets: torch.Tensor, mask: to
         nll, n = checkpoint(_ce_chunk, h[:, sl], Wf, col_mask, targets[:, sl], mask[:, sl],
                             use_reentrant=False)
         tot, cnt = tot + nll, cnt + n
-    return tot / torch.clamp(cnt, min=1.0), cnt
+    return tot, cnt
+
+
+def lm_loss(h: torch.Tensor, W: torch.Tensor, aux: torch.Tensor, batch: dict, vocab: int,
+            Vp: int, chunk: int) -> tuple[torch.Tensor, dict]:
+    """A bundle's ``train_loss`` from its ``train_hidden``: (mean NLL +
+    MOE_AUX_COEF · aux, {loss, moe_aux, tokens})."""
+    loss, n_tok = chunked_ce(h, W, batch["targets"], batch["loss_mask"], vocab, Vp, chunk)
+    return loss + MOE_AUX_COEF * aux, {"loss": loss, "moe_aux": aux, "tokens": n_tok}

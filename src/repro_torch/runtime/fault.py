@@ -10,9 +10,9 @@ enforces (and tests verify bit-exactly):
     identical batches;
   * ⇒ resumed training is bit-identical to an uninterrupted run.
 
-Across several GPUs the same loop would wrap the process group's
-re-initialisation and a restore onto the smaller mesh (the reference's
-runtime/elastic.py); that waits for ROADMAP Queue 1 item 10's training part.
+On a mesh the loop restores the logical arrays and ``on_restore``
+re-places them on the mesh (``runtime/elastic.reshard_tree``; the train
+CLI with ``--model-axis``), or a smaller mesh after a lost device.
 """
 from __future__ import annotations
 

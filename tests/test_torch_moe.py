@@ -30,6 +30,7 @@ from repro.configs import reduced_config as j_reduced_config
 from repro.models import moe as jmoe
 from repro.models import transformer as jtransformer
 from repro_torch.configs import reduced_config
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import moe
 from repro_torch.models import transformer
 
@@ -141,5 +142,14 @@ def test_init_moe_tree_matches_reference():
     # the compute copy casts the experts to bf16 and keeps the router f32
     cm = bundle.compute_params(tp)["layers"]["moe"]
     assert cm["router"].dtype == torch.float32 and cm["w1"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 10"):
-        moe.moe_apply_ep(xt=None)
+    # expert parallelism over two expert shards of a CPU mesh, on layer 0's
+    # weights: with nothing dropped (capacity 8.0) moe_apply's y within
+    # 1e-6 (f32 sum order) and its aux exactly (one token shard)
+    jc8, tc8 = _cfgs(8.0)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((24, tc8.d_model))
+                         .astype(np.float32))
+    p0 = {k: v[0] for k, v in ttree.items()}
+    y, aux = moe.moe_apply(x, p0, tc8)
+    ye, auxe = moe.moe_apply_ep(x, p0, tc8, mesh=make_mesh((2,), ("model",), device="cpu"),
+                                token_axes=("data",))
+    assert float((y - ye).abs().max()) <= 1e-6 and float(aux) == float(auxe)

@@ -36,10 +36,12 @@ from repro_torch.data import tokenizer
 from repro_torch.data.passkey import MARK_OPEN, N_DIGITS, QUERY, make_passkey_batch
 from repro_torch.data.pipeline import BRANCH, lm_tokens, make_train_batch
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.core.placement import Sharded
 from repro_torch.launch.steps import TrainHParams, init_train_state, make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim.tree import leaves
-from repro_torch.runtime import FaultInjector, StragglerMonitor, run_with_recovery
+from repro_torch.runtime import FaultInjector, StragglerMonitor, replicated, run_with_recovery
 
 
 def _tree(seed=0):
@@ -109,8 +111,12 @@ def test_compress_decompress_matches_reference():
         _close(jc, tc)
         _close(jef, tef)
     assert optim.compressed_wire_bytes(1000, 4) == 129
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        optim.compressed_psum(torch.zeros(3), "data")
+    # the collective: two shards' tensors, against the reference's body
+    # under jax.vmap over a named axis (f32 summation order: 1e-6)
+    x = np.stack([g1["w"], g2["w"]])
+    ref = np.asarray(jax.vmap(lambda v: joptim.compressed_psum(v, "data"), axis_name="data")(x))
+    for r, t in zip(ref, optim.compressed_psum([torch.from_numpy(v) for v in x])):
+        assert float(np.abs(r - t.numpy()).max()) <= 1e-6 * float(np.abs(ref).max())
 
 
 # -------------------------------------------------------------------- data
@@ -210,8 +216,11 @@ def test_checkpoint_async_gc_atomic_and_mismatch(tmp_path):
         assert json.load(f)["step"] == 4
     with pytest.raises(ValueError, match="tree mismatch"):
         mgr.restore(4, {"different": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        mgr.restore(4, st, sharding=object())
+    # onto a mesh: one sharding for every leaf (a 0-dim leaf stays a tensor)
+    mesh = make_mesh((2,), ("data",), device="cpu")
+    back = mgr.restore(4, st, sharding=replicated(mesh))
+    for a, b in zip(leaves(st), leaves(back)):
+        assert torch.equal(a, b.full() if isinstance(b, Sharded) else b)
 
 
 def test_jax_checkpoint_restores_into_the_port(tmp_path):
@@ -290,7 +299,8 @@ def test_too_many_restarts_raises_and_straggler_flagged(tmp_path):
 def test_train_cli_recovers_from_an_injected_fault(tmp_path, capsys):
     """``python -m repro_torch.launch.train --reduced --device cpu
     --fail-at 6``: one restart from the step-4 checkpoint, finite losses,
-    the reference's JSON log lines; a mesh flag raises."""
+    the reference's JSON log lines; with ``--model-axis 2`` the same run
+    trains over a (1, 2) mesh and logs the same keys."""
     train_cli.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--steps", "10",
                     "--batch", "4", "--seq", "32", "--ckpt-every", "4", "--fail-at", "6",
                     "--log-every", "1", "--ckpt-dir", str(tmp_path)])
@@ -301,9 +311,12 @@ def test_train_cli_recovers_from_an_injected_fault(tmp_path, capsys):
     assert [x["step"] for x in steps] == [0, 1, 2, 3, 4, 5, 4, 5, 6, 7, 8, 9]
     assert all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"]) for x in steps)
     assert {"loss", "moe_aux", "tokens", "grad_norm", "lr", "total", "dt_s"} <= set(steps[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        train_cli.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu",
-                        "--model-axis", "2", "--ckpt-dir", str(tmp_path)])
+    train_cli.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu", "--steps", "3",
+                    "--batch", "4", "--seq", "32", "--log-every", "1", "--model-axis", "2",
+                    "--ckpt-dir", str(tmp_path / "mesh")])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert lines[-1]["done"] and [x["step"] for x in lines[:-1]] == [0, 1, 2]
+    assert set(lines[0]) == set(steps[0]) and np.isfinite(lines[-2]["loss"])
 
 
 def test_train_cli_without_ckpt_dir_leaves_nothing_to_resume(tmp_path, monkeypatch, capsys):

@@ -61,7 +61,8 @@ from repro_torch.core.quantize import QuantizedKeys
 from repro_torch.kvcache.paged import AllocatorAuditError
 from repro_torch.kvcache.sharded import ShardedBlockAllocator, ShardSpec
 from repro_torch.launch import serve
-from repro_torch.launch.mesh import Mesh, axis_coords, make_local_mesh, make_mesh
+from repro_torch.core.placement import axis_coords
+from repro_torch.launch.mesh import Mesh, make_local_mesh, make_mesh
 from repro_torch.models import build_model
 from repro_torch.models import attention
 from repro_torch.models.attention import DistConfig
