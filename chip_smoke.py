@@ -6,6 +6,7 @@
     python3 chip_smoke.py --training-only # phases 1 and 11 only, no result line
     python3 chip_smoke.py --sharded-only  # phases 1 and 12 only, no result line
     python3 chip_smoke.py --sharded-train-only  # phases 1 and 13 only, no result line
+    python3 chip_smoke.py --examples-only # phases 1 and 14 only, no result line
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
@@ -19,8 +20,9 @@ result line):
 
 1. Setup: the card's name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together); every kernel's ptxas report
-   must show a 0-byte stack frame and 0 spill bytes.
+   ``nvcc`` per source, all started together, beside phase 2's planted
+   d_head 16 fault); every kernel's ptxas report must show a 0-byte stack
+   frame and 0 spill bytes.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (olmo-1b: 4 slots, 16 kv heads, d_head 128, capacity 8192,
    group 32, budget 1024) and at a GQA shape (4 kv heads × 4 query heads,
@@ -67,7 +69,15 @@ result line):
    d_head 64, starcoder2's 2 x 12 and qwen3-moe's 4 x 16 at 128, zamba2's
    32 x 1 at 112, whisper's 12 x 1 at 64 with S 4096), with the gates and
    timings of the main path's shape, and K1/K3/K6 at d_head 112 with rep 4
-   (``D112_GQA_SHAPE``; K2/K4/K8 take rep 1 only there).
+   (``D112_GQA_SHAPE``; K2/K4/K8 take rep 1 only there).  Then d_head 16
+   and 32 (``check_small_heads``): K1/K3/K6 at reps 1, 2 and 16 and K2/K4/K8
+   at every rep of ``KERNEL_REPS`` at the main path's scale (B 4, Hkv 16,
+   S 8192, g 32, budget 1024, bs 32), K5 there and at S 264, and K1–K4, K6
+   and K8 at the examples' shapes (S 64, 128 and 264, g 8, bs 8, budgets
+   16, 24 and 32, no sink or recent window), each under the gates above
+   and timed (the plain versions and library calls over 3 launches); and a
+   planted fault, K1 and K6 built with the d_head 16 lanes 16–31 scoring
+   the next kv head's channels, which must read above K1's and K6's gates.
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
@@ -299,12 +309,38 @@ result line):
    loss within ``TRAIN_LOSS_REL_TOL`` of the one-device step's; at the
    config's factor each shard's dropped share beside the one device's, and
    the aux equal to the per-shard estimator (``MOE_AUX_REL_TOL``).
-14. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+14. The reduced configs, the serve CLI and the examples (``reduced_path``).
+   (a) Every config of the registry at ``reduced_config`` (d_head 16; the
+   hybrid's 32) through ``Engine.build(n_slots=2, capacity=64,
+   policy=serving_policy(budget=16, group=8, skip_layers=1))``, weights
+   from a seeded ``torch.Generator`` on the card and copied to a CPU engine:
+   the first decode step's K1/K2 held to their plain versions on every FIER
+   layer's tensors; its logits within ``REDUCED_DECODE_REL_TOL`` of the CPU
+   engine's decoding from the card's prefill cache, and a planted fault
+   beyond that and beyond ``reduced_tol`` (K2 fed idx+1; mamba2: each row
+   from the next row's state); the prefill's logits and the first step
+   from each side's own prefill within ``reduced_tol`` (0.02 only in the
+   configs whose prefill rounds apart there, ``REDUCED_ROUNDED_PREFILL``
+   and ``REDUCED_ROUNDED_CACHE``, else ``REDUCED_LOGIT_REL_TOL``), the
+   caches' differences logged (``cache_diffs``); ``generate`` of 8 greedy
+   tokens with K1/K2 launched (FIER layers) × 7 times and nothing else.
+   (b) reduced olmo-1b and llava through ``ContinuousScheduler`` on a slab
+   and a paged engine (bs 8): equal tokens, each run's kernels (FIER
+   layers) × its steps, a clean audit.  (c) ``repro_torch.launch.serve.main`` at ``--reduced``,
+   slab (the reference pipeline: no kernel) and ``--paged`` (K3/K4), 12
+   requests of 16 tokens each.  (d) the four ``examples/*_torch.py`` in
+   this process: quickstart (no kernel), serve_longcontext (K1/K2 per FIER
+   layer and step, every request whole), passkey (600 training steps, the
+   four policies' accuracies reported, and SLM's with its first layer
+   evicting too) and train_tiny_lm (2 restarts, the held-out loss of the
+   final checkpoint below the initial weights').
+15. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5, phase 12's
    per-shard counts in ``launches_sharded`` and phase 13(e)'s in
    ``launches_sharded_train``; K6/K7: phase 6's generate; K5/K8: phase 6's
-   building blocks; phases 9, 10 and 11(e)'s beside them), the card line,
-   and as the last line ``{"ok": true, "device": {...}}``.
+   building blocks; phases 9, 10, 11(e) and 14's beside them; the d_head
+   16 and 32 entries of phase 2 under ``small_heads``), the card line, and
+   as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -409,6 +445,15 @@ def in_turns(timer, plain, kernel, library):
     return {k: (sum(v) / len(v) if v else None) for k, v in t.items()}
 
 
+def once_each(timer, plain, kernel, library):
+    """The kernel timed as ``in_turns`` times it (15 launches), its plain
+    version and the library call once each over 3 launches: for the shapes
+    where the plain version's time is information only."""
+    return {"kernel": timer(kernel),
+            "plain": timer(plain, iters=3, warmup=1),
+            "library": None if library is None else timer(library, iters=3, warmup=1)}
+
+
 def old_new(timer, old, new):
     """old, new, new, old: (mean of old's two medians, mean of new's)."""
     t = {"old": [], "new": []}
@@ -474,7 +519,12 @@ def empty_kernel_ms(torch, timer) -> float:
 
 # ------------------------------------------------------------ phase 2
 
-def make_inputs(torch, B, Hkv, rep, D, S, seed):
+def scaled_lengths(B, S):
+    """The main path's lengths 8192/5003/2100/700, scaled to a row of S."""
+    return ([S] + [n * S // CAPACITY for n in (5003, 2100, 700)])[:B]
+
+
+def make_inputs(torch, B, Hkv, rep, D, S, seed, group=GROUP):
     import numpy as np
 
     from repro_torch.core.quantize import quantize
@@ -485,10 +535,8 @@ def make_inputs(torch, B, Hkv, rep, D, S, seed):
     V = torch.from_numpy(rng.standard_normal((B, S, Hkv, D)).astype(np.float32))
     q = torch.from_numpy(rng.standard_normal((B, Hkv, rep, D)).astype(np.float32))
     K, V, q = (t.to(DEVICE, torch.bfloat16) for t in (K, V, q))
-    qk = quantize(K, GROUP)
-    # the main path's lengths 8192/5003/2100/700, scaled to a shorter S
-    lens = [S] + [n * S // CAPACITY for n in (5003, 2100, 700)]
-    lengths = torch.tensor(lens[:B], dtype=torch.int32, device=DEVICE)
+    qk = quantize(K, group)
+    lengths = torch.tensor(scaled_lengths(B, S), dtype=torch.int32, device=DEVICE)
     return q, K, V, qk, lengths
 
 
@@ -579,14 +627,14 @@ def check_kernels(torch, timer, shapes):
     return finish_rows(rows)
 
 
-def retrieval_work(q, lengths, S, budget, table=None):
+def retrieval_work(q, lengths, S, budget, table=None, group=GROUP):
     """Bytes and operations of one K1/K3 call: q, lengths (and the table),
     the outputs, and the side-car of the positions below each row's length
     (the kernel reads no chunk past it); ``bytes_full``: the side-car of
     whole rows.  Operations: 2·rep·D per valid token and kv head."""
     B, Hkv, rep, D = q.shape
     lens = [int(x) for x in lengths.tolist()]
-    side = lambda n: Hkv * D * (-(-n // 8) + 4 * -(-n // GROUP))  # codes + bf16 scale/zero
+    side = lambda n: Hkv * D * (-(-n // 8) + 4 * -(-n // group))  # codes + bf16 scale/zero
     fixed = q.numel() * 2 + B * 4 + B * Hkv * (budget + 2) * 4
     fixed += 0 if table is None else table.numel() * 4
     return dict(bytes=fixed + sum(side(n) for n in lens), bytes_full=fixed + B * side(S),
@@ -961,34 +1009,36 @@ def check_paged_kernels(torch, timer, shapes):
     return finish_rows(rows)
 
 
-def check_scoring_gqa(torch, timer, shape):
-    """K1, K3 and K6 at a GQA rep of a d_head where K2 takes rep 1 only
-    (``D112_GQA_SHAPE``): K1 against its plain version (index sets equal up
-    to near-τ swaps within ε), K3 bitwise K1 on a permuted pool with a
+def check_scoring(torch, timer, shape, *, group=GROUP, budget=BUDGET, bs=BLOCK_SIZE, sink=SINK,
+                  recent=RECENT, turns=True):
+    """K1, K3 and K6 at one shape (B, Hkv, rep, D, S, group reduction):
+    K1 against its plain version (index sets equal up to near-τ swaps
+    within ε), K3 bitwise K1 on a permuted pool (blocks of ``bs``) with a
     null-block hole, K6 within ε of its plain version; each timed in turns
     with its plain version and, for K1/K3, ``torch.topk`` of the masked
-    scores.  Returns {kernel name: row}."""
+    scores (``turns`` False: the kernel, then its plain version and the
+    library call once each with fewer launches).  Returns {kernel name: row}."""
     from repro_torch.kernels import fier_score as fs
     from repro_torch.kernels import fused_retrieval as fr
     from repro_torch.kernels.check import selection_agrees
 
     B, Hkv, rep, D, S, reduce = shape
-    q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=rep + 30)
-    pools, table, _, _, sqk = paged_inputs(torch, q, None, None, qk, lengths, BLOCK_SIZE,
+    q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=rep + 30, group=group)
+    pools, table, _, _, sqk = paged_inputs(torch, q, None, None, qk, lengths, bs,
                                            spare=64, seed=rep)
     del K, V
-    sel = dict(group=GROUP, group_reduce=reduce, sink=SINK, recent=RECENT)
-    args = (q, qk.codes, qk.scale, qk.zero, lengths, BUDGET)
-    pargs = (q, pools["codes"], pools["scale"], pools["zero"], lengths, BUDGET)
+    sel = dict(group=group, group_reduce=reduce, sink=sink, recent=recent)
+    args = (q, qk.codes, qk.scale, qk.zero, lengths, budget)
+    pargs = (q, pools["codes"], pools["scale"], pools["zero"], lengths, budget)
     idx_k, tau_k, m_k = fr.fier_retrieve(*args, **sel)
     idx_p, tau_p, m_p = fr.fier_retrieve_plain(*args, **sel)
     idx3, tau3, m3 = fr.fier_retrieve(*pargs, **sel, block_table=table)
-    idx1, tau1, m1 = fr.fier_retrieve(q, sqk.codes, sqk.scale, sqk.zero, lengths, BUDGET, **sel)
-    s_k = fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=GROUP)
-    s_p = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+    idx1, tau1, m1 = fr.fier_retrieve(q, sqk.codes, sqk.scale, sqk.zero, lengths, budget, **sel)
+    s_k = fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=group)
+    s_p = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=group)
     torch.cuda.synchronize()
     eps = score_eps(q, qk)
-    kv = fr.masked_kv(s_p, lengths, SINK, RECENT, reduce).reshape(B * Hkv, S)
+    kv = fr.masked_kv(s_p, lengths, sink, recent, reduce).reshape(B * Hkv, S)
     ok, ndiff = selection_agrees(
         idx_k.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1), tau_k.reshape(-1),
         tau_p.reshape(-1), m_k.reshape(-1), m_p.reshape(-1), kv, eps,
@@ -1003,26 +1053,30 @@ def check_scoring_gqa(torch, timer, shape):
     if not (s_err <= eps and torch.isfinite(s_k).all()):
         raise AssertionError(f"K6 disagrees with its plain version at {shape}: "
                              f"{s_err:.3g} > {eps:.3g}")
-    log(f"  K1/K3/K6 {shape}: K1 vs plain {ndiff} near-tau swaps (eps {eps:.3g}), tau err "
-        f"{tau_err:.3g}; K3 bitwise K1 on the gathered slab; K6 max |Δscore| {s_err:.3g}")
-    t1 = in_turns(timer, lambda: fr.fier_retrieve_plain(*args, **sel),
-                  lambda: fr.fier_retrieve(*args, **sel),
-                  lambda: torch.topk(kv, BUDGET, dim=-1))
-    t3 = in_turns(timer, lambda: fr.fier_retrieve_paged_plain(
-                      q, pools["codes"], pools["scale"], pools["zero"], table, lengths, BUDGET,
-                      **sel),
-                  lambda: fr.fier_retrieve(*pargs, **sel, block_table=table),
-                  lambda: torch.topk(kv, BUDGET, dim=-1))
-    t6 = in_turns(timer, lambda: fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP),
-                  lambda: fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=GROUP), None)
+    log(f"  K1/K3/K6 {shape} g={group} budget={budget}: K1 vs plain {ndiff} near-tau swaps "
+        f"(eps {eps:.3g}), tau err {tau_err:.3g}; K3 bitwise K1 on the gathered slab (bs {bs}); "
+        f"K6 max |Δscore| {s_err:.3g}")
+    plain1 = lambda: fr.fier_retrieve_plain(*args, **sel)
+    kernel1 = lambda: fr.fier_retrieve(*args, **sel)
+    plain3 = lambda: fr.fier_retrieve_paged_plain(
+        q, pools["codes"], pools["scale"], pools["zero"], table, lengths, budget, **sel)
+    kernel3 = lambda: fr.fier_retrieve(*pargs, **sel, block_table=table)
+    topk = lambda: torch.topk(kv, budget, dim=-1)
+    plain6 = lambda: fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=group)
+    kernel6 = lambda: fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=group)
+    timing = in_turns if turns else once_each
+    t1 = timing(timer, plain1, kernel1, topk)
+    t3 = timing(timer, plain3, kernel3, topk)
+    t6 = timing(timer, plain6, kernel6, None)
     sh = (B, Hkv, rep, D, S)
     rows = {
         "fier_retrieve": [dict(shape=sh, ms=t1["kernel"], plain_ms=t1["plain"],
                                library_ms=t1["library"], max_abs_err=tau_err,
-                               **retrieval_work(q, lengths, S, BUDGET))],
+                               **retrieval_work(q, lengths, S, budget, group=group))],
         "fier_retrieve_paged": [dict(shape=sh, ms=t3["kernel"], plain_ms=t3["plain"],
                                      library_ms=t3["library"], max_abs_err=tau_err,
-                                     **retrieval_work(q, lengths, S, BUDGET, table))],
+                                     **retrieval_work(q, lengths, S, budget, table,
+                                                      group=group))],
         "fier_score": [dict(shape=sh, ms=t6["kernel"], plain_ms=t6["plain"], library_ms=None,
                             max_abs_err=s_err, **score_work(q, qk.codes, qk.scale, qk.zero, s_k))],
     }
@@ -1270,17 +1324,18 @@ FAMILY_SHAPES = {
 D112_GQA_SHAPE = (SLOTS, 8, 4, 112, CAPACITY, "sum")
 
 
-def attend_inputs(torch, B, Hkv, rep, D, S, budget, seed):
-    """q, K, V, lengths and a selection for K2, made on the card from a
-    seeded ``torch.Generator``: per (b, h) row ``budget`` distinct positions
-    below max(length, budget), ascending (as K1 returns them, mostly), so a
-    row shorter than the budget has masked slots."""
+def attend_inputs(torch, B, Hkv, rep, D, S, budget, seed, lens=None):
+    """q, K, V, lengths (``lens``, by default S/5003/2100/700) and a
+    selection for K2, made on the card from a seeded ``torch.Generator``:
+    per (b, h) row ``budget`` distinct positions below max(length, budget),
+    ascending (as K1 returns them, mostly), so a row shorter than the budget
+    has masked slots."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     ch = torch.randn(D, generator=gen, device=DEVICE).exp()  # per-channel spread
     K = (torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE) * ch).to(torch.bfloat16)
     V = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE).to(torch.bfloat16)
     q = torch.randn((B, Hkv, rep, D), generator=gen, device=DEVICE).to(torch.bfloat16)
-    lens = [S, 5003, 2100, 700][:B]
+    lens = list(lens or [S, 5003, 2100, 700])[:B]
     lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     rows = []
     for n in lens:
@@ -1369,13 +1424,16 @@ def baseline_unfused(torch, path):
     return {"fier_score": run_score, "topk_threshold": run_topk}
 
 
-def check_attend_variants(torch, timer, baseline=None):
-    """K2, K4 and K8 at every shape of ATTEND_VARIANTS: K2 within
+def check_attend_variants(torch, timer, baseline=None, variants=ATTEND_VARIANTS, S=CAPACITY,
+                          bs=BLOCK_SIZE, group=GROUP, lens=None):
+    """K2, K4 and K8 at every shape of ``variants`` (rows of S tokens,
+    lengths ``lens`` as ``attend_inputs`` takes them): K2 within
     K2_REL_TOL of its plain version, two K2 launches on the same inputs
     equal bit for bit (the cluster combine runs in a fixed order), K4 on a
     permuted pool with a null-block hole equal to K2 on the gathered slab
     bit for bit, K8 on ``gather_kv`` of the selection equal to K2 bit for
-    bit; each timed (L2 flushed).  ``baseline`` (``baseline_attend``):
+    bit (the pool in blocks of ``bs``); each timed (L2 flushed).  ``baseline``
+    (``baseline_attend``):
     timed in turns with K2 at the serving and GQA shapes, held to the same
     tolerance.  Returns {variant name: row}."""
     from repro_torch.core.quantize import quantize
@@ -1384,9 +1442,9 @@ def check_attend_variants(torch, timer, baseline=None):
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name, (B, Hkv, rep, D), budget in ATTEND_VARIANTS:
-        S = CAPACITY
-        q, K, V, lengths, idx = attend_inputs(torch, B, Hkv, rep, D, S, budget, seed=budget + rep)
+    for name, (B, Hkv, rep, D), budget in variants:
+        q, K, V, lengths, idx = attend_inputs(torch, B, Hkv, rep, D, S, budget, seed=budget + rep,
+                                              lens=lens)
         plan = sa.attend_plan(budget, B * Hkv, n_sm, rep, D)
         out2 = sa.fier_attend_selected(q, K, V, idx, lengths)
         again = sa.fier_attend_selected(q, K, V, idx, lengths)
@@ -1403,7 +1461,7 @@ def check_attend_variants(torch, timer, baseline=None):
         del want, again
 
         pools, table, Ks, Vs, _ = paged_inputs(
-            torch, q, K, V, quantize(K, GROUP), lengths, BLOCK_SIZE, spare=64, seed=rep)
+            torch, q, K, V, quantize(K, group), lengths, bs, spare=64, seed=rep)
         out4 = sa.fier_attend_selected(q, pools["k"], pools["v"], idx, lengths,
                                        block_table=table)
         ref4 = sa.fier_attend_selected(q, Ks, Vs, idx, lengths)
@@ -1457,6 +1515,191 @@ def check_attend_variants(torch, timer, baseline=None):
         del q, K, V, lengths, idx, pools, table, Ks, Vs, ks, vs, mask, out2, out4, out8, ref4
         torch.cuda.empty_cache()
     return out
+
+
+# d_head 16 (every reduced config) and 32 (reduced zamba2-7b, the examples'
+# bench model).  K1/K3/K6 at the main path's scale (B 4, Hkv 16, S 8192,
+# g 32, budget 1024, bs 32) at these reps; K2/K4/K8 there at every rep the
+# kernel takes (sparse_attention.KERNEL_REPS); then all of them at the
+# examples' own shapes, each at both d_heads: (name, B, Hkv, rep, S,
+# budget) at g 8, bs 8 and no sink or recent window, as the examples'
+# policies run (quickstart: reduced olmo-1b, 2 rows of 64;
+# serve_longcontext: reduced llava, 4 slots of 128; passkey: the bench
+# model at capacity SEQ + 8 = 264, no multiple of 32).
+SMALL_HEADS = (16, 32)
+SMALL_SCORE_REPS = ((1, "max"), (2, "sum"), (16, "max"))
+SMALL_EXAMPLE_SHAPES = (
+    ("quickstart", 2, 4, 1, 64, 16),
+    ("serve_longcontext", 4, 2, 2, 128, 24),
+    ("passkey", 4, 4, 1, 264, 32),
+)
+SMALL_GROUP, SMALL_BS = 8, 8
+
+
+def check_pack_small(torch, timer, D):
+    """K5 at d_head D, bitwise its plain version on bf16 and f32 keys, at the
+    main path's slab (B 4, S 8192, Hkv 16, g 32: timed) and at the passkey
+    example's (B 4, S 264, Hkv 4, g 8)."""
+    from repro_torch.kernels import pack_quantize as pq
+
+    row = None
+    for B, S, H, g in ((SLOTS, CAPACITY, 16, GROUP), (4, 264, 4, SMALL_GROUP)):
+        gen = torch.Generator(device=DEVICE).manual_seed(D + S)
+        K = torch.randn((B, S, H, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+        for k in (K, K.float()):
+            got = pq.fier_pack_quantize(k, g)
+            want = pq.fier_pack_quantize_plain(k, g)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("codes", "scale", "zero"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K5 {name} differs from its plain version at "
+                                         f"{(B, S, H, D)} ({k.dtype}): "
+                                         f"{byte_diff(torch, a, b)} bytes")
+        log(f"  K5 {(B, H, D, S)} g={g}: codes/scale/zero bitwise equal to its plain version "
+            f"(bf16 and f32 keys)")
+        if row is None:
+            t = once_each(timer, lambda: pq.fier_pack_quantize_plain(K, g),
+                          lambda: pq.fier_pack_quantize(K, g), None)
+            nbytes = K.numel() * 2 + sum(a.numel() * a.element_size() for a in got)
+            row = dict(shape=(B, H, 1, D, S), ms=t["kernel"], plain_ms=t["plain"],
+                       library_ms=None, bytes=nbytes, flops=0, max_abs_err=0.0)
+        del K, k, got, want
+    return finish_rows({"pack_quantize": [row]})["pack_quantize"][0]
+
+
+# The planted fault of the d_head 16 layout: fier_common.cuh with the idle
+# lanes 16-31 made active, scoring the next kv head's channels (their lane
+# offset) with their own head's q (lane mod 16).
+SMALL_HEAD_FAULT = (
+    ("  return active_lanes(kD) == 32 || (int)(threadIdx.x & 31) < active_lanes(kD);",
+     "  return true;"),
+    ("qv[k] = on ? q_r[lane * kDPL + k] : 0.0f;",
+     "qv[k] = q_r[(lane % active_lanes(kD)) * kDPL + k];"),
+)
+
+
+def fault_sources():
+    """A copy of the kernel sources under the build directory with
+    SMALL_HEAD_FAULT planted: [(.cu path, library tag)] of K1 and K6 (built
+    beside the port's own kernels in phase 1)."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    src = build.BUILD_DIR / "fault_d16"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(build.CSRC, src)
+    head = (src / "fier_common.cuh").read_text()
+    for old, new in SMALL_HEAD_FAULT:
+        if head.count(old) != 1:
+            raise AssertionError(f"the fault's anchor moved in fier_common.cuh: {old!r}")
+        head = head.replace(old, new)
+    (src / "fier_common.cuh").write_text(head)
+    return [(str(src / "fier_retrieve.cu"), "fier_retrieve_fault_d16"),
+            (str(src / "fier_score.cu"), "fier_score_fault_d16")]
+
+
+def small_head_fault(torch):
+    """K1 and K6 built from a copy of the sources with SMALL_HEAD_FAULT
+    planted, at d_head 16 (B 4, Hkv 16, rep 1, S 8192, g 32, budget 1024;
+    the side-car in buffers padded past its end, since the last head's
+    faulty lanes read beyond it): each must read above the gate its sound
+    build passes (K1: the selection within ε of τ and τ within ε; K6: every
+    score within ε).  Returns the readings as multiples of ε."""
+    from repro_torch.core.quantize import QuantizedKeys
+    from repro_torch.kernels import fier_score as fs
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels.check import selection_agrees
+
+    (k1_src, k1_tag), (k6_src, k6_tag) = fault_sources()
+    k1 = nvcc_lib(k1_src, k1_tag).fier_retrieve_launch  # built in phase 1
+    k6 = nvcc_lib(k6_src, k6_tag).fier_score_launch
+    for bad, good in ((k1, fr._kernel()), (k6, fs._kernel())):
+        bad.argtypes, bad.restype = good.argtypes, good.restype
+
+    B, Hkv, rep, D, S = SLOTS, 16, 1, 16, CAPACITY
+    q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=61)
+    del K, V
+
+    def padded(t):
+        buf = torch.zeros(t.numel() + 64, dtype=t.dtype, device=t.device)
+        buf[:t.numel()].copy_(t.reshape(-1))
+        return buf[:t.numel()].view(t.shape)
+
+    qk = QuantizedKeys(padded(qk.codes), padded(qk.scale), padded(qk.zero), qk.group)
+    sel = dict(group=GROUP, group_reduce="max", sink=SINK, recent=RECENT)
+    args = (q, qk.codes, qk.scale, qk.zero, lengths, BUDGET)
+    idx_p, tau_p, m_p = fr.fier_retrieve_plain(*args, **sel)
+    s_p = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+    saved = fr._fn, fs._fn
+    try:
+        fr._fn, fs._fn = k1, k6
+        idx_f, tau_f, m_f = fr.fier_retrieve(*args, **sel)
+        s_f = fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+        torch.cuda.synchronize()
+    finally:
+        fr._fn, fs._fn = saved
+    eps = score_eps(q, qk)
+    kv = fr.masked_kv(s_p, lengths, SINK, RECENT, "max").reshape(B * Hkv, S)
+    ok, ndiff = selection_agrees(
+        idx_f.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1), tau_f.reshape(-1),
+        tau_p.reshape(-1), m_f.reshape(-1), m_p.reshape(-1), kv, eps)
+    fin = torch.isfinite(tau_f) & torch.isfinite(tau_p)
+    tau_err = float((tau_f - tau_p)[fin].abs().max())
+    s_err = float((s_f - s_p).abs().max())
+    out = dict(k1_tau_err_eps=tau_err / eps, k1_indices_off=ndiff, k6_err_eps=s_err / eps)
+    log(f"  planted fault (d_head 16, lanes 16-31 score the next kv head's channels): K1 "
+        f"{ndiff} indices outside the ε band, tau err {tau_err:.4g} = "
+        f"{out['k1_tau_err_eps']:.4g} ε; K6 max |Δscore| {s_err:.4g} = "
+        f"{out['k6_err_eps']:.4g} ε (gates: 0 indices and 1 ε)")
+    if ok or not s_err > eps:
+        raise AssertionError(f"the d_head 16 gates do not see the planted fault: {out}")
+    del q, qk, idx_f, s_f, s_p, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_small_heads(torch, timer):
+    """Phase 2 at d_head 16 and 32: K1/K3/K6 (``check_scoring``) at
+    SMALL_SCORE_REPS of the main path's shape, K2/K4/K8
+    (``check_attend_variants``) at every rep of the main path's shape, K5
+    (``check_pack_small``), then K1–K4/K6/K8 at the examples' shapes
+    (SMALL_EXAMPLE_SHAPES), each under the gates of the main path's shape;
+    and the planted fault (``small_head_fault``).  Returns ({kernel name:
+    {entry: row}}, the fault's readings)."""
+    from repro_torch.kernels import sparse_attention as sa
+
+    rows = {k: {} for k in ("fier_retrieve", "fier_retrieve_paged", "fier_score",
+                            "fier_attend_selected", "fier_attend_selected_paged",
+                            "sparse_attention", "pack_quantize")}
+
+    def add_attend(tag, variants):
+        for v, r in variants.items():
+            for name, key in (("fier_attend_selected", "ms"), ("fier_attend_selected_paged",
+                                                               "k4_ms"),
+                              ("sparse_attention", "k8_ms")):
+                rows[name][f"{tag}{v}"] = dict(
+                    shape=r["shape"], budget=r["budget"], ms=r[key], bound_ms=r["bound_ms"],
+                    bound_by="bytes", max_abs_err=r["max_abs_err"])
+
+    for D in SMALL_HEADS:
+        for rep, reduce in SMALL_SCORE_REPS:
+            got = check_scoring(torch, timer, (SLOTS, 16, rep, D, CAPACITY, reduce), turns=False)
+            for name, r in got.items():
+                rows[name][f"d{D}_rep{rep}"] = r
+        add_attend("", check_attend_variants(torch, timer, variants=tuple(
+            (f"d{D}_rep{rep}", (SLOTS, 16, rep, D), BUDGET) for rep in sa.KERNEL_REPS)))
+        rows["pack_quantize"][f"d{D}"] = check_pack_small(torch, timer, D)
+        for ex, B, Hkv, rep, S, budget in SMALL_EXAMPLE_SHAPES:
+            got = check_scoring(torch, timer, (B, Hkv, rep, D, S, "max"), group=SMALL_GROUP,
+                                budget=budget, bs=SMALL_BS, sink=0, recent=0, turns=False)
+            for name, r in got.items():
+                rows[name][f"{ex}_d{D}"] = r
+            add_attend(f"{ex}_", check_attend_variants(
+                torch, timer, variants=((f"d{D}", (B, Hkv, rep, D), budget),), S=S,
+                bs=SMALL_BS, group=SMALL_GROUP, lens=scaled_lengths(B, S)))
+    fault = small_head_fault(torch)
+    return rows, fault
 
 
 def finish_rows(rows):
@@ -1835,12 +2078,15 @@ def serve_stream(torch, cfg, params, *, n_slots=8, capacity=CAPACITY, pool_block
     return counts, stats, errs, {r.rid: list(r.out) for r in reqs}
 
 
-def clone_cache(torch, cache):
-    """A copy of a decode cache (decode updates its cache in place)."""
+def clone_cache(torch, cache, device=None):
+    """A copy of a decode cache (decode updates its cache in place), on
+    ``device`` when given."""
     import dataclasses
 
     def copy(x):
-        if isinstance(x, torch.Tensor) or hasattr(x, "parts"):  # a tensor or a ShardedPool
+        if isinstance(x, torch.Tensor):
+            return x.clone() if device is None else x.to(device, copy=True)
+        if hasattr(x, "parts"):  # a ShardedPool
             return x.clone()
         if isinstance(x, dict):
             return {k: copy(v) for k, v in x.items()}
@@ -3454,6 +3700,17 @@ def ssm_step_check(torch, eng, params, batch, tok0, cache, vocab):
     return gap, s1, fault
 
 
+def fier_layers(cfg, skip) -> int:
+    """The FIER layers of ``cfg`` with ``skip`` dense skip layers: K1/K2
+    launches per decode step (the hybrid's every application point of the
+    shared block; an ssm none)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // max(cfg.attn_every, 1)
+    return cfg.n_layers - skip
+
+
 def phase10_drive(torch, arch, n_slots, capacity, prompts, max_new):
     """One config at full width and depth through ``Engine.build``'s
     default policy (fier / one_pass / slab / budget 1024 / skip 2), random
@@ -3481,8 +3738,7 @@ def phase10_drive(torch, arch, n_slots, capacity, prompts, max_new):
     if cfg.family != "ssm" and (pol.kind, pol.pipeline, pol.layout, pol.budget,
                                 pol.skip_layers) != ("fier", "one_pass", "slab", BUDGET, SKIP):
         raise AssertionError(f"Engine.build's default policy is {pol}")
-    n_fier = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
-              "encdec": cfg.n_layers - SKIP}[cfg.family]
+    n_fier = fier_layers(cfg, SKIP)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     params = eng.compute_params(eng.bundle.init(gen))
     rng = np.random.default_rng(11)
@@ -5432,6 +5688,454 @@ def sharded_train_path(torch):
     return out
 
 
+# ------------------------------------------------------------ phase 14
+
+# Every config of the registry at ``reduced_config`` (d_head 16; the
+# hybrid's 32), as the CPU parity tests drive them: 2
+# slots of 64 tokens, serving_policy(budget=16, group=8, skip_layers=1)
+# (sink 4, recent 64: the recent window covers the whole capacity, so K1's
+# selection is the guard rails' first 16 positions and K2 attends them),
+# prompts 48 and 33 tokens (llava: 8 vision embeddings before them), token
+# arrays padded to the capacity (a multiple of the ssm chunk), 8 greedy
+# tokens.
+REDUCED_SLOTS, REDUCED_CAPACITY, REDUCED_NEW = 2, 64, 8
+REDUCED_PROMPTS = (48, 33)
+REDUCED_POLICY = dict(budget=16, group=8, skip_layers=1)
+# Card vs CPU, as fractions of max|logit|, set as phases 3, 9 and 10 set
+# theirs: between the largest sound reading and the smallest planted
+# fault's (PERF.md §6).  The first decode step from one cache (the card's
+# prefill cache, copied to the CPU for the CPU's step): the kernels and the
+# decode's own GEMMs, and the planted faults are read here (sound: below
+# 2.5e-7 in all ten configs; faults from 0.0534).
+REDUCED_DECODE_REL_TOL = 1e-5
+# The prefill's last logits, and the first step from each side's own
+# prefill cache: REDUCED_LOGIT_REL_TOL (sound: below 2.5e-7), but
+# REDUCED_ROUNDED_REL_TOL where the prefill's bf16 activations round apart
+# on the card and on the CPU (sparse elements, each up to about one bf16
+# step of its tensor's max where the caches first differ; PERF.md §6): at
+# the last position's logits (REDUCED_ROUNDED_PREFILL; sound: 0.0027 to
+# 0.0110), and in rows of the cache that the step reads
+# (REDUCED_ROUNDED_CACHE: whisper-small's cross K/V and decoder K/V,
+# zamba2-7b's conv and SSM states and attention K/V; sound: 0.0045 to
+# 0.0051).
+REDUCED_LOGIT_REL_TOL = 1e-5
+REDUCED_ROUNDED_REL_TOL = 0.02
+REDUCED_ROUNDED_PREFILL = ("whisper-small", "llava-next-mistral-7b", "olmo-1b", "minicpm-2b",
+                           "zamba2-7b")
+REDUCED_ROUNDED_CACHE = ("whisper-small", "zamba2-7b")
+# (b): reduced olmo-1b and llava through ContinuousScheduler on a slab and
+# a paged engine (bs 8, sink 0, recent 0, so K1/K3 select), 4 requests
+REDUCED_STREAM_ARCHS = ("olmo-1b", "llava-next-mistral-7b")
+# (d): the passkey example's training steps (its default, as the JAX
+# example's)
+PASSKEY_STEPS = 600
+
+
+def reduced_tol(arch) -> tuple[float, float]:
+    """Phase 14(a)'s gates on the prefill's logits and on the first step
+    from each side's own prefill cache."""
+    return tuple(REDUCED_ROUNDED_REL_TOL if arch in rounded else REDUCED_LOGIT_REL_TOL
+                 for rounded in (REDUCED_ROUNDED_PREFILL, REDUCED_ROUNDED_CACHE))
+
+
+def cache_diffs(torch, got, ref, lengths) -> dict:
+    """Where two decode caches differ: {path: {n: elements that differ, of:
+    elements, rel: max|got − ref| / max|ref|, ulp: the largest distance in
+    bf16 units in the last place (bf16 tensors); for a slab's K/V [L, B,
+    capacity, ...], read: of n, those at positions below the row's length
+    ``lengths`` [B], and first: the lowest such position}} over the tensors
+    of the two trees (dicts, and the metadata dataclasses); empty where they
+    are equal bit for bit."""
+    import dataclasses
+
+    out = {}
+    B = lengths.shape[0]
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                walk(a[k], b[k], f"{path}/{k}" if path else k)
+        elif dataclasses.is_dataclass(a):
+            for f in dataclasses.fields(a):
+                walk(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+        elif isinstance(a, torch.Tensor):
+            a = a.to(b.device)
+            ne = a != b
+            n = int(ne.sum())
+            if not n:
+                return
+            d = dict(n=n, of=a.numel(), rel=float(
+                (a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)))
+            if a.dtype == torch.bfloat16:
+                d["ulp"] = int((a.view(torch.int16).int() - b.view(torch.int16).int())
+                               .abs().max())
+            if path.rsplit("/", 1)[-1] in ("k", "v") and a.dim() >= 3 and a.shape[1] == B:
+                pos = torch.arange(a.shape[2])
+                read = (pos[None, :] < lengths.cpu()[:, None]).reshape(
+                    1, B, -1, *[1] * (a.dim() - 3)).to(ne.device)
+                d["read"] = int((ne & read).sum())
+                at = (ne & read).flatten(3).any(-1).any(0).any(0).cpu()
+                d["first"] = int(pos[at][0]) if bool(at.any()) else None
+            out[path] = d
+
+    walk(got, ref, "")
+    return out
+
+
+def reduced_drive(torch, arch):
+    """One reduced config on the card and on the CPU, the same weights
+    (initialised on the card from a seeded ``torch.Generator``, copied to
+    the CPU): the prefill (its last logits, and where the two caches differ,
+    ``cache_diffs``) and the first decode step (every FIER layer's K1/K2
+    held to their plain versions on the engine's own tensors,
+    ``checked_kernels``).  The card's first-step logits against the CPU's
+    fed the same token from the card's prefill cache (the decode alone,
+    REDUCED_DECODE_REL_TOL) and from its own (the two paths whole,
+    ``reduced_tol``), and a planted fault (K2 fed idx+1; the attention-free
+    mamba2: each row decoding from the next row's SSM state) read against
+    the first; then ``generate`` of REDUCED_NEW greedy tokens on the card
+    with K1/K2 launched (FIER layers) x (REDUCED_NEW - 1) times and no other
+    kernel.  The gates are checked last, so every reading is logged.
+    Returns what it measured."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.serving import Engine, serving_policy
+
+    cfg = reduced_config(arch)
+    pol = serving_policy(**REDUCED_POLICY)
+    kw = {"max_positions": 128} if cfg.family == "encdec" else {}
+    build = lambda dev: Engine.build(cfg, n_slots=REDUCED_SLOTS, capacity=REDUCED_CAPACITY,
+                                     policy=pol, device=dev, **kw)
+    eng, cpu = build(DEVICE), build("cpu")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    raw = eng.bundle.init(gen)
+    params = eng.compute_params(raw)
+    params_c = cpu.compute_params(tree_map(lambda a: a.cpu(), raw))
+    n_fier = fier_layers(cfg, REDUCED_POLICY["skip_layers"])
+    rng = np.random.default_rng(14)
+    nv = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    width = max(REDUCED_PROMPTS) if nv else REDUCED_CAPACITY
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (REDUCED_SLOTS, width))).to(DEVICE)
+    lengths = torch.tensor([n + nv for n in REDUCED_PROMPTS], dtype=torch.int32, device=DEVICE)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = (torch.randn((REDUCED_SLOTS, nv, cfg.d_model), generator=gen,
+                                               device=DEVICE) * cfg.d_model**-0.5
+                                   ).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        extras["frames"] = torch.randn((REDUCED_SLOTS, cfg.enc_ctx, cfg.d_model), generator=gen,
+                                       device=DEVICE)
+    batch = {"tokens": toks, "lengths": lengths, **extras}
+    batch_c = {k: v.cpu() for k, v in batch.items()}
+    out = dict(arch=arch, family=cfg.family, d_head=cfg.d_head, fier_layers=n_fier,
+               rep=cfg.n_heads // cfg.n_kv_heads if cfg.n_kv_heads else 0)
+
+    lg0, cache = eng.prefill_batch(params, batch)
+    lg0_c, cache_c = cpu.prefill_batch(params_c, batch_c)
+    diffs = cache_diffs(torch, cache, cache_c, lengths)
+    cache_x = clone_cache(torch, cache, "cpu")
+    tok0 = torch.argmax(lg0, -1).to(torch.int32)
+    V = cfg.vocab
+    errs = new_errs()
+    retrieve, attend = checked_kernels(torch, errs, keep_plain=False)
+
+    def step(retrieve_fn=None, attend_fn=None, c=None):
+        saved = ops.fier_retrieve, ops.fier_attend_selected
+        ops.fier_retrieve = retrieve_fn or saved[0]
+        ops.fier_attend_selected = attend_fn or saved[1]
+        try:
+            _, lg, _ = eng.decode(params, tok0, clone_cache(torch, cache if c is None else c))
+            sync(torch)
+        finally:
+            ops.fier_retrieve, ops.fier_attend_selected = saved
+        return lg[:, :V].float().cpu()
+
+    lg1 = step(retrieve, attend)
+    _, lg1_x, _ = cpu.decode(params_c, tok0.cpu(), cache_x)
+    _, lg1_c, _ = cpu.decode(params_c, tok0.cpu(), cache_c)
+    lg1_x, lg1_c = lg1_x[:, :V].float(), lg1_c[:, :V].float()
+    if errs["calls"] != n_fier:
+        raise AssertionError(f"{arch}: the checked step ran {errs['calls']} FIER layers, "
+                             f"not {n_fier}")
+    if n_fier:
+        shifted = lambda q, K, V_, idx, lengths=None, **k: sa.fier_attend_selected(
+            q, K, V_, (idx + 1) % K.shape[1], lengths, **k)
+        lg_f = step(attend_fn=shifted)
+        fault_name = "K2 fed idx+1"
+    else:
+        bad = clone_cache(torch, cache)
+        bad["layers"]["ssm"] = bad["layers"]["ssm"].roll(1, dims=1)
+        lg_f = step(c=bad)
+        fault_name = "each row from the next row's SSM state"
+    s1 = float(lg1_c.abs().max())
+    pre_tol, tol = reduced_tol(arch)
+    pre_gap = float((lg0[:, :V].float().cpu() - lg0_c[:, :V].float()).abs().max())
+    dec_gap = float((lg1 - lg1_x).abs().max())
+    gap = float((lg1 - lg1_c).abs().max())
+    fault = float((lg_f - lg1_x).abs().max())
+    top1 = int((lg1.argmax(-1) == lg1_c.argmax(-1)).sum())
+    out.update(prefill_gap=pre_gap / s1, decode_gap=dec_gap / s1, first_step_gap=gap / s1,
+               fault_gap=fault / s1, max_logit=s1, cache_diffs=diffs, tols=(pre_tol, tol),
+               k1_tau_err=errs["k1_tau"], k2_rel=errs["k2_rel"])
+    if n_fier:
+        log_errs(errs, "K1", "K2")
+    log(f"  prefill caches: {diffs or 'equal bit for bit'}")
+    log(f"  card vs CPU (max |logit| {s1:.4g}): first decode step from one cache "
+        f"{dec_gap / s1:.4g} of max|logit| (gate {REDUCED_DECODE_REL_TOL}); prefill "
+        f"{pre_gap / s1:.4g} (gate {pre_tol}), first decode step from each side's own "
+        f"{gap / s1:.4g} (top-1 {top1}/{REDUCED_SLOTS}; gate {tol}); planted fault, "
+        f"{fault_name}: {fault / s1:.4g}")
+    del cache, cache_c, cache_x
+
+    reset_launch_counts()
+    gen_toks = eng.generate(params, toks, lengths, REDUCED_NEW, extras=extras or None)
+    sync(torch)
+    counts = launch_counts()
+    out["launches"] = {k: counts[k] for k in SLAB_KERNELS}
+    log(f"  generate {REDUCED_NEW} tokens: launches {out['launches']} = {n_fier} x "
+        f"{REDUCED_NEW - 1} decode steps")
+    check_launches(counts, SLAB_KERNELS if n_fier else (), n_fier * (REDUCED_NEW - 1))
+    if not (torch.equal(gen_toks[:, 0], tok0) and bool(((gen_toks >= 0) & (gen_toks < V)).all())):
+        raise AssertionError(f"{arch}: generated tokens {gen_toks.tolist()} wrong")
+    if not fault > tol * s1:
+        raise AssertionError(f"{arch}: the first-step gates do not see the planted fault "
+                             f"({fault_name}): {fault / s1:.4g} <= {tol}")
+    if not (torch.isfinite(lg1).all() and dec_gap <= REDUCED_DECODE_REL_TOL * s1):
+        raise AssertionError(f"{arch}: first step from one cache, card vs CPU "
+                             f"{dec_gap / s1:.4g} > {REDUCED_DECODE_REL_TOL}")
+    if not (pre_gap <= pre_tol * s1 and gap <= tol * s1):
+        raise AssertionError(f"{arch}: card vs CPU, prefill {pre_gap / s1:.4g} (gate "
+                             f"{pre_tol}), first step from each side's own prefill "
+                             f"{gap / s1:.4g} (gate {tol})")
+    del eng, cpu, params, params_c, raw
+    return out
+
+
+def reduced_stream(torch, arch):
+    """Reduced ``arch`` through ``ContinuousScheduler`` on a slab and on a
+    paged engine (bs 8), 4 requests on 2 slots: the tokens equal, each run
+    launching only its layout's kernels, (FIER layers) x (its decode
+    steps) times; the paged engine audits clean with no block in use."""
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.policy import PolicyConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import ContinuousScheduler, Engine, Request
+
+    cfg = reduced_config(arch)
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab, 20 + 7 * i).tolist() for i in range(4)]
+    # a Request carries its run's state (out, done): fresh ones for each run
+    new_reqs = lambda: [Request(rid=i, tokens=list(p), max_new=6 + i)
+                        for i, p in enumerate(prompts)]
+    params = None
+    outs, counts = {}, {}
+    for layout, kernels in (("slab", SLAB_KERNELS), ("paged", PAGED_KERNELS)):
+        pol = PolicyConfig(kind="fier", budget=16, group=8, skip_layers=1, pipeline="one_pass",
+                           layout=layout, block_size=8)
+        eng = Engine(build_model(cfg, pol, device=DEVICE), n_slots=REDUCED_SLOTS,
+                     capacity=REDUCED_CAPACITY)
+        if params is None:
+            params = eng.bundle.init(torch.Generator(device=DEVICE).manual_seed(0))
+        reset_launch_counts()
+        sched = ContinuousScheduler(eng, eng.compute_params(params), pad_prompt_to=16)
+        outs[layout] = dict(sched.run(new_reqs()))
+        sync(torch)
+        got = launch_counts()
+        check_launches(got, kernels, fier_layers(cfg, pol.skip_layers) * sched.steps)
+        counts[layout] = {k: got[k] for k in kernels}
+        if layout == "paged":
+            eng.audit()
+            if eng.allocator.n_in_use:
+                raise AssertionError(f"{arch}: {eng.allocator.n_in_use} blocks in use at the end")
+        log(f"  {layout}: {sched.steps} decode steps, launches {counts[layout]}")
+    lens = [len(outs["slab"].get(i, ())) for i in range(4)]
+    if outs["paged"] != outs["slab"] or lens != [6, 7, 8, 9]:
+        raise AssertionError(f"{arch}: paged tokens {outs['paged']} differ from slab "
+                             f"{outs['slab']}")
+    log(f"  {arch}: paged tokens equal to slab for {len(prompts)} requests")
+    return counts
+
+
+def serve_cli(torch):
+    """``repro_torch.launch.serve.main`` at ``--reduced``, slab (the
+    reference pipeline, as the reference's CLI serves the slab: no kernel)
+    and ``--paged`` (one_pass: K3/K4 once per FIER layer and decode step),
+    on the card."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    n_fier = fier_layers(reduced_config("olmo-1b"), 1)  # the CLI's skip at --reduced
+    out = {}
+    for extra, kernels in (([], ()), (["--paged"], PAGED_KERNELS)):
+        reset_launch_counts()
+        rep = serve.main(["--arch", "olmo-1b", "--reduced", "--device", DEVICE, *extra])
+        sync(torch)
+        counts = launch_counts()
+        check_launches(counts, kernels, n_fier * rep["decode_steps"])
+        if rep["tokens"] != 12 * 16:
+            raise AssertionError(f"serve {extra}: {rep['tokens']} tokens, not 12 x 16")
+        out["paged" if extra else "slab"] = dict(rep, launches={k: counts[k] for k in kernels})
+    return out
+
+
+def load_example(name):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_on_card(torch):
+    """The four ``examples/*_torch.py`` in this process on the card:
+    quickstart (the reference pipeline: no kernel), serve_longcontext
+    (K1/K2 once per FIER layer and decode step, every request served
+    whole), passkey (PASSKEY_STEPS training steps, then the four policies'
+    accuracies and SLM's at skip_layers 0, reported, not gated; reference
+    pipelines: no kernel) and train_tiny_lm (its 60 steps with crashes at
+    25 and 45: 2 restarts, and the final checkpoint's loss on held-out
+    batches below the initial weights')."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+
+    out = {}
+    reset_launch_counts()
+    full, fier, agree = load_example("quickstart_torch").run(DEVICE)
+    sync(torch)
+    check_launches(launch_counts(), (), 0)
+    out["quickstart"] = dict(agreement=agree, shape=tuple(full.shape))
+
+    ex = load_example("serve_longcontext_torch")
+    reset_launch_counts()
+    outs, sched, wall = ex.run(DEVICE)
+    sync(torch)
+    counts = launch_counts()
+    bundle = sched.engine.bundle
+    check_launches(counts, SLAB_KERNELS,
+                   fier_layers(bundle.cfg, bundle.policy.skip_layers) * sched.steps)
+    want = {r.rid: r.max_new for r in ex.requests(sched.engine.bundle.cfg.vocab)}
+    if {rid: len(v) for rid, v in outs.items()} != want:
+        raise AssertionError(f"serve_longcontext: outputs {outs}")
+    out["serve_longcontext"] = dict(steps=sched.steps, wall_s=wall,
+                                    tokens=sum(len(v) for v in outs.values()),
+                                    occupancy=sched.mean_occupancy,
+                                    launches={k: counts[k] for k in SLAB_KERNELS})
+
+    ex = load_example("passkey_demo_torch")
+    sync(torch)
+    t0 = time.perf_counter()
+    cfg, params = ex.train_tiny_lm(DEVICE, steps=PASSKEY_STEPS, cache_dir=None)
+    sync(torch)
+    train_s = time.perf_counter() - t0
+    reset_launch_counts()
+    res = ex.evaluate(cfg, params, DEVICE)
+    sync(torch)
+    check_launches(launch_counts(), (), 0)
+    # SLM at skip_layers 0: the demo's policies leave layer 0 reading every
+    # cached token (SKIP 1), through which a decode step can still reach the
+    # passkey; here layer 0 evicts too (reference pipeline: no kernel)
+    batch, answers = ex.make_passkey_batch(cfg, 4, ex.SEQ, seed=7, step=0, depth=0.3,
+                                           device=DEVICE)
+    pol = dataclasses.replace(ex.policy_bundle(cfg, "slm", DEVICE).policy, skip_layers=0)
+    slm0 = build_model(cfg, pol, device=DEVICE)
+    got = ex.answer(slm0, params, batch["tokens"][:, : ex.SEQ - ex.N_DIGITS])
+    sync(torch)
+    check_launches(launch_counts(), (), 0)
+    out["passkey"] = dict(train_s=train_s, steps=PASSKEY_STEPS,
+                          accuracy={k: acc for k, (_, acc) in res.items()},
+                          slm_skip0_accuracy=float((got == answers).all(1).float().mean()),
+                          slm_skip0_digits=got.tolist(), answers=answers.tolist())
+    log(f"  passkey: {PASSKEY_STEPS} steps in {train_s:.1f} s; batch accuracy "
+        f"{out['passkey']['accuracy']}; slm at skip_layers 0: "
+        f"{out['passkey']['slm_skip0_accuracy']} (digits {got.tolist()}, true "
+        f"{answers.tolist()})")
+
+    ex = load_example("train_tiny_lm_torch")
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_example_ckpt_")
+    try:
+        res = ex.run(ex.command(DEVICE, ckpt))
+        res["held_before"], res["held_after"] = ex.held_losses(DEVICE, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["train_tiny_lm"] = {k: res[k] for k in ("restarts", "resumed_from", "first_loss",
+                                                "last_loss", "held_before", "held_after",
+                                                "wall_s")}
+    log(f"  train_tiny_lm: restarts {res['restarts']} (resumed from {res['resumed_from']}), "
+        f"logged loss step 0 {res['first_loss']:.4f}, last {res['last_loss']:.4f}; held-out "
+        f"loss {res['held_before']:.4f} -> {res['held_after']:.4f}")
+    if not (res["done"] and res["restarts"] == 2 and res["held_after"] < res["held_before"]):
+        raise AssertionError(f"train_tiny_lm: {res}")
+    return out
+
+
+def reduced_path(torch):
+    """Phase 14: (a) every config of the registry at ``reduced_config`` on
+    the card against the CPU, (b) reduced olmo-1b and llava paged vs slab
+    through the scheduler, (c) the serve CLI at ``--reduced``, (d) the four
+    ``_torch`` examples."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+
+    t0 = time.perf_counter()
+    out = {"configs": {}, "stream": {}}
+    for arch in ARCHS:
+        log(f"  (a) [{arch}] reduced, {REDUCED_SLOTS} slots x {REDUCED_CAPACITY}")
+        out["configs"][arch] = reduced_drive(torch, arch)
+        gc.collect()
+    for arch in REDUCED_STREAM_ARCHS:
+        log(f"  (b) [{arch}] reduced, ContinuousScheduler, slab and paged")
+        out["stream"][arch] = reduced_stream(torch, arch)
+    log("  (c) python -m repro_torch.launch.serve --arch olmo-1b --reduced [--paged]")
+    out["serve"] = serve_cli(torch)
+    log("  (d) the four examples/*_torch.py")
+    out["examples"] = examples_on_card(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 14 wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def build_kernels():
+    """Phase 1's build: every ``csrc/*.cu`` (one ``nvcc`` each, all at once,
+    beside the planted fault's K1 and K6 for phase 2), each kernel's ptxas
+    line logged, none with a stack frame or spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        faults = [pool.submit(nvcc_lib, src, tag) for src, tag in fault_sources()]
+        built = build.build()
+        for f in faults:
+            f.result()
+    log(f"[setup] built {sorted(built) or 'nothing (cached)'} and the planted fault's K1/K6 "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for name, (secs, report) in built.items():
+        log(f"[setup] {name}.cu done after {secs:.1f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"[setup] ptxas {name}: {line.strip()}")
+            if "stack frame" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+                raise AssertionError(f"{name}: a kernel uses local memory: {line.strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -5444,8 +6148,6 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
         return 2
-    from repro_torch.kernels import build
-
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls stay f32
     torch.backends.cudnn.allow_tf32 = False
     global CARD
@@ -5453,17 +6155,7 @@ def main() -> int:
     log(f"[setup] {card}")
     log(f"[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    built = build.build()
-    log(f"[setup] built {sorted(built) or 'nothing (cached)'} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, (_, report) in built.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
-                log(f"[setup] ptxas {name}: {line.strip()}")
-            if "stack frame" in line and not line.strip().startswith(
-                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
-                raise AssertionError(f"{name}: a kernel uses local memory: {line.strip()}")
+    build_kernels()
 
     if "--training-only" in sys.argv:  # phase 11 alone after the build; no result line
         log("[training] flash backward, olmo-1b, restart, the families, train then serve")
@@ -5476,6 +6168,10 @@ def main() -> int:
     if "--sharded-train-only" in sys.argv:  # phase 13 alone after the build; no result line
         log("[sharded training] training on meshes, every shard on this card")
         sharded_train_path(torch)
+        return 0
+    if "--examples-only" in sys.argv:  # phase 14 alone after the build; no result line
+        log("[reduced] every reduced config, the serve CLI and the examples on the card")
+        reduced_path(torch)
         return 0
 
     log("[kernels] each kernel against its plain version")
@@ -5511,7 +6207,12 @@ def main() -> int:
     family_rows.update(check_paged_kernels(torch, timer, family))
     family_rows.update(check_unfused_kernels(torch, timer, family))
     log("[kernels] K1/K3/K6 at a GQA rep at d_head 112")
-    gqa_112 = check_scoring_gqa(torch, timer, D112_GQA_SHAPE)
+    gqa_112 = check_scoring(torch, timer, D112_GQA_SHAPE)
+    log("[kernels] K1-K8 at d_head 16 and 32: the main path's scale, the examples' shapes, "
+        "a planted fault")
+    t_small = time.perf_counter()
+    small, small_fault = check_small_heads(torch, timer)
+    log(f"  d_head 16 and 32 checks: {time.perf_counter() - t_small:.1f} s")
     del timer
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv:  # a quick build-and-check call; no result line
@@ -5561,6 +6262,9 @@ def main() -> int:
 
     log("[sharded training] training on meshes, every shard on this card")
     p13 = sharded_train_path(torch)
+
+    log("[reduced] every reduced config, the serve CLI and the examples on the card")
+    p14 = reduced_path(torch)
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
@@ -5618,9 +6322,19 @@ def main() -> int:
             g = gqa_112[name]
             row["families"]["d112_gqa"] = {k: g[k] for k in (
                 "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+        # d_head 16 and 32 (phase 2): each entry's time beside its bound
+        if name in small:
+            row["small_heads"] = {
+                entry: {k: r[k] for k in ("shape", "budget", "ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by", "max_abs_err") if k in r}
+                for entry, r in small[name].items()
+            }
+        if name in ("fier_retrieve", "fier_score"):
+            row["small_heads_fault"] = small_fault
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [x["max_abs_err"] for x in family_rows[name]]
-                                 + [g["max_abs_err"] for g in [gqa_112.get(name)] if g])
+                                 + [g["max_abs_err"] for g in [gqa_112.get(name)] if g]
+                                 + [r["max_abs_err"] for r in small.get(name, {}).values()])
         if name in PAGED_KERNELS:
             # launches above: the serving run (phase 5); the paged-vs-slab run too
             row["launches_paged_vs_slab"] = counts_p4[name]
@@ -5639,6 +6353,15 @@ def main() -> int:
                                     if name in r.get(fam_key, {})}
         if name in SLAB_KERNELS:  # phase 11(e): a model trained on the card, then served
             row["launches_train_then_serve"] = p11["serve"]["launches"][name]
+            # phase 14: the reduced configs' generate, the serve_longcontext example
+            row["launches_reduced"] = {a: r["launches"][name]
+                                       for a, r in p14["configs"].items()}
+            row["launches_serve_longcontext"] = p14["examples"]["serve_longcontext"][
+                "launches"][name]
+        if name in PAGED_KERNELS:  # phase 14 (b) and (c): reduced models, paged
+            row["launches_reduced_paged"] = {
+                **{a: c["paged"][name] for a, c in p14["stream"].items()},
+                "serve_cli": p14["serve"]["paged"]["launches"][name]}
         if name == "fier_attend_selected":
             row["launches_two_pass"] = counts_p6[name]
         if name in ("fier_attend_selected", "fier_attend_selected_paged", "sparse_attention"):

@@ -61,10 +61,15 @@
 // softmax, p . v, three barriers) measured 2 us per 32 KiB at rep 1 and
 // 5 us at rep 4, slower than the memory delivers them (PERF.md).
 //
-// d_head and rep.  d_head (64, 112 or 128) is a template parameter: a row
-// takes kLPR lanes of 8 channels (16 bytes) each, D/8 rounded up to a power
-// of two, so at 64 a CTA has 32 lane groups of 8 lanes and takes 128 slots a
-// step; the ring keeps 96 KiB of K/V rows in flight at each.  At 112
+// d_head and rep.  d_head (16, 32, 64, 112 or 128) is a template parameter:
+// a row takes kLPR lanes of 8 channels (16 bytes) each, D/8 rounded up to a
+// power of two and at least 8, so at 64 a CTA has 32 lane groups of 8 lanes
+// and takes 128 slots a step; the ring keeps 96 KiB of K/V rows in flight at
+// each.  At 32 and 16 (the reduced configs) a row is 4 or 2 such chunks and
+// takes an 8-lane group as at 64, its other lanes idle as at 112 below:
+// narrower groups would take more slot groups, and at rep 16 their merge
+// scratch (128 slot groups x 16 heads x (16 + 2) floats, 147,456 B) would
+// not fit the 96 KiB ring it reuses.  At 112
 // (zamba2-7b's shared attention block) a row is 14 such chunks (224 bytes,
 // so the 16-byte cp.async stays aligned) and takes a 16-lane group as at
 // 128, with lanes 14 and 15 idle: they copy nothing (source size 0
@@ -403,8 +408,8 @@ fier_attend_kernel(const void* __restrict__ q,               // [B, Hkv, rep, D]
   float* red_m = red + kSlotGroups * kRep * D;   // [kSlotGroups][kRep] maxima
   float* red_den = red_m + kSlotGroups * kRep;   // [kSlotGroups][kRep] denominators
   // the merge over slot groups unrolled whole up to 16 of them; 8 at a time
-  // for d_head 64's 32 and for d_head 112's padded groups (whole, ptxas
-  // spilled 16 bytes at rep 1 in K4 at both)
+  // for the 32 of d_head 64 (and 32, 16) and for padded groups (d_head 112,
+  // 32, 16; whole, ptxas spilled 16 bytes at rep 1 in K4 at 64 and 112)
   constexpr int kMergeUnroll = kSlotGroups > 16 || L::kLanesUsed != kLPR ? 8 : kSlotGroups;
 #pragma unroll
   for (int r = 0; r < kRepL; ++r) {
@@ -509,8 +514,9 @@ decltype(&launch<kAddr, kD, 1>) pick_rep(int rep) {
   }
 }
 
-// The instantiation for d_head D (64, 112 or 128; sparse_attention.KERNEL_HEAD_DIMS) and
-// rep (at 112 rep 1 only: sparse_attention.KERNEL_REPS_AT).
+// The instantiation for d_head D (16, 32, 64, 112 or 128;
+// sparse_attention.KERNEL_HEAD_DIMS) and rep (at 112 rep 1 only:
+// sparse_attention.KERNEL_REPS_AT).
 template <int kAddr>
 cudaError_t launch_rep(const void* q, const void* K, const void* V, const void* table,
                        const void* idx, const void* lengths, const void* mask, void* out, int B,
@@ -519,6 +525,8 @@ cudaError_t launch_rep(const void* q, const void* K, const void* V, const void* 
                        cudaStream_t stream) {
   auto go = D == 128              ? pick_rep<kAddr, 128>(rep)
             : D == 64              ? pick_rep<kAddr, 64>(rep)
+            : D == 32              ? pick_rep<kAddr, 32>(rep)
+            : D == 16              ? pick_rep<kAddr, 16>(rep)
             : D == 112 && rep == 1 ? &launch<kAddr, 112, 1>
                                    : nullptr;
   if (go == nullptr) return cudaErrorInvalidValue;

@@ -15,19 +15,22 @@
 // (a select-and-add per token and channel), so scores and selections are
 // the same bit for bit.
 //
-// d_head is a template parameter kD (64, 112 or 128): lane l owns
-// lane_channels(kD) consecutive channels (4 at 128 and 112, 2 at 64), so at
-// 128 a byte-row's code bytes of a lane are one uint32 and its scale/zero 4
-// bf16 (a uint2), at 64 a uint16 and 2 bf16 (a uint32); the table has
-// 2^lane_channels entries (16 or 4).  112/32 is no integer, so d_head 112
-// (zamba2-7b's shared attention block) takes 128's lane layout on 28 lanes:
-// lanes 0-27 own 4 channels each, and lanes 28-31 load nothing and score
-// with q = 0 and zero codes, scales and zeros, so they add exact zeros to
-// the butterfly.  That keeps the warp, the table, the butterfly and every
-// load of 128 (a head's code bytes start at h*112, its scale/zero at h*224
-// bytes: the 4- and 8-byte lane loads stay aligned), where 32 lanes of 3.5
-// channels would need split loads and a third table size.  At 64 and 128
-// every lane is active and the code is what it was.
+// d_head is a template parameter kD (16, 32, 64, 112 or 128): lane l owns
+// lane_channels(kD) consecutive channels (4 at 128 and 112, 2 at 64, 1 at 32
+// and 16), so at 128 a byte-row's code bytes of a lane are one uint32 and its
+// scale/zero 4 bf16 (a uint2), at 64 a uint16 and 2 bf16 (a uint32), at 32
+// one byte and one bf16 (a uint16); the table has 2^lane_channels entries
+// (16, 4 or 2).  112/32 is no integer, so d_head 112 (zamba2-7b's shared
+// attention block) takes 128's lane layout on 28 lanes: lanes 0-27 own 4
+// channels each, and lanes 28-31 load nothing and score with q = 0 and zero
+// codes, scales and zeros, so they add exact zeros to the butterfly.  That
+// keeps the warp, the table, the butterfly and every load of 128 (a head's
+// code bytes start at h*112, its scale/zero at h*224 bytes: the 4- and
+// 8-byte lane loads stay aligned), where 32 lanes of 3.5 channels would need
+// split loads and a third table size.  d_head 16 (every reduced config) takes
+// 32's one-channel layout the same way, on 16 lanes: lanes 16-31 would own
+// the next head's channels, so they load nothing and add exact zeros.  At
+// 32, 64 and 128 every lane is active and the code is what it was.
 
 #pragma once
 
@@ -60,14 +63,26 @@ struct LaneLoads<64> {
   using Code = uint16_t;
   using Pair = uint32_t;
 };
+template <>
+struct LaneLoads<32> {
+  using Code = uint8_t;
+  using Pair = uint16_t;  // one bf16
+};
+template <>
+struct LaneLoads<16> {  // 32's layout, on lanes 0-15
+  using Code = uint8_t;
+  using Pair = uint16_t;
+};
 
 // Channels a lane of the scoring warp owns at d_head D, and the lanes that
-// own any (kD / lane_channels: 32, or 28 at d_head 112).
-__host__ __device__ constexpr int lane_channels(int D) { return D == 64 ? 2 : 4; }
+// own any (kD / lane_channels: 32, or 28 at d_head 112, 16 at d_head 16).
+__host__ __device__ constexpr int lane_channels(int D) {
+  return D <= 32 ? 1 : D == 64 ? 2 : 4;
+}
 __host__ __device__ constexpr int active_lanes(int D) { return D / lane_channels(D); }
 
 // Whether this thread's lane owns channels: a constant true unless d_head
-// leaves lanes idle (112), so the other instantiations carry no test.
+// leaves lanes idle (112, 16), so the other instantiations carry no test.
 template <int kD>
 __device__ __forceinline__ bool lane_active() {
   return active_lanes(kD) == 32 || (int)(threadIdx.x & 31) < active_lanes(kD);
@@ -100,6 +115,9 @@ __device__ __forceinline__ void unpack_bf16(const uint2& p, float (&v)[4]) {
 __device__ __forceinline__ void unpack_bf16(uint32_t p, float (&v)[2]) {
   v[0] = bf16_bits_to_float(p & 0xFFFFu);
   v[1] = bf16_bits_to_float(p >> 16);
+}
+__device__ __forceinline__ void unpack_bf16(uint16_t p, float (&v)[1]) {
+  v[0] = bf16_bits_to_float(p);
 }
 
 __device__ __forceinline__ uint32_t sortable_key(float s) {
@@ -177,7 +195,8 @@ __device__ __forceinline__ void reduce_step_swapped(float (&v)[32]) {
 
 // The lane_channels(kD) (channel) x 8 (token) code bits of one byte-row word
 // -> the channel index of token b: bit k of the result is bit b of byte k (bytes
-// past the lane's lane_channels are zero, so at kD = 64 the result is below 4).
+// past the lane's lane_channels are zero, so at kD = 64 the result is below 4,
+// at 32 and 16 below 2).
 __device__ __forceinline__ uint32_t token_nibble(uint32_t word, int b) {
   const uint32_t x = (word >> b) & 0x01010101u;  // bit b of each byte at 8k
   return (x * 0x10204080u) >> 28;                // bit 8k -> bit 28 + k, no carries
@@ -190,8 +209,9 @@ __host__ __device__ constexpr int table_floats() { return (1 << lane_channels(kD
 // The f32 score q_r . a of token 32c + lane for one query head q_r [kD] (f32
 // holding bf16 values), a = bf16(+-s + z) as score_block forms it.  Lane l
 // owns channels kDPL l .. kDPL l + kDPL - 1 (kDPL = lane_channels(kD): 4 at
-// 128 and 112, 2 at 64; an idle lane at 112 takes q = 0 and its zero loads,
-// so each of its sums is +0) and, for each of the 32 tokens, sums their exact products (bf16 x
+// 128 and 112, 2 at 64, 1 at 32 and 16; an idle lane at 112 or 16 takes q = 0
+// and its zero loads, so each of its sums is +0) and, for each of the 32
+// tokens, sums their exact products (bf16 x
 // bf16 in f32) in channel order starting from 0: (((0 + c0) + c1) + c2) + c3
 // at 128 with c_k = q_k * (bit ? hi_k : lo_k).  The sum depends on the token
 // only through its kDPL code bits, so the lane forms the 2^kDPL possible

@@ -18,10 +18,12 @@
 // sums built once per group, 32 lookups and a 31-step reduce-scatter, ~10 us
 // of issue slots over the full rows.
 //
-// d_head and rep.  d_head is a template parameter (64, 112 or 128: the
-// scoring warp's lane owns lane_channels(D) channels, fier_common.cuh; at 112
-// lanes 0-27 own 4 each and lanes 28-31 add exact zeros, so zamba2-7b's
-// shared attention block runs 128's loads and sums), and so is the capacity
+// d_head and rep.  d_head is a template parameter (16, 32, 64, 112 or 128:
+// the scoring warp's lane owns lane_channels(D) channels, fier_common.cuh; at
+// 112 lanes 0-27 own 4 each and lanes 28-31 add exact zeros, so zamba2-7b's
+// shared attention block runs 128's loads and sums; at 16, the reduced
+// configs' d_head, lanes 0-15 own one each and lanes 16-31 add exact zeros,
+// on 32's one-channel loads and 2-entry tables), and so is the capacity
 // kMaxRep of the query heads staged in shared memory (rep_slots: 8 for
 // d_head 128 up to rep 8, 16 otherwise, so rep 12 and 16 run: starcoder2-3b,
 // qwen3-moe).  Scoring grows with rep (one score_chunk per query head and
@@ -35,11 +37,11 @@
 // CTA's shared memory; C = 2 at the serving shape).  CTA r owns tokens
 // [r T, min((r+1) T, S)), T a multiple of 32:
 //   * Score once.  Each warp scores 32-token chunks of the range (lane l
-//     owns D/32 channels: coalesced loads straight from the seq-major
+//     owns lane_channels(D) channels: coalesced loads straight from the seq-major
 //     [B, S/8, Hkv, D] / [B, S/g, Hkv, D] side-car; fier_common.cuh's
 //     load_chunk / score_chunk, the score_block expression, exact bf16 x bf16
 //     products summed in f32 in the order K1 has always used, looked up in a
-//     per-lane table of the 2^(D/32) sums its channels' code bits can select).  The next
+//     per-lane table of the 2^lane_channels(D) sums its channels' code bits can select).  The next
 //     chunk's loads are issued before the current chunk is scored (a
 //     register double buffer), so a warp keeps two chunks in flight.  A
 //     chunk that starts at or past the row's length is not read: its keys
@@ -121,6 +123,8 @@ constexpr int smem_static() {
 }
 static_assert(smem_static<128, 8>() == 43008, "the serving instantiation's count moved");
 static_assert(smem_static<112, 16>() == 46080, "fused_retrieval.smem_static counts 46,080");
+static_assert(smem_static<32, 16>() == 12288, "fused_retrieval.smem_static counts 12,288");
+static_assert(smem_static<16, 16>() == 11264, "fused_retrieval.smem_static counts 11,264");
 
 // Block-table entries a range of T tokens (starting at a multiple of 32)
 // can touch: fused_retrieval.retrieval_plan counts the same.
@@ -419,7 +423,11 @@ cudaError_t launch_keys(const void* q, const void* codes, const void* scale, con
   const bool one = group % 32 == 0;
   const bool smem_keys = keys == nullptr;
   decltype(&launch<kPaged, true, 1, 128, 8>) go;
-  if (D == 64)
+  if (D == 16)
+    go = pick<kPaged, 16, 16>(smem_keys, one);
+  else if (D == 32)
+    go = pick<kPaged, 32, 16>(smem_keys, one);
+  else if (D == 64)
     go = pick<kPaged, 64, 16>(smem_keys, one);
   else if (D == 112)
     go = pick<kPaged, 112, 16>(smem_keys, one);
@@ -446,8 +454,9 @@ extern "C" int fier_retrieve_launch(const void* q, const void* codes, const void
                                     int reduce_sum, int sink, int recent, int cluster,
                                     int cta_tokens, void* keys, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 112 && D != 128) || group <= 0 ||
-      group % 8 || S % 8)
+  if (rep < 1 || rep > kMaxRepAll ||
+      (D != 16 && D != 32 && D != 64 && D != 112 && D != 128) || group <= 0 || group % 8 ||
+      S % 8)
     return (int)cudaErrorInvalidValue;
   if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) || cta_tokens <= 0 ||
       cta_tokens % 32 || (long long)cluster * cta_tokens < S || budget <= 0 || budget > S)

@@ -32,7 +32,7 @@
 // used whole, so a CTA keeps to one kv head (q of one head staged, the rows
 // split evenly) rather than reading whole 2 KB byte-rows of all heads.
 //
-// d_head (64, 112 or 128) and the query heads q_s holds (rep_slots: 8 at d_head
+// d_head (16, 32, 64, 112 or 128) and the query heads q_s holds (rep_slots: 8 at d_head
 // 128 up to rep 8, else 16) are template parameters, instantiated as K1's
 // are, so the scores stay K1's at every shape either takes.
 
@@ -133,12 +133,15 @@ extern "C" int fier_score_launch(const void* q, const void* codes, const void* s
                                  const void* zero, void* out, int B, int S, int Hkv, int rep,
                                  int D, int group, int parts, int part_chunks, int grid,
                                  void* stream) {
-  if (rep < 1 || rep > kMaxRepAll || (D != 64 && D != 112 && D != 128) || group <= 0 ||
-      group % 8 || S % group)
+  if (rep < 1 || rep > kMaxRepAll ||
+      (D != 16 && D != 32 && D != 64 && D != 112 && D != 128) || group <= 0 || group % 8 ||
+      S % group)
     return (int)cudaErrorInvalidValue;
   if (parts < 1 || part_chunks < 1 || (long long)parts * part_chunks * 32 < S || grid < 1)
     return (int)cudaErrorInvalidValue;
-  auto go = D == 64    ? &launch<64, 16>
+  auto go = D == 16    ? &launch<16, 16>
+            : D == 32  ? &launch<32, 16>
+            : D == 64  ? &launch<64, 16>
             : D == 112 ? &launch<112, 16>
             : rep_slots(D, rep) == 8 ? &launch<128, 8>
                                      : &launch<128, 16>;

@@ -32,10 +32,11 @@ from . import build
 launches = 0  # K6 kernel launches since the last reset (the chip check reads it)
 
 # the d_heads K6's and K1/K3's CUDA kernels are instantiated for (they share
-# the scoring warp), each checked on the card by chip_smoke.py phase 2 (64:
-# granite-moe, minicpm, whisper-small; 112: zamba2-7b; 128: the rest); any
-# rep up to KERNEL_MAX_REP runs.  Anything else is ROADMAP Queue 2 item A.
-KERNEL_HEAD_DIMS = (64, 112, 128)
+# the scoring warp), each checked on the card by chip_smoke.py phase 2 (16:
+# every reduced config; 32: reduced zamba2-7b and the examples' bench model;
+# 64: granite-moe, minicpm, whisper-small; 112: zamba2-7b; 128: the rest);
+# any rep up to KERNEL_MAX_REP runs.  Anything else is ROADMAP Queue 2 item A.
+KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 KERNEL_MAX_REP = 16
 
 

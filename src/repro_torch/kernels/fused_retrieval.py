@@ -57,11 +57,12 @@ def smem_static(d_head: int, rep: int) -> int:
     the query heads it stages (``rep_slots`` in ``csrc/fier_common.cuh``: 8
     at d_head 128 up to rep 8, the serving instantiation, else 16), each of
     16 warps' 2^c × 32 scoring sums (c = ``lane_channels``, the channels a
-    lane owns: 2 at d_head 64, 4 at 112 and 128), one radix histogram per
+    lane owns: 1 at d_head 16 and 32, 2 at 64, 4 at 112 and 128), one radix histogram per
     pass and their sum, scan scratch, rounded up to a KiB (43,008 B at
-    d_head 128, rep ≤ 8; 46,080 at 112)."""
+    d_head 128, rep ≤ 8; 46,080 at 112; 12,288 at 32 and 11,264 at 16,
+    whose lanes own one channel each)."""
     rep_slots = 8 if d_head == 128 and rep <= 8 else 16
-    lane_channels = 2 if d_head == 64 else 4
+    lane_channels = 1 if d_head <= 32 else 2 if d_head == 64 else 4
     floats = rep_slots * d_head + 16 * 32 * 2**lane_channels + 4 * 256 + 256 + 16 + 4
     return -(-4 * floats // 1024) * 1024
 

@@ -30,7 +30,7 @@ launches = 0  # K5 kernel launches since the last reset (the chip check reads it
 # the d_heads the card has checked the kernel at (chip_smoke.py phase 2; the
 # .cu walks Hkv·D channels and takes any D, anything else is ROADMAP Queue 2
 # item A)
-KERNEL_HEAD_DIMS = (64, 112, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def fier_pack_quantize_plain(k: torch.Tensor, group: int):

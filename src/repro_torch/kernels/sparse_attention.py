@@ -12,7 +12,7 @@ out / max(den, 1e-30) in f32.
 
 On a CUDA tensor ``fier_attend_selected`` launches ``csrc/fier_attend.cu``
 once: each (b, h) row's slots are split over a thread-block cluster as
-:func:`attend_plan` says; in every CTA, 16 lane groups (32 at D 64)
+:func:`attend_plan` says; in every CTA, 16 lane groups (32 at D ≤ 64)
 stream their slots' K and V rows into shared memory with ``cp.async`` (a
 ring of 96 KiB, masked slots never read), each keeping an online softmax
 (above rep 8 two lane groups share a slot's rows and keep half the query
@@ -59,7 +59,7 @@ launches_gathered = 0  # K8 kernel launches since the last reset
 # instantiated for (one instantiation per pair: KERNEL_REPS at each d_head,
 # KERNEL_REPS_AT where a d_head takes fewer), each checked on the card by
 # chip_smoke.py phase 2; anything else is ROADMAP Queue 2 item A
-KERNEL_HEAD_DIMS = (64, 112, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 KERNEL_REPS = (1, 2, 4, 8, 12, 16)
 KERNEL_REPS_AT = {112: (1,)}  # zamba2-7b's shared attention block: 32 kv heads, rep 1
 MAX_CLUSTER = 8  # CTAs per (b, h) row: the portable cluster size
@@ -72,15 +72,16 @@ SMEM_LIMIT = 232448  # shared memory a CTA may use on sm_90
 
 def lanes_per_row(d_head: int) -> int:
     """Lanes of a row's lane group (kLPR in the .cu): d_head/8, each lane
-    copying 8 channels (16 bytes), rounded up to a power of two (at 112 a
-    row's 14 chunks take a 16-lane group, two lanes idle)."""
+    copying 8 channels (16 bytes), rounded up to a power of two and at
+    least 8 (at 112 a row's 14 chunks take a 16-lane group, two lanes idle;
+    at 32 and 16 its 4 or 2 chunks take an 8-lane group, as at 64)."""
     return 8 if d_head <= 64 else 16
 
 
 def step(d_head: int, rep: int) -> int:
     """Slots a CTA takes per step (kStep in the .cu): a row takes
-    :func:`lanes_per_row` lanes, so 256 threads hold 2048/d_head lane groups
-    (16 at d_head 112, as at 128); above rep 8 two lane groups share a slot's
+    :func:`lanes_per_row` lanes, so 256 threads hold 32 lane groups at d_head
+    ≤ 64 and 16 at 112 and 128; above rep 8 two lane groups share a slot's
     rows (each keeps half the query heads); 4 slots per slot group and step.
     64 at d_head 128 up to rep 8."""
     return 4 * (256 // lanes_per_row(d_head)) // (2 if rep > 8 else 1)

@@ -34,6 +34,7 @@ from repro_torch.core.policy import CacheView
 from repro_torch.core.quantize import QuantizedKeys
 from repro_torch.kernels import fused_retrieval as fr
 from repro_torch.kernels import launch_counts, ops, sparse_attention as sa
+from repro_torch.kernels import pack_quantize as pq
 from repro_torch.kernels.check import selection_agrees
 from repro_torch.kernels.topk_select import _sortable_keys, _unsortable
 
@@ -296,13 +297,13 @@ def test_attend_plan_splits_slots(rows, budget, rep):
 @pytest.mark.parametrize("rep", [1, 2, 4, 8, 3, 5, 16])
 def test_attend_kernel_admits_reps(rep):
     """The CUDA kernel has one instantiation per (d_head, rep) in
-    KERNEL_HEAD_DIMS x KERNEL_REPS (rep 16 and d_head 64 among them): the
+    KERNEL_HEAD_DIMS x KERNEL_REPS (rep 16 and d_heads 64, 32, 16 among them): the
     wrapper's operand check and the plan raise for any other, naming ROADMAP
     Queue 2 item A (the plain version on the CPU takes it)."""
     q = torch.zeros((1, 2, rep, 128), dtype=torch.float32)
     K = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16)
     if rep in sa.KERNEL_REPS:
-        for D in (128, 64):
+        for D in (128, 64, 32, 16):
             sa.check_kernel_operands(q[..., :D], K[..., :D], K[..., :D])
             C = sa.attend_plan(64, 2, 132, rep, D).cluster  # each CTA a whole step
             assert C == 1 or C * sa.step(D, rep) <= 64
@@ -312,7 +313,7 @@ def test_attend_kernel_admits_reps(rep):
         with pytest.raises(ValueError, match="query heads per kv head"):
             sa.attend_plan(64, 2, 132, rep, 128)
     with pytest.raises(ValueError, match="d_head.*item A"):
-        sa.check_kernel_operands(q[..., :32], K[..., :32], K[..., :32])
+        sa.check_kernel_operands(q[..., :96], K[..., :96], K[..., :96])
     with pytest.raises(ValueError, match="bf16"):
         sa.check_kernel_operands(q, K.float(), K)
     idx = torch.zeros((1, 2, 8), dtype=torch.int32)
@@ -376,3 +377,36 @@ def test_plans_fit_d112(rows):
     with pytest.raises(ValueError, match="at d_head 112.*item A"):
         sa.check_kernel_operands(q, K, K)
     sa.check_kernel_operands(q[:, :, :1], K, K)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 16])
+@pytest.mark.parametrize("d_head", [16, 32])
+def test_plans_fit_small_heads(d_head, rep):
+    """d_head 16 (every reduced config) and 32 (reduced zamba2-7b, the
+    examples' bench model): the scoring warp's lanes own one channel each
+    (2-entry tables; at 16 lanes 16-31 idle), so K1/K3/K6's static shared
+    memory counts 12,288 B at 32 and 11,264 at 16 at every rep, as the .cu
+    asserts; K1/K3's split covers [0, S) once at the examples' S 64 and 264
+    and the main path's 8192 and fits sm_90; K2/K4/K8 take 8-lane row groups
+    as at 64, so their step is 64's and their split covers every slot once;
+    every CUDA wrapper admits the shape."""
+    static = {16: 11264, 32: 12288}[d_head]
+    assert fr.smem_static(d_head, rep) == fr.smem_static(d_head, 1) == static
+    fr.check_kernel_shape(d_head, rep)
+    sa.check_kernel_shape(d_head, rep)
+    assert d_head in pq.KERNEL_HEAD_DIMS
+    for S, bs in ((64, None), (64, 8), (264, None), (264, 8), (8192, None), (8192, 32)):
+        for rows in (1, 8, 64):
+            plan = fr.retrieval_plan(S, rows, 132, bs, d_head=d_head, rep=rep)
+            assert plan.smem_keys and fr.smem_static(d_head, rep) + plan.smem_bytes <= fr.SMEM_LIMIT
+            covered = np.concatenate([np.arange(a, b) for a, b in plan.ranges(S)])
+            np.testing.assert_array_equal(covered, np.arange(S))
+    assert sa.lanes_per_row(d_head) == sa.lanes_per_row(64) == 8
+    assert sa.step(d_head, rep) == sa.step(64, rep) == (128 if rep <= 8 else 64)
+    for budget in (16, 24, 32, 512, 1024, 8192):
+        for rows in (4, 8, 64):
+            plan = sa.attend_plan(budget, rows, 132, rep, d_head)
+            recv = plan.cluster * rep * (d_head + 2) * 4
+            assert plan.smem_bytes == sa.RING_BYTES + recv + 4 * plan.chunk <= sa.SMEM_LIMIT
+            covered = np.concatenate([np.arange(a, b) for a, b in plan.ranges(budget)])
+            np.testing.assert_array_equal(covered, np.arange(budget))
