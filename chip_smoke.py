@@ -7,6 +7,7 @@
     python3 chip_smoke.py --sharded-only  # phases 1 and 12 only, no result line
     python3 chip_smoke.py --sharded-train-only  # phases 1 and 13 only, no result line
     python3 chip_smoke.py --examples-only # phases 1 and 14 only, no result line
+    python3 chip_smoke.py --any-heads-only  # phases 1 and 15 only, no result line
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
@@ -20,9 +21,9 @@ result line):
 
 1. Setup: the card's name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together, beside phase 2's planted
-   d_head 16 fault); every kernel's ptxas report must show a 0-byte stack
-   frame and 0 spill bytes.
+   ``nvcc`` per source, all started together; phase 2's planted faults
+   build in the background while its first checks run); every kernel's
+   ptxas report must show a 0-byte stack frame and 0 spill bytes.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes (olmo-1b: 4 slots, 16 kv heads, d_head 128, capacity 8192,
    group 32, budget 1024) and at a GQA shape (4 kv heads × 4 query heads,
@@ -78,6 +79,16 @@ result line):
    and timed (the plain versions and library calls over 3 launches); and a
    planted fault, K1 and K6 built with the d_head 16 lanes 16–31 scoring
    the next kv head's channels, which must read above K1's and K6's gates.
+   Then the generic layout (``check_any_heads``): K1/K3/K6, K2/K4/K8 and K5
+   at d_head 8, 24, 48, 80, 96, 136, 192 and 256 at reps 1 and 3 (Hkv 16),
+   at reps 5, 6, 7, 9, 24, 32, 48 and 71 at d_head 64, 128 and 256 (Hkv =
+   min(16, 128 / rep)), at the main path's scale, and with the 4-group
+   chunk (g 8, S 264) in each layout class, under the gates above (K3 = K1,
+   K4 = K2 = K8 bit for bit), each timed beside its plain version and
+   library call; and two planted faults (``PLANTED_FAULTS``), the d_head 80
+   idle lanes loading the next kv head's channels (K1, K6) and the last
+   partial block of query heads dropped at rep 71 (K1, K6, K2), each above
+   its gate.
 3. The main path at full olmo-1b width (random weights from a seeded
    ``torch.Generator``): ``Engine.build`` with the default policy,
    ``generate`` of 32 greedy tokens for 4 prompts, then ``insert`` of a
@@ -334,16 +345,33 @@ result line):
    four policies' accuracies reported, and SLM's with its first layer
    evicting too) and train_tiny_lm (2 restarts, the held-out loss of the
    final checkpoint below the initial weights').
-15. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+15. Every d_head and rep served (``any_heads_path``): olmo-1b at full width
+   and depth (random weights, seed 0, the default policy, 4 slots × 8192,
+   phase 3's prompts) with three attention geometries (``ANY_GEOMETRIES``:
+   G1 8 query heads on 1 kv head of d_head 256, gemma-2b's; G2 32 on 1 of
+   64, multi-query; G3 21 on 3 of 96).  For each: prefill logits equal to
+   the reference pipeline's; the first decode step within 0.018 of
+   max|logit| of the plain versions' step and 0.023 of the reference's
+   (phase 15's gates, set as phase 3's were), the planted K2 fault (and,
+   with more than one kv head, the kv-head fault) above them, and the
+   plain step with K2's plain version in f64 read beside it; the two_pass
+   engine's first step from the same prefill cache (K6, K7, K2 14 times
+   each) within the same gates; the slab and a paged engine (bs 32) for 8
+   greedy steps with equal tokens and first logits, each launching its own
+   K1/K2 or K3/K4 14 × steps and nothing else, the slab's profiled
+   (device-busy ms/step, K1/K2 per launch).
+16. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5, phase 12's
    per-shard counts in ``launches_sharded`` and phase 13(e)'s in
    ``launches_sharded_train``; K6/K7: phase 6's generate; K5/K8: phase 6's
-   building blocks; phases 9, 10, 11(e) and 14's beside them; the d_head
-   16 and 32 entries of phase 2 under ``small_heads``), the card line, and
+   building blocks; phases 9, 10, 11(e), 14 and 15's beside them; the d_head
+   16 and 32 entries of phase 2 under ``small_heads``, the generic layout's
+   under ``any_heads``), the card line, and
    as the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -540,7 +568,7 @@ def make_inputs(torch, B, Hkv, rep, D, S, seed, group=GROUP):
     return q, K, V, qk, lengths
 
 
-def check_kernels(torch, timer, shapes):
+def check_kernels(torch, timer, shapes, timing=in_turns):
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused_retrieval as fr
@@ -577,7 +605,7 @@ def check_kernels(torch, timer, shapes):
             f"({ndiff} near-tau swaps, eps {eps:.3g}), tau err {tau_err:.3g}, "
             f"m equal {bool((m_k == m_p).all())}")
         kv_rows = kv.reshape(B * Hkv, S)
-        t = in_turns(
+        t = timing(
             timer,
             lambda: fr.fier_retrieve_plain(*args, **sel),
             lambda: fr.fier_retrieve(*args, **sel),
@@ -612,7 +640,7 @@ def check_kernels(torch, timer, shapes):
                 q, ks.transpose(1, 2), vs.transpose(1, 2), attn_mask=mask
             )
 
-        t = in_turns(
+        t = timing(
             timer,
             lambda: sa.fier_attend_selected_plain(q, K, V, idx_k, lengths),
             lambda: sa.fier_attend_selected(q, K, V, idx_k, lengths),
@@ -901,7 +929,7 @@ def paged_inputs(torch, q, K, V, qk, lengths, bs, spare, seed):
     return pools, table, g(pools["k"]), g(pools["v"]), slab_qk
 
 
-def check_paged_kernels(torch, timer, shapes):
+def check_paged_kernels(torch, timer, shapes, timing=in_turns):
     """K3 and K4 on a permuted pool with a null-block hole: each against its
     plain version, and bitwise against K1 / K2 on the gathered slab."""
     import torch.nn.functional as F
@@ -950,7 +978,7 @@ def check_paged_kernels(torch, timer, shapes):
         log(f"  K3 B={B} Hkv={Hkv} rep={rep} {reduce}: idx, tau, m bitwise equal to K1 on "
             f"the gathered slab; vs plain: {ndiff} near-tau swaps, tau err {tau_err:.3g}")
         kv_rows = kv.reshape(B * Hkv, S)
-        t = in_turns(
+        t = timing(
             timer,
             lambda: fr.fier_retrieve_paged_plain(*pargs, **sel),
             lambda: fr.fier_retrieve(*kargs, **ksel),
@@ -992,7 +1020,7 @@ def check_paged_kernels(torch, timer, shapes):
             ks, vs = kflat[prow, heads], vflat[prow, heads]  # [B, Hkv, budget, D]
             return F.scaled_dot_product_attention(q, ks, vs, attn_mask=mask)
 
-        t = in_turns(
+        t = timing(
             timer,
             lambda: sa.fier_attend_selected_paged_plain(
                 q, pools["k"], pools["v"], table, idx3, lengths),
@@ -1010,20 +1038,21 @@ def check_paged_kernels(torch, timer, shapes):
 
 
 def check_scoring(torch, timer, shape, *, group=GROUP, budget=BUDGET, bs=BLOCK_SIZE, sink=SINK,
-                  recent=RECENT, turns=True):
+                  recent=RECENT, turns=True, make=make_inputs):
     """K1, K3 and K6 at one shape (B, Hkv, rep, D, S, group reduction):
     K1 against its plain version (index sets equal up to near-τ swaps
     within ε), K3 bitwise K1 on a permuted pool (blocks of ``bs``) with a
     null-block hole, K6 within ε of its plain version; each timed in turns
     with its plain version and, for K1/K3, ``torch.topk`` of the masked
     scores (``turns`` False: the kernel, then its plain version and the
-    library call once each with fewer launches).  Returns {kernel name: row}."""
+    library call once each with fewer launches; ``make``: the inputs' maker,
+    ``make_inputs`` or ``device_inputs``).  Returns {kernel name: row}."""
     from repro_torch.kernels import fier_score as fs
     from repro_torch.kernels import fused_retrieval as fr
     from repro_torch.kernels.check import selection_agrees
 
     B, Hkv, rep, D, S, reduce = shape
-    q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=rep + 30, group=group)
+    q, K, V, qk, lengths = make(torch, B, Hkv, rep, D, S, seed=rep + 30, group=group)
     pools, table, _, _, sqk = paged_inputs(torch, q, None, None, qk, lengths, bs,
                                            spare=64, seed=rep)
     del K, V
@@ -1113,14 +1142,15 @@ def score_eps(q, qk):
     return float(D * 2.0**-23 * rep * q.float().abs().sum(-1).amax() * amax)
 
 
-def check_unfused_kernels(torch, timer, shapes, baseline=None):
+def check_unfused_kernels(torch, timer, shapes, baseline=None, timing=in_turns):
     """K5–K8 against their plain versions, K8 bitwise against K2 on the same
     selection, and ``ops.fier_decode_two_pass`` against
     ``ops.fier_decode_one_pass``: idx, τ, m and output bit for bit under
     ``max``, the index set within ε of τ under ``sum`` (the group sum runs
     in torch's order there, in K1's inside K1).  ``baseline``
     (``baseline_unfused``): K6 and K7 of another source, held bitwise to
-    these and timed in turns with them."""
+    these and timed in turns with them.  ``timing``: how each kernel is
+    timed beside its plain version (``in_turns`` or ``once_each``)."""
     import torch.nn.functional as F
 
     from repro_torch.core import retrieval
@@ -1159,7 +1189,7 @@ def check_unfused_kernels(torch, timer, shapes, baseline=None):
         log(f"  K5 {shape}: codes/scale/zero bitwise equal to its plain version; bytes "
             f"differing from build_metadata's side-car (codes, scale, zero): bf16 keys "
             f"{off_bf16}, f32 keys {off_f32}")
-        t = in_turns(timer, lambda: pq.fier_pack_quantize_plain(K, GROUP),
+        t = timing(timer, lambda: pq.fier_pack_quantize_plain(K, GROUP),
                      lambda: pq.fier_pack_quantize(K, GROUP), None)
         nbytes = K.numel() * 2 + sum(a.numel() * a.element_size() for a in got)
         rows["pack_quantize"].append(dict(
@@ -1180,7 +1210,7 @@ def check_unfused_kernels(torch, timer, shapes, baseline=None):
                                  f"{err:.3g} > {eps:.3g}")
         log(f"  K6 {shape} ({fs.score_plan(S, B * Hkv, n_sm)}): max |Δscore| {err:.3g} "
             f"(<= {eps:.3g})")
-        t = in_turns(timer, lambda: fs.retrieval_scores(*args, group=GROUP),
+        t = timing(timer, lambda: fs.retrieval_scores(*args, group=GROUP),
                      lambda: fs.fier_score_scan(*args, group=GROUP), None)
         row = dict(shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
                    max_abs_err=err, **score_work(*args, s_k))
@@ -1203,7 +1233,7 @@ def check_unfused_kernels(torch, timer, shapes, baseline=None):
             raise AssertionError(f"K7 differs from its plain version at {shape}")
         log(f"  K7 {shape} {reduce} ({tk.topk_plan(S, B * Hkv, n_sm)}): tau and m equal to "
             f"its plain version")
-        t = in_turns(timer, lambda: tk.fier_topk_threshold_plain(masked, BUDGET),
+        t = timing(timer, lambda: tk.fier_topk_threshold_plain(masked, BUDGET),
                      lambda: tk.fier_topk_threshold(masked, BUDGET),
                      lambda: torch.topk(masked, BUDGET, dim=-1).values[:, -1])
         row = dict(shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
@@ -1269,7 +1299,7 @@ def check_unfused_kernels(torch, timer, shapes, baseline=None):
                 q, ks_.transpose(1, 2), vs_.transpose(1, 2), attn_mask=amask
             )
 
-        t = in_turns(timer, lambda: sa.fier_attend_gathered_plain(q, ks, vs, mask),
+        t = timing(timer, lambda: sa.fier_attend_gathered_plain(q, ks, vs, mask),
                      lambda: sa.fier_attend_gathered(q, ks, vs, mask), library)
         rows["sparse_attention"].append(dict(
             shape=shape, ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
@@ -1425,7 +1455,7 @@ def baseline_unfused(torch, path):
 
 
 def check_attend_variants(torch, timer, baseline=None, variants=ATTEND_VARIANTS, S=CAPACITY,
-                          bs=BLOCK_SIZE, group=GROUP, lens=None):
+                          bs=BLOCK_SIZE, group=GROUP, lens=None, plain=False):
     """K2, K4 and K8 at every shape of ``variants`` (rows of S tokens,
     lengths ``lens`` as ``attend_inputs`` takes them): K2 within
     K2_REL_TOL of its plain version, two K2 launches on the same inputs
@@ -1435,7 +1465,11 @@ def check_attend_variants(torch, timer, baseline=None, variants=ATTEND_VARIANTS,
     bit (the pool in blocks of ``bs``); each timed (L2 flushed).  ``baseline``
     (``baseline_attend``):
     timed in turns with K2 at the serving and GQA shapes, held to the same
-    tolerance.  Returns {variant name: row}."""
+    tolerance.  ``plain``: K2 timed as ``once_each`` times it, beside its
+    plain version and gather + ``scaled_dot_product_attention``.  Returns
+    {variant name: row}."""
+    import torch.nn.functional as F
+
     from repro_torch.core.quantize import quantize
     from repro_torch.core.retrieval import gather_kv
     from repro_torch.kernels import sparse_attention as sa
@@ -1478,7 +1512,17 @@ def check_attend_variants(torch, timer, baseline=None, variants=ATTEND_VARIANTS,
         row = dict(shape=(B, Hkv, rep, D, S), budget=budget, cluster=plan.cluster,
                    max_abs_err=err, **attend_work(q, idx, lengths))
         row["bound_ms"] = 1e3 * row["bytes"] / HBM_BYTES_PER_S
-        row["ms"] = timer(lambda: sa.fier_attend_selected(q, K, V, idx, lengths))
+        if plain:
+            def library():
+                m = (idx < lengths[:, None, None])[:, :, None, :].expand(B, Hkv, rep, budget)
+                return F.scaled_dot_product_attention(
+                    q, ks.transpose(1, 2), vs.transpose(1, 2), attn_mask=m)
+
+            t = once_each(timer, lambda: sa.fier_attend_selected_plain(q, K, V, idx, lengths),
+                          lambda: sa.fier_attend_selected(q, K, V, idx, lengths), library)
+            row.update(ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"])
+        else:
+            row["ms"] = timer(lambda: sa.fier_attend_selected(q, K, V, idx, lengths))
         row["k4_ms"] = timer(lambda: sa.fier_attend_selected(
             q, pools["k"], pools["v"], idx, lengths, block_table=table))
         row["k8_ms"] = timer(lambda: sa.fier_attend_gathered(q, ks, vs, mask))
@@ -1567,36 +1611,109 @@ def check_pack_small(torch, timer, D):
     return finish_rows({"pack_quantize": [row]})["pack_quantize"][0]
 
 
-# The planted fault of the d_head 16 layout: fier_common.cuh with the idle
-# lanes 16-31 made active, scoring the next kv head's channels (their lane
-# offset) with their own head's q (lane mod 16).
-SMALL_HEAD_FAULT = (
-    ("  return active_lanes(kD) == 32 || (int)(threadIdx.x & 31) < active_lanes(kD);",
-     "  return true;"),
-    ("qv[k] = on ? q_r[lane * kDPL + k] : 0.0f;",
-     "qv[k] = q_r[(lane % active_lanes(kD)) * kDPL + k];"),
-)
+# The planted faults, all in one copy of the sources (each touches only the
+# shapes its check runs): {file: ((anchor, replacement), ...)}.
+#   * d_head 16 (fixed layout): fier_common.cuh with the idle lanes 16-31
+#     made active, scoring the next kv head's channels (their lane offset)
+#     with their own head's q (lane mod 16).
+#   * d_head 80 (generic layout, class 128: lanes 20-31 idle): the idle
+#     lanes load the next kv head's channels, scored with their own head's
+#     q (channel mod 80).
+#   * rep 71 (generic layout): the last partial block of query heads is
+#     dropped: K1/K3 fold no score of it into the group reduction, K6 and
+#     K2 write none of its heads' outputs.
+PLANTED_FAULTS = {
+    "fier_common.cuh": (
+        ("  return active_lanes(kD) == 32 || (int)(threadIdx.x & 31) < active_lanes(kD);",
+         "  return true;"),
+        ("qv[k] = on ? q_r[lane * kDPL + k] : 0.0f;",
+         "qv[k] = q_r[(lane % active_lanes(kD)) * kDPL + k];"),
+        ("  return lane * lane_channels(kW) < D - 128 * p;",
+         "  return D == 80 || lane * lane_channels(kW) < D - 128 * p;"),
+        ("qv[k] = on ? q_r[128 * p + lane * kDPL + k] : 0.0f;",
+         "qv[k] = on ? q_r[(128 * p + lane * kDPL + k) % D] : 0.0f;"),
+    ),
+    "fier_retrieve.cuh": (
+        ("    const int nr = min(hb, rep - r0);  // this block's query heads",
+         "    const int nr = r0 > 0 && rep - r0 < hb ? 0 : min(hb, rep - r0);"),
+    ),
+    "fier_score.cu": (
+        ("        const int nr = min(hb, rep - r0);  // this block's query heads",
+         "        const int nr = r0 > 0 && rep - r0 < hb ? 0 : min(hb, rep - r0);"),
+    ),
+    "fier_attend.cuh": (
+        ("    if (kAny && (hb0 + r >= rep || i - r * kD >= D)) continue;",
+         "    if (kAny && (hb0 + r >= rep || (rep > kRep && hb0 + kRep > rep) || i - r * kD >= D))"
+         " continue;"),
+    ),
+}
+
+
+# the libraries built with PLANTED_FAULTS: K1/K3's fixed instantiations (the
+# d_head 16 fault) and generic layout, K6, K2/K4/K8's generic layout
+FAULT_LIBRARIES = ("fier_retrieve", "fier_retrieve_any", "fier_score", "fier_attend_any")
 
 
 def fault_sources():
     """A copy of the kernel sources under the build directory with
-    SMALL_HEAD_FAULT planted: [(.cu path, library tag)] of K1 and K6 (built
-    beside the port's own kernels in phase 1)."""
+    PLANTED_FAULTS planted: [(.cu path, library tag)] of FAULT_LIBRARIES."""
     import shutil
 
     from repro_torch.kernels import build
 
-    src = build.BUILD_DIR / "fault_d16"
+    src = build.BUILD_DIR / "faults"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.CSRC, src)
-    head = (src / "fier_common.cuh").read_text()
-    for old, new in SMALL_HEAD_FAULT:
-        if head.count(old) != 1:
-            raise AssertionError(f"the fault's anchor moved in fier_common.cuh: {old!r}")
-        head = head.replace(old, new)
-    (src / "fier_common.cuh").write_text(head)
-    return [(str(src / "fier_retrieve.cu"), "fier_retrieve_fault_d16"),
-            (str(src / "fier_score.cu"), "fier_score_fault_d16")]
+    for name, edits in PLANTED_FAULTS.items():
+        text = (src / name).read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"a fault's anchor moved in {name}: {old!r}")
+            text = text.replace(old, new)
+        (src / name).write_text(text)
+    return [(str(src / f"{n}.cu"), f"{n}_fault") for n in FAULT_LIBRARIES]
+
+
+_FAULTS = {}  # library name -> the future of its build with PLANTED_FAULTS
+
+
+def start_fault_builds():
+    """Build FAULT_LIBRARIES (one ``nvcc`` each, all at once) in the
+    background, so they compile while phase 2's first checks run on the
+    card instead of beside phase 1's build; ``planted_kernels`` waits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sources = fault_sources()
+    pool = ThreadPoolExecutor(len(sources))
+    for (src, tag), name in zip(sources, FAULT_LIBRARIES):
+        _FAULTS[name] = pool.submit(nvcc_lib, src, tag)
+    pool.shutdown(wait=False)
+
+
+@contextlib.contextmanager
+def planted_kernels():
+    """Within it K1/K3, K6 and K2/K4/K8's generic layout launch the
+    libraries built with PLANTED_FAULTS, typed as the port's."""
+    from repro_torch.kernels import fier_score as fs
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import sparse_attention as sa
+
+    if not _FAULTS:
+        start_fault_builds()
+    bad = {name: getattr(f.result(), f"{name}_launch") for name, f in _FAULTS.items()}
+    good = {n: fr._kernel(n) for n in ("fier_retrieve", "fier_retrieve_any")}
+    good["fier_score"] = fs._kernel()
+    good["fier_attend_any"] = sa._kernel(96, 3)  # a shape of the generic layout
+    for name, fn in bad.items():
+        fn.argtypes, fn.restype = good[name].argtypes, good[name].restype
+    k2 = ("fier_attend_any", "fier_attend_any_launch")
+    try:
+        fr._fns.update({n: bad[n] for n in ("fier_retrieve", "fier_retrieve_any")})
+        fs._fn, sa._fns[k2] = bad["fier_score"], bad["fier_attend_any"]
+        yield
+    finally:
+        fr._fns.update({n: good[n] for n in ("fier_retrieve", "fier_retrieve_any")})
+        fs._fn, sa._fns[k2] = good["fier_score"], good["fier_attend_any"]
 
 
 def small_head_fault(torch):
@@ -1610,12 +1727,6 @@ def small_head_fault(torch):
     from repro_torch.kernels import fier_score as fs
     from repro_torch.kernels import fused_retrieval as fr
     from repro_torch.kernels.check import selection_agrees
-
-    (k1_src, k1_tag), (k6_src, k6_tag) = fault_sources()
-    k1 = nvcc_lib(k1_src, k1_tag).fier_retrieve_launch  # built in phase 1
-    k6 = nvcc_lib(k6_src, k6_tag).fier_score_launch
-    for bad, good in ((k1, fr._kernel()), (k6, fs._kernel())):
-        bad.argtypes, bad.restype = good.argtypes, good.restype
 
     B, Hkv, rep, D, S = SLOTS, 16, 1, 16, CAPACITY
     q, K, V, qk, lengths = make_inputs(torch, B, Hkv, rep, D, S, seed=61)
@@ -1631,14 +1742,10 @@ def small_head_fault(torch):
     args = (q, qk.codes, qk.scale, qk.zero, lengths, BUDGET)
     idx_p, tau_p, m_p = fr.fier_retrieve_plain(*args, **sel)
     s_p = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
-    saved = fr._fn, fs._fn
-    try:
-        fr._fn, fs._fn = k1, k6
+    with planted_kernels():
         idx_f, tau_f, m_f = fr.fier_retrieve(*args, **sel)
         s_f = fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=GROUP)
         torch.cuda.synchronize()
-    finally:
-        fr._fn, fs._fn = saved
     eps = score_eps(q, qk)
     kv = fr.masked_kv(s_p, lengths, SINK, RECENT, "max").reshape(B * Hkv, S)
     ok, ndiff = selection_agrees(
@@ -1700,6 +1807,149 @@ def check_small_heads(torch, timer):
                 bs=SMALL_BS, group=SMALL_GROUP, lens=scaled_lengths(B, S)))
     fault = small_head_fault(torch)
     return rows, fault
+
+
+# Shapes outside the fixed instantiations (the generic layout): each
+# d_head of ANY_HEADS at ANY_HEAD_REPS (Hkv 16), and each rep of ANY_REPS at
+# the d_heads of ANY_REP_HEADS (Hkv = min(16, 128 // rep): 1 at rep 71), at
+# the main path's scale (B 4, S 8192, g 32, budget 1024, bs 32; the
+# 700-token row is shorter than the budget); then the 4-group chunk (g 8,
+# bs 8) in each layout class at the passkey example's S 264, budget 32.
+ANY_HEADS = (8, 24, 48, 80, 96, 136, 192, 256)
+ANY_HEAD_REPS = (1, 3)
+ANY_REPS = (5, 6, 7, 9, 24, 32, 48, 71)
+ANY_REP_HEADS = (64, 128, 256)
+ANY_SMALL_GROUP = ((24, 3), (48, 5), (96, 7), (192, 9))
+
+
+def device_inputs(torch, B, Hkv, rep, D, S, seed, group=GROUP):
+    """``make_inputs``' q, K, V, quantized K and lengths, made on the card
+    from a seeded ``torch.Generator`` (the wide shapes of phase 2's generic
+    layout would cost seconds of host time each through numpy)."""
+    from repro_torch.core.quantize import quantize
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ch = torch.randn(D, generator=gen, device=DEVICE).exp()  # per-channel spread
+    K = (torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE) * ch).to(torch.bfloat16)
+    V = torch.randn((B, S, Hkv, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    q = torch.randn((B, Hkv, rep, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    lengths = torch.tensor(scaled_lengths(B, S), dtype=torch.int32, device=DEVICE)
+    return q, K, V, quantize(K, group), lengths
+
+
+def any_shapes():
+    """(entry, B, Hkv, rep, D, S, group, budget, bs) of ``check_any_heads``."""
+    out = [(f"d{D}_rep{rep}", SLOTS, 16, rep, D, CAPACITY, GROUP, BUDGET, BLOCK_SIZE)
+           for D in ANY_HEADS for rep in ANY_HEAD_REPS]
+    out += [(f"d{D}_rep{rep}", SLOTS, min(16, 128 // rep), rep, D, CAPACITY, GROUP, BUDGET,
+             BLOCK_SIZE) for rep in ANY_REPS for D in ANY_REP_HEADS]
+    out += [(f"g8_d{D}_rep{rep}", 4, 4, rep, D, 264, SMALL_GROUP, 32, SMALL_BS)
+            for D, rep in ANY_SMALL_GROUP]
+    return out
+
+
+def check_any_heads(torch, timer):
+    """Phase 2 at the generic layout's shapes (``any_shapes``): K1/K3/K6
+    (``check_scoring``, the group max and, at odd reps, the group sum),
+    K2/K4/K8 (``check_attend_variants``, with their plain versions and
+    gather + ``scaled_dot_product_attention`` timed), K5 at each d_head of
+    ANY_HEADS (``check_pack_small``), each under the gates of the main
+    path's shape; then the planted faults (``any_head_fault``).  Returns
+    ({kernel name: {entry: row}}, the faults' readings)."""
+    rows = {k: {} for k in ("fier_retrieve", "fier_retrieve_paged", "fier_score",
+                            "fier_attend_selected", "fier_attend_selected_paged",
+                            "sparse_attention", "pack_quantize")}
+    for entry, B, Hkv, rep, D, S, group, budget, bs in any_shapes():
+        reduce = "sum" if rep % 2 else "max"
+        small = S < CAPACITY
+        got = check_scoring(torch, timer, (B, Hkv, rep, D, S, reduce), group=group, budget=budget,
+                            bs=bs, sink=0 if small else SINK, recent=0 if small else RECENT,
+                            turns=False, make=device_inputs)
+        for name, r in got.items():
+            rows[name][entry] = r
+        att = check_attend_variants(torch, timer, variants=((entry, (B, Hkv, rep, D), budget),),
+                                    S=S, bs=bs, group=group, lens=scaled_lengths(B, S),
+                                    plain=True)[entry]
+        for name, key in (("fier_attend_selected", "ms"), ("fier_attend_selected_paged", "k4_ms"),
+                          ("sparse_attention", "k8_ms")):
+            rows[name][entry] = dict(
+                shape=att["shape"], budget=budget, ms=att[key], bound_ms=att["bound_ms"],
+                bound_by="bytes", max_abs_err=att["max_abs_err"],
+                plain_ms=att["plain_ms"] if name == "fier_attend_selected" else None,
+                library_ms=att["library_ms"] if name == "fier_attend_selected" else None)
+    for D in ANY_HEADS:
+        rows["pack_quantize"][f"d{D}"] = check_pack_small(torch, timer, D)
+    return rows, any_head_fault(torch)
+
+
+def fault_reading(torch, shape, seed):
+    """K1, K6 and K2 built with PLANTED_FAULTS at ``shape`` (B, Hkv, rep, D),
+    S 8192, g 32, budget 1024, the group max, the side-car and K/V in
+    buffers padded past their ends (a faulty lane may read beyond them),
+    each against the gate its sound build passes: K1 the selection within
+    ε of τ, K6 every score within ε, K2 within K2_REL_TOL·max|out|.
+    Returns the readings (as multiples of ε, and of the K2 gate)."""
+    from repro_torch.core.quantize import QuantizedKeys
+    from repro_torch.kernels import fier_score as fs
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import sparse_attention as sa
+    from repro_torch.kernels.check import selection_agrees
+
+    B, Hkv, rep, D = shape
+    S = CAPACITY
+    q, K, V, qk, lengths = device_inputs(torch, B, Hkv, rep, D, S, seed)
+
+    def padded(t):
+        buf = torch.zeros(t.numel() + 256, dtype=t.dtype, device=t.device)
+        buf[:t.numel()].copy_(t.reshape(-1))
+        return buf[:t.numel()].view(t.shape)
+
+    qk = QuantizedKeys(padded(qk.codes), padded(qk.scale), padded(qk.zero), qk.group)
+    sel = dict(group=GROUP, group_reduce="max", sink=SINK, recent=RECENT)
+    args = (q, qk.codes, qk.scale, qk.zero, lengths, BUDGET)
+    idx_p, tau_p, m_p = fr.fier_retrieve_plain(*args, **sel)
+    s_p = fr.retrieval_scores(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+    o_p = sa.fier_attend_selected_plain(q, K, V, idx_p, lengths)
+    with planted_kernels():
+        idx_f, tau_f, m_f = fr.fier_retrieve(*args, **sel)
+        s_f = fs.fier_score_scan(q, qk.codes, qk.scale, qk.zero, group=GROUP)
+        o_f = sa.fier_attend_selected(q, K, V, idx_p, lengths)
+        torch.cuda.synchronize()
+    eps = score_eps(q, qk)
+    kv = fr.masked_kv(s_p, lengths, SINK, RECENT, "max").reshape(B * Hkv, S)
+    ok, ndiff = selection_agrees(
+        idx_f.reshape(B * Hkv, -1), idx_p.reshape(B * Hkv, -1), tau_f.reshape(-1),
+        tau_p.reshape(-1), m_f.reshape(-1), m_p.reshape(-1), kv, eps)
+    fin = torch.isfinite(tau_f) & torch.isfinite(tau_p)
+    tau_err = float((tau_f - tau_p)[fin].abs().max())
+    s_err = float(torch.nan_to_num((s_f - s_p).abs(), nan=float("inf")).max())
+    o_err = float(torch.nan_to_num((o_f - o_p).abs(), nan=float("inf")).max())
+    o_gate = K2_REL_TOL * float(o_p.abs().max())
+    out = dict(k1_selection_ok=ok, k1_indices_off=ndiff, k1_tau_err_eps=tau_err / eps,
+               k6_err_eps=s_err / eps, k2_err_gates=o_err / o_gate)
+    del q, K, V, qk, idx_f, s_f, s_p, o_f, o_p, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def any_head_fault(torch):
+    """The generic layout's planted faults (PLANTED_FAULTS): at d_head 80
+    (B 4, Hkv 16, rep 1) K1 and K6 must read above their gates; at rep 71
+    (B 4, Hkv 1, d_head 128: blocks of 32, 32 and 7 query heads in K1/K6,
+    of 16 in K2) K1, K6 and K2 must.  Returns the readings."""
+    out = {"d80_idle_lanes": fault_reading(torch, (SLOTS, 16, 1, 80), seed=81),
+           "rep71_last_block": fault_reading(torch, (SLOTS, 1, 71, 128), seed=71)}
+    for name, r in out.items():
+        log(f"  planted fault {name}: K1 {r['k1_indices_off']} indices outside the ε band "
+            f"(selection within the gate: {r['k1_selection_ok']}), tau err "
+            f"{r['k1_tau_err_eps']:.4g} ε; K6 max |Δscore| {r['k6_err_eps']:.4g} ε; K2 max "
+            f"|Δout| {r['k2_err_gates']:.4g} × its gate (gates: 0 indices, 1 ε, 1)")
+    d80, r71 = out["d80_idle_lanes"], out["rep71_last_block"]
+    if d80["k1_selection_ok"] or not d80["k6_err_eps"] > 1:
+        raise AssertionError(f"the d_head 80 gates do not see the planted fault: {d80}")
+    if r71["k1_selection_ok"] or not (r71["k6_err_eps"] > 1 and r71["k2_err_gates"] > 1):
+        raise AssertionError(f"the rep 71 gates do not see the planted fault: {r71}")
+    return out
 
 
 def finish_rows(rows):
@@ -1853,12 +2103,16 @@ def median(xs):
     return xs[len(xs) // 2]
 
 
-def paged_vs_slab(torch, cfg, params, slab, prompts=PROMPTS, steps=MAX_NEW):
+def paged_vs_slab(torch, cfg, params, slab, prompts=PROMPTS, steps=MAX_NEW, profiles=None,
+                  profile_paged=True):
     """The same four prompts inserted one by one into the slab engine and
     into a paged one (bs 32, default pool), then ``steps`` greedy decode
     steps, the paged engine calling ``advance_slot`` for every slot before
     each step.  Tokens and the first step's logits must be equal; each
-    engine must have run only its own layout's kernels, 14 per step."""
+    engine must have run only its own layout's kernels, 14 per step.
+    ``profiles`` (a dict): each engine's launch counts, median ms/step and
+    ``profile_decode`` readings (the paged engine's only with
+    ``profile_paged``) go there under "slab" and "paged"."""
     import numpy as np
 
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1894,9 +2148,13 @@ def paged_vs_slab(torch, cfg, params, slab, prompts=PROMPTS, steps=MAX_NEW):
         check_launches(counts, kernels, n_fier * steps)
         if eng.paged:
             eng.audit()
-        if DEVICE == "cuda":
+        prof = None
+        if DEVICE == "cuda" and (profile_paged or not eng.paged):
             log(f"  {'paged' if eng.paged else 'slab'} engine:")
-            profile_decode(torch, eng, params, tok, cache, None)
+            prof = profile_decode(torch, eng, params, tok, cache, None)
+        if profiles is not None:
+            profiles["paged" if eng.paged else "slab"] = dict(
+                launches=counts, ms_step=median(ms), profile=prof)
         del cache
         return torch.stack(out, 1), first, median(ms), counts
 
@@ -2174,7 +2432,8 @@ def log_errs(errs, retrieval, attention):
 
 
 
-def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
+def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab, kv_roll=True,
+                      tols=None):
     """The first decode step after prefill, five ways, each from a copy of
     the same prefill cache:
 
@@ -2185,12 +2444,14 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
       the plain results go on down the stack;
     * with two planted faults: K2 given every selected index shifted by
       one token, and K1's selection of the last FIER layer handed to the
-      neighbouring kv head.
+      neighbouring kv head (``kv_roll``; with one kv head there is none).
     The kernel step must lie within PLAIN_LOGIT_REL_TOL of the plain step
-    and REF_LOGIT_REL_TOL of the reference pipeline, and each planted fault
+    and REF_LOGIT_REL_TOL of the reference pipeline (``tols``: another pair
+    of fractions of max|logit|), and each planted fault
     beyond both, so the gates are shown to see a wrong kernel.  Returns the
-    largest K1 τ error and K2 error of the per-layer comparisons, and the
-    kernel step's logits."""
+    largest K1 τ error and K2 error of the per-layer comparisons (with the
+    plain step's logits under ``lg1_plain`` and the readings under
+    ``gaps``), and the kernel step's logits."""
     from repro_torch.kernels import fused_retrieval as fr
     from repro_torch.kernels import ops
     from repro_torch.kernels import sparse_attention as sa
@@ -2221,10 +2482,9 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
 
     lg1 = step()
     lg1_plain = step(checked_retrieve, checked_attend)
-    faults = {
-        "K2 fed idx+1": step(attend=shifted_attend),
-        "K1's last-layer selection on the next kv head": step(retrieve=rolled_retrieve),
-    }
+    faults = {"K2 fed idx+1": step(attend=shifted_attend)}
+    if kv_roll:
+        faults["K1's last-layer selection on the next kv head"] = step(retrieve=rolled_retrieve)
     ref = lg1_ref[:, :vocab]
     s1 = float(ref.abs().max())
     gap = lambda a, b: float((a - b).abs().max())
@@ -2239,17 +2499,21 @@ def first_step_checks(torch, eng, params, tok0, cache, lg1_ref, vocab):
             f"{gap(lg, lg1_plain):.4g}, vs reference pipeline {gap(lg, ref):.4g}")
     if not torch.isfinite(lg1).all():
         raise AssertionError("non-finite first-step logits")
-    if not d_plain <= PLAIN_LOGIT_REL_TOL * s1:
+    plain_tol, ref_tol = tols or (PLAIN_LOGIT_REL_TOL, REF_LOGIT_REL_TOL)
+    if not d_plain <= plain_tol * s1:
         raise AssertionError(f"first step vs plain versions: {d_plain:.4g} > "
-                             f"{PLAIN_LOGIT_REL_TOL} · {s1:.4g}")
-    if not d_ref <= REF_LOGIT_REL_TOL * s1:
+                             f"{plain_tol} · {s1:.4g}")
+    if not d_ref <= ref_tol * s1:
         raise AssertionError(f"first step vs reference pipeline: {d_ref:.4g} > "
-                             f"{REF_LOGIT_REL_TOL} · {s1:.4g}")
+                             f"{ref_tol} · {s1:.4g}")
     for name, lg in faults.items():
-        if not (gap(lg, lg1_plain) > PLAIN_LOGIT_REL_TOL * s1
-                and gap(lg, ref) > REF_LOGIT_REL_TOL * s1):
+        if not (gap(lg, lg1_plain) > plain_tol * s1 and gap(lg, ref) > ref_tol * s1):
             raise AssertionError(f"the first-step gates do not see the planted fault "
                                  f"({name}): {gap(lg, lg1_plain):.4g}, {gap(lg, ref):.4g}")
+    errs["lg1_plain"] = lg1_plain
+    errs["gaps"] = dict(plain=d_plain, ref=d_ref, max_logit=s1,
+                        **{f"fault {k}": (gap(lg, lg1_plain), gap(lg, ref))
+                           for k, lg in faults.items()})
     return errs, lg1
 
 
@@ -2288,7 +2552,7 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
     ]
     if not events:
         log("  profiled decode steps: the profiler reported no device kernels")
-        return
+        return None
     busy_us = sum(dev(e) for e in events)
     n_kernels = sum(e.count for e in events)
     log(f"  profiled {steps} decode steps: wall {wall_us / steps / 1e3:.2f} ms/step, "
@@ -2301,6 +2565,13 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
         if i < 10 or any(k in e.key for k in PORT_KERNEL_NAMES):
             log(f"    {dev(e) / steps / 1e3:8.3f} ms/step  {e.count // steps:5d} calls/step  "
                 f"{e.key[:90]}")
+    # per kernel of the port: device ms per step and per launch
+    port = {k: [sum(dev(e) for e in events if k in e.key) / steps / 1e3,
+                sum(e.count for e in events if k in e.key) / steps] for k in PORT_KERNEL_NAMES}
+    return dict(wall_ms=wall_us / steps / 1e3, busy_ms=busy_us / steps / 1e3,
+                launches_per_step=n_kernels / steps,
+                port={k: dict(ms_per_step=ms, ms_per_launch=ms / n)
+                      for k, (ms, n) in port.items() if n})
 
 
 # ------------------------------------------------------------ phase 6
@@ -5603,19 +5874,23 @@ def elastic_run(torch, cfg, hp, keep):
         params_one = p_one["params"]
         del runs, p_dp2
         free(torch)
-        # the CLI, on the card, in a process of its own
-        cli = {}
+        # the CLI, on the card, in processes of their own (both at once)
+        cli, procs = {}, {}
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t0 = time.perf_counter()
         for tag, extra in (("fault", ["--fail-at", "3"]), ("clean", [])):
             d = os.path.join(ckdir, "cli_" + tag)
             cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "olmo-1b",
                    "--reduced", "--model-axis", "2", "--steps", "6", "--ckpt-every", "2",
                    "--log-every", "1", "--device", DEVICE, "--ckpt-dir", d] + extra
-            env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-            t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
-            if r.returncode:
-                raise AssertionError(f"train CLI ({tag}) exited {r.returncode}: {r.stderr[-2000:]}")
-            lines = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+            procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True, env=env)
+        for tag, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"train CLI ({tag}) exited {proc.returncode}: "
+                                     f"{stderr[-2000:]}")
+            lines = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
             cli[tag] = dict(done=lines[-1], last=lines[-2], s=time.perf_counter() - t0)
         log(f"  train --model-axis 2 --reduced --steps 6 --fail-at 3: {cli['fault']['done']}, "
             f"last loss {cli['fault']['last']['loss']!r} ({cli['fault']['s']:.1f} s); "
@@ -6110,22 +6385,175 @@ def reduced_path(torch):
     return out
 
 
-def build_kernels():
-    """Phase 1's build: every ``csrc/*.cu`` (one ``nvcc`` each, all at once,
-    beside the planted fault's K1 and K6 for phase 2), each kernel's ptxas
-    line logged, none with a stack frame or spills."""
-    from concurrent.futures import ThreadPoolExecutor
+# ------------------------------------------------------------ phase 15
 
+# olmo-1b at full width and depth with other attention geometries (through
+# dataclasses.replace; no registry config has them): name -> (n_heads,
+# n_kv_heads, d_head).  G1 is gemma-2b's attention (8 x 256 = 2048, rep 8),
+# G2 multi-query (32 x 64, rep 32), G3 phi-3-mini's d_head at qwen2-7b's
+# ratio (21 x 96 = 2016, rep 7).
+ANY_GEOMETRIES = {"G1": (8, 1, 256), "G2": (32, 1, 64), "G3": (21, 3, 96)}
+ANY_STEPS = 8
+# Phase 15's first-step gates, as fractions of max|logit|, set as phase 3's
+# were: between the largest sound reading and the smallest planted fault
+# (PERF.md §6; "NVIDIA H100 80GB HBM3, 700.00 W").  Phase 3's
+# 0.015 / 0.02 sit below these geometries' sound readings: per layer the
+# kernels agree with their plain versions as at phase 3, but these models
+# carry an f32 summation-order difference about twice as far
+# (``f64_step_gap`` reads how far).
+ANY_PLAIN_REL_TOL = 0.018  # sound G1 0.01444, G2 0.01651, G3 0.01371; faults from 0.02031
+ANY_REF_REL_TOL = 0.023    # sound G1 0.01809, G2 0.02060, G3 0.02005; faults from 0.02630
+
+
+def f64_step_gap(torch, eng, params, tok0, cache, lg1_plain, vocab):
+    """The first decode step from a copy of ``cache`` with K1's plain
+    version and K2's plain version computed in f64 (the output cast to
+    f32), against ``lg1_plain``, the same step with both plain versions in
+    f32: how far the model carries an f32 summation-order difference in K2
+    alone through the step's bf16 roundings (no kernel launches)."""
+    from repro_torch.core.retrieval import NEG_INF, gather_kv
+    from repro_torch.kernels import fused_retrieval as fr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparse_attention as sa
+
+    def retrieve(q, codes, scale, zero, lengths, budget, *, block_table=None, plan_rows=None,
+                 **sel):
+        return fr.fier_retrieve_plain(q, codes, scale, zero, lengths, budget, **sel)
+
+    def attend(q, K, V, idx, lengths=None, *, block_table=None, plan_rows=None):
+        ks, vs = gather_kv(K, V, idx)
+        s = torch.einsum("bhrd,bkhd->bhrk", q.double(), ks.double()) / q.shape[-1] ** 0.5
+        valid = (idx < lengths.to(idx.dtype)[:, None, None])[:, :, None, :]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        w = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), torch.zeros_like(s))
+        out = torch.einsum("bhrk,bkhd->bhrd", w, vs.double())
+        return (out / w.sum(-1, keepdim=True).clamp(min=1e-30)).to(torch.float32)
+
+    ops.fier_retrieve, ops.fier_attend_selected = retrieve, attend
+    try:
+        _, lg, _ = eng.decode(params, tok0, clone_cache(torch, cache))
+        sync(torch)
+    finally:
+        ops.fier_retrieve, ops.fier_attend_selected = fr.fier_retrieve, sa.fier_attend_selected
+    return float((lg[:, :vocab] - lg1_plain).abs().max())
+
+
+def any_heads_drive(torch, name, geometry):
+    """One geometry of phase 15: the slab one_pass engine's first decode
+    step (phase 3's prompts) within ANY_PLAIN_REL_TOL of the plain versions'
+    step and ANY_REF_REL_TOL of the reference pipeline's
+    (``first_step_checks``, its planted faults above them; ``f64_step_gap``
+    read beside it), the two_pass engine's first step from the same
+    prefill cache (K6, K7, K2 14 times each) within the same gates, then
+    ``paged_vs_slab`` for ANY_STEPS greedy steps: tokens and the first
+    logits equal, each engine its own kernels 14 × steps and nothing else,
+    the slab engine's steps profiled."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Engine, serving_policy
+
+    t0 = time.perf_counter()
+    n_heads, n_kv, d_head = geometry
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_heads=n_heads, n_kv_heads=n_kv,
+                              d_head=d_head)
+    log(f"  [{name}] olmo-1b, {cfg.n_layers} layers, d_model {cfg.d_model}: {n_heads} query "
+        f"heads, {n_kv} kv heads, d_head {d_head} (rep {n_heads // n_kv})")
+    slab = Engine.build(cfg, n_slots=SLOTS, capacity=CAPACITY, device=DEVICE)
+    pol = slab.bundle.policy
+    if (pol.kind, pol.pipeline, pol.layout, pol.budget) != ("fier", "one_pass", "slab", BUDGET):
+        raise AssertionError(f"Engine.build's default policy is {pol}")
+    n_fier = cfg.n_layers - pol.skip_layers
+    params = slab.bundle.init(torch.Generator(device=DEVICE).manual_seed(0))
+    params = slab.compute_params(params)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (SLOTS, max(PROMPTS)))).to(DEVICE)
+    lengths = torch.tensor(PROMPTS, dtype=torch.int32, device=DEVICE)
+    batch = {"tokens": prompts, "lengths": lengths}
+
+    ref = Engine.build(cfg, n_slots=SLOTS, capacity=CAPACITY, device=DEVICE,
+                       policy=serving_policy(budget=BUDGET, pipeline="reference"))
+    lg_ref, cache = ref.prefill_batch(params, batch)
+    tok0 = torch.argmax(lg_ref, -1).to(torch.int32)
+    _, lg1_ref, _ = ref.decode(params, tok0, cache)
+    del ref, cache
+    lg0, cache = slab.prefill_batch(params, batch)
+    if not torch.equal(lg0, lg_ref):
+        raise AssertionError(f"{name}: prefill logits differ between one_pass and reference")
+    errs, lg1 = first_step_checks(torch, slab, params, tok0, cache, lg1_ref, cfg.vocab,
+                                  kv_roll=n_kv > 1, tols=(ANY_PLAIN_REL_TOL, ANY_REF_REL_TOL))
+    floor = f64_step_gap(torch, slab, params, tok0, cache, errs["lg1_plain"], cfg.vocab)
+    log(f"  the plain versions' step with K2's plain version in f64: max |Δlogit| "
+        f"{floor:.4g} from the f32 plain step (the model's amplification of an f32 sum "
+        f"order; the kernels' step reads {errs['gaps']['plain']:.4g})")
+    errs["gaps"]["f64_floor"] = floor
+
+    # the two_pass engine's first step from a copy of the same prefill cache
+    two = Engine.build(cfg, n_slots=SLOTS, capacity=CAPACITY, device=DEVICE,
+                       policy=serving_policy(budget=BUDGET, pipeline="two_pass"))
+    reset_launch_counts()
+    _, lg2, _ = two.decode(params, tok0, clone_cache(torch, cache))
+    sync(torch)
+    two_counts = launch_counts()
+    check_launches(two_counts, TWO_PASS_KERNELS, n_fier)
+    del two, cache
+    s1 = float(lg1_ref[:, :cfg.vocab].abs().max())
+    lg2 = lg2[:, :cfg.vocab]
+    two_gaps = dict(one_pass=float((lg2 - lg1).abs().max()),
+                    plain=float((lg2 - errs["lg1_plain"]).abs().max()),
+                    ref=float((lg2 - lg1_ref[:, :cfg.vocab]).abs().max()))
+    log(f"  two_pass first step: launches {two_counts}; max |Δlogit| vs one_pass "
+        f"{two_gaps['one_pass']:.4g}, vs plain versions {two_gaps['plain']:.4g}, vs reference "
+        f"{two_gaps['ref']:.4g} (gates {ANY_PLAIN_REL_TOL * s1:.4g}, "
+        f"{ANY_REF_REL_TOL * s1:.4g})")
+    if not (two_gaps["plain"] <= ANY_PLAIN_REL_TOL * s1
+            and two_gaps["ref"] <= ANY_REF_REL_TOL * s1 and torch.isfinite(lg2).all()):
+        raise AssertionError(f"{name}: the two_pass first step is outside the gates: {two_gaps}")
+
+    runs = {}
+    paged_vs_slab(torch, cfg, params, slab, prompts=PROMPTS, steps=ANY_STEPS, profiles=runs,
+                  profile_paged=False)
+    del slab, params, lg0, lg1, lg2, lg1_ref, lg_ref
+    torch.cuda.empty_cache()
+    out = dict(geometry=dict(n_heads=n_heads, n_kv_heads=n_kv, d_head=d_head),
+               gaps=errs["gaps"], k1_tau_err=errs["k1_tau"], k2_err=errs["k2"],
+               two_pass=dict(gaps=two_gaps, launches=two_counts), wall_s=time.perf_counter() - t0)
+    for layout, r in runs.items():
+        prof = r["profile"] or {}
+        out[layout] = dict(launches=r["launches"], ms_step=r["ms_step"],
+                           busy_ms=prof.get("busy_ms"), wall_ms=prof.get("wall_ms"),
+                           kernels=prof.get("port"))
+        busy = (f"device busy {prof['busy_ms']:.3f} ms/step; per launch " + ", ".join(
+            f"{n} {v['ms_per_launch']:.4f} ms" for n, v in prof["port"].items())
+            if prof else "not profiled")
+        log(f"  [{name}] {layout}: decode {r['ms_step']:.2f} ms/step (median of {ANY_STEPS}), "
+            f"{busy}")
+    log(f"  [{name}] {out['wall_s']:.1f} s")
+    return out
+
+
+def any_heads_path(torch):
+    """Phase 15: olmo-1b at full width and depth with ANY_GEOMETRIES, each
+    through ``any_heads_drive``."""
+    t0 = time.perf_counter()
+    out = {name: any_heads_drive(torch, name, g) for name, g in ANY_GEOMETRIES.items()}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 15 wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def build_kernels():
+    """Phase 1's build: every ``csrc/*.cu`` (one ``nvcc`` each, all at once),
+    each kernel's ptxas line logged, none with a stack frame or spills."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        faults = [pool.submit(nvcc_lib, src, tag) for src, tag in fault_sources()]
-        built = build.build()
-        for f in faults:
-            f.result()
-    log(f"[setup] built {sorted(built) or 'nothing (cached)'} and the planted fault's K1/K6 "
-        f"in {time.perf_counter() - t0:.1f} s")
+    built = build.build()
+    log(f"[setup] built {sorted(built) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, (secs, report) in built.items():
         log(f"[setup] {name}.cu done after {secs:.1f} s")
         for line in report.splitlines():
@@ -6139,6 +6567,7 @@ def build_kernels():
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -6173,7 +6602,12 @@ def main() -> int:
         log("[reduced] every reduced config, the serve CLI and the examples on the card")
         reduced_path(torch)
         return 0
+    if "--any-heads-only" in sys.argv:  # phase 15 alone after the build; no result line
+        log("[any heads] olmo-1b with d_head 256, 64 and 96 at rep 8, 32 and 7")
+        any_heads_path(torch)
+        return 0
 
+    start_fault_builds()  # for phase 2's planted faults
     log("[kernels] each kernel against its plain version")
     timer = Timer(torch)
     empty_ms = empty_kernel_ms(torch, timer)
@@ -6203,9 +6637,10 @@ def main() -> int:
     attend_variants = check_attend_variants(torch, timer, baseline)
     log("[kernels] K1-K8 at the family shapes (d_head 64 and 112, rep 12 and 16, S 4096)")
     family = list(FAMILY_SHAPES.values())
-    family_rows = check_kernels(torch, timer, family)
-    family_rows.update(check_paged_kernels(torch, timer, family))
-    family_rows.update(check_unfused_kernels(torch, timer, family))
+    # the plain versions and library calls once each here (over 3 launches)
+    family_rows = check_kernels(torch, timer, family, timing=once_each)
+    family_rows.update(check_paged_kernels(torch, timer, family, timing=once_each))
+    family_rows.update(check_unfused_kernels(torch, timer, family, timing=once_each))
     log("[kernels] K1/K3/K6 at a GQA rep at d_head 112")
     gqa_112 = check_scoring(torch, timer, D112_GQA_SHAPE)
     log("[kernels] K1-K8 at d_head 16 and 32: the main path's scale, the examples' shapes, "
@@ -6213,23 +6648,31 @@ def main() -> int:
     t_small = time.perf_counter()
     small, small_fault = check_small_heads(torch, timer)
     log(f"  d_head 16 and 32 checks: {time.perf_counter() - t_small:.1f} s")
+    log("[kernels] K1-K8 on the generic layout: every d_head and rep, two planted faults")
+    t_any = time.perf_counter()
+    any_rows, any_faults = check_any_heads(torch, timer)
+    log(f"  generic layout checks: {time.perf_counter() - t_any:.1f} s")
     del timer
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv:  # a quick build-and-check call; no result line
         return 0
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[main path] olmo-1b at full width, 4 slots, capacity 8192")
     counts, engine_errs, params, slab, p3 = main_path(torch)
     cfg = slab.bundle.cfg
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[paged vs slab] the same prompts through a paged engine, bs 32, default pool")
     counts_p4 = paged_vs_slab(torch, cfg, params, slab)
     torch.cuda.empty_cache()
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[serving] ContinuousScheduler, chunk 2048, 8 slots x 8192, pool 621 blocks")
     counts_p5, stream, errs_p5, outs_p5 = serve_stream(torch, cfg, params)
     counts.update({k: counts_p5[k] for k in PAGED_KERNELS})
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[two_pass] the two_pass pipeline at full width, the unfused building blocks")
     counts_p6, counts_bb, errs_p6, p6 = two_pass_path(torch, cfg, params, p3, slab)
     del slab
@@ -6237,48 +6680,62 @@ def main() -> int:
     counts.update({k: counts_p6[k] for k in ("fier_score", "topk_threshold")})
     counts.update({k: counts_bb[k] for k in ("pack_quantize", "sparse_attention")})
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[baselines] quest, slm and FIER one_pass at full width; the eviction family; the "
         "deprecated shims")
     baselines_path(torch, cfg, params, p3)
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[robustness] the host tier with a TTL on phase 5's stream; a seeded chaos run; the "
         "introspector; K1/K3 on a corrupted slot")
     robustness_path(torch, cfg, params, p3, outs_p5)
     del params, p3, outs_p5
     torch.cuda.empty_cache()
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[families] granite-moe-1b-a400m, minicpm-2b, starcoder2-3b and "
         "llava-next-mistral-7b at full width")
     fam = families_path(torch)
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[ssm / hybrid / encdec] mamba2-370m, zamba2-7b and whisper-small at full width")
     fam.update(ssm_hybrid_encdec_path(torch))
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[training] flash backward, olmo-1b, restart, the families, train then serve")
     p11 = training_path(torch)
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[sharded] mesh-sharded serving, every shard on this card")
     p12 = sharded_path(torch)
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[sharded training] training on meshes, every shard on this card")
     p13 = sharded_train_path(torch)
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[reduced] every reduced config, the serve CLI and the examples on the card")
     p14 = reduced_path(torch)
 
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    log("[any heads] olmo-1b with d_head 256, 64 and 96 at rep 8, 32 and 7")
+    p15 = any_heads_path(torch)
+    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
-        "fier_retrieve": (csrc + "fier_retrieve.cu", "src/repro/kernels/fused_retrieval.py:284"),
-        "fier_attend_selected": (csrc + "fier_attend.cu",
+        "fier_retrieve": (csrc + "fier_retrieve.cuh", "src/repro/kernels/fused_retrieval.py:284"),
+        "fier_attend_selected": (csrc + "fier_attend.cuh",
                                  "src/repro/kernels/sparse_attention.py:228"),
-        "fier_retrieve_paged": (csrc + "fier_retrieve.cu",
+        "fier_retrieve_paged": (csrc + "fier_retrieve.cuh",
                                 "src/repro/kernels/fused_retrieval.py:435"),
-        "fier_attend_selected_paged": (csrc + "fier_attend.cu",
+        "fier_attend_selected_paged": (csrc + "fier_attend.cuh",
                                        "src/repro/kernels/sparse_attention.py:358"),
         "pack_quantize": (csrc + "fier_pack.cu", "src/repro/kernels/pack_quantize.py:52"),
         "fier_score": (csrc + "fier_score.cu", "src/repro/kernels/fier_score.py:110"),
         "topk_threshold": (csrc + "fier_topk.cu", "src/repro/kernels/topk_select.py:101"),
-        "sparse_attention": (csrc + "fier_attend.cu", "src/repro/kernels/sparse_attention.py:106"),
+        "sparse_attention": (csrc + "fier_attend.cuh",
+                             "src/repro/kernels/sparse_attention.py:106"),
     }
     # where each count comes from: the run that drove the kernel's path
     launch_runs = {
@@ -6331,10 +6788,24 @@ def main() -> int:
             }
         if name in ("fier_retrieve", "fier_score"):
             row["small_heads_fault"] = small_fault
+        # the generic layout (phase 2): each entry's time beside its bound
+        row["any_heads"] = {
+            entry: {k: r[k] for k in ("shape", "budget", "ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "max_abs_err") if k in r}
+            for entry, r in any_rows.get(name, {}).items()
+        }
+        if name in ("fier_retrieve", "fier_score", "fier_attend_selected"):
+            row["any_heads_faults"] = any_faults
+        # phase 15: each geometry's runs, counted from 0
+        row["launches_any_heads"] = {
+            g: {run: p15[g][run]["launches"][name] for run in ("slab", "paged")}
+            | {"two_pass_first_step": p15[g]["two_pass"]["launches"][name]}
+            for g in ANY_GEOMETRIES}
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [x["max_abs_err"] for x in family_rows[name]]
                                  + [g["max_abs_err"] for g in [gqa_112.get(name)] if g]
-                                 + [r["max_abs_err"] for r in small.get(name, {}).values()])
+                                 + [r["max_abs_err"] for r in small.get(name, {}).values()]
+                                 + [r["max_abs_err"] for r in any_rows.get(name, {}).values()])
         if name in PAGED_KERNELS:
             # launches above: the serving run (phase 5); the paged-vs-slab run too
             row["launches_paged_vs_slab"] = counts_p4[name]

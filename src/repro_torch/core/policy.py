@@ -194,6 +194,11 @@ def register_backend(backend: AttentionBackend) -> None:
     _REGISTRY[backend.name] = backend
 
 
+def registered_backends() -> tuple[str, ...]:
+    """The registered policy names, in registration order."""
+    return tuple(_REGISTRY)
+
+
 def get_backend(name: str) -> AttentionBackend:
     try:
         return _REGISTRY[name]
@@ -293,6 +298,14 @@ class DecodePlan:
                 f"{pol.block_size}"
             )
         return self
+
+    def with_pipeline(self, pipeline: str) -> "DecodePlan":
+        """Re-resolve (and re-validate) this plan with another pipeline; a
+        shard's ``plan_rows`` stays."""
+        plan = DecodePlan.build(
+            self.policy, layout=self.layout, pipeline=pipeline, shard=self.shard
+        )
+        return dataclasses.replace(plan, plan_rows=self.plan_rows)
 
 
 # --------------------------------------------------------- metadata dispatch

@@ -103,3 +103,13 @@ def dequantize(q: QuantizedKeys) -> torch.Tensor:
     s = q.scale.repeat_interleave(q.group, dim=1)
     z = q.zero.repeat_interleave(q.group, dim=1)
     return pm1 * s + z
+
+
+def packed_nbytes(S: int, H: int, D: int, group: int) -> int:
+    """Bytes touched by the score scan per batch element (codes + s/z)."""
+    return S // 8 * H * D + 2 * (S // group) * H * D * 2
+
+
+def load_ratio(group: int) -> float:
+    """Paper Eq. 8: key-cache load ratio of the selection pass."""
+    return (1.0 + 32.0 / group) / 16.0

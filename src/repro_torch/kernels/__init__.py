@@ -2,14 +2,14 @@
 version, plus their build (``build.py``) and ``CacheView`` entry points
 (``ops.py``).
 
-    K1 fier_retrieve               csrc/fier_retrieve.cu  ← fused_retrieval.fused_retrieve_hm
-    K2 fier_attend_selected        csrc/fier_attend.cu    ← sparse_attention.fused_sparse_attention_hm
-    K3 fier_retrieve_paged         csrc/fier_retrieve.cu  ← fused_retrieval.paged_fused_retrieve_hm
-    K4 fier_attend_selected_paged  csrc/fier_attend.cu    ← sparse_attention.paged_fused_sparse_attention_hm
+    K1 fier_retrieve               csrc/fier_retrieve.cuh ← fused_retrieval.fused_retrieve_hm
+    K2 fier_attend_selected        csrc/fier_attend.cuh   ← sparse_attention.fused_sparse_attention_hm
+    K3 fier_retrieve_paged         csrc/fier_retrieve.cuh ← fused_retrieval.paged_fused_retrieve_hm
+    K4 fier_attend_selected_paged  csrc/fier_attend.cuh   ← sparse_attention.paged_fused_sparse_attention_hm
     K5 fier_pack_quantize          csrc/fier_pack.cu      ← pack_quantize.pack_quantize_hm
     K6 fier_score_scan             csrc/fier_score.cu     ← fier_score.fier_score_hm
     K7 fier_topk_threshold         csrc/fier_topk.cu      ← topk_select.topk_threshold_hm
-    K8 fier_attend_gathered        csrc/fier_attend.cu    ← sparse_attention.sparse_attention_hm
+    K8 fier_attend_gathered        csrc/fier_attend.cuh   ← sparse_attention.sparse_attention_hm
 
 K3 and K4 are ``fier_retrieve`` / ``fier_attend_selected`` given a
 ``block_table``; each layout keeps its own launch count.  K1, K3 and K6

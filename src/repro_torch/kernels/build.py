@@ -27,7 +27,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
-SOURCES = ("fier_retrieve", "fier_attend", "fier_score", "fier_topk", "fier_pack")
+SOURCES = ("fier_retrieve", "fier_retrieve_paged", "fier_retrieve_any", "fier_attend",
+           "fier_attend_paged", "fier_attend_gathered", "fier_attend_any", "fier_score",
+           "fier_topk", "fier_pack")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

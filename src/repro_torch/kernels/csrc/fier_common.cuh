@@ -1,6 +1,6 @@
 // Device code shared by the FIER kernels for Hopper (sm_90a):
 //   * the warp that scores 32 consecutive tokens from the packed 1-bit
-//     side-car (K1/K3 in fier_retrieve.cu, K6 in fier_score.cu), so the
+//     side-car (K1/K3 in fier_retrieve.cuh, K6 in fier_score.cu), so the
 //     two-pass score scan writes exactly the per-token scores the one-pass
 //     retrieval kernel keeps on chip;
 //   * the monotone uint32 score keys and the radix-256 threshold search
@@ -31,6 +31,17 @@
 // 32's one-channel layout the same way, on 16 lanes: lanes 16-31 would own
 // the next head's channels, so they load nothing and add exact zeros.  At
 // 32, 64 and 128 every lane is active and the code is what it was.
+//
+// Every other d_head D (a multiple of 8 up to 256), and every rep above 16,
+// takes the generic layout at the end of this file: a layout class kW (32,
+// 64, 128 or 256: the widest d_head it takes) fixes the channels a lane
+// owns, lane_channels(kW), and D is a run-time value inside the class.  D
+// up to 128 is one part on D / lane_channels(kW) active lanes; D above 128
+// is two 128-wide parts (32 lanes, then (D - 128) / 4 lanes) whose lane
+// sums are added before the one butterfly, since 8 channels a lane would
+// need a 256-entry table.  Because D % 8 == 0, a head's code bytes start at
+// h*D (4-byte aligned) and its scale/zero at h*2D bytes (8-byte aligned),
+// so every lane load of every class stays aligned.
 
 #pragma once
 
@@ -73,6 +84,8 @@ struct LaneLoads<16> {  // 32's layout, on lanes 0-15
   using Code = uint8_t;
   using Pair = uint16_t;
 };
+template <>
+struct LaneLoads<256> : LaneLoads<128> {};  // the generic class of two 128-wide parts
 
 // Channels a lane of the scoring warp owns at d_head D, and the lanes that
 // own any (kD / lane_channels: 32, or 28 at d_head 112, 16 at d_head 16).
@@ -96,6 +109,21 @@ __host__ __device__ constexpr int rep_slots(int D, int rep) {
   return D == 128 && rep <= 8 ? 8 : 16;
 }
 constexpr int kMaxRepAll = 16;
+
+// Whether (D, rep) runs on a fixed instantiation above (the shapes served
+// before the generic layout came; each keeps its code and bits), and
+// otherwise the generic layout class that takes D.
+__host__ __device__ constexpr bool fixed_shape(int D, int rep) {
+  return (D == 16 || D == 32 || D == 64 || D == 112 || D == 128) && rep >= 1 && rep <= kMaxRepAll;
+}
+__host__ __device__ constexpr int any_class(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+// Query-head floats the generic scoring kernels stage in shared memory at
+// once: blocks of kAnyQFloats / D heads (16 at d_head 256, 32 at 128), each
+// folded into the group reduction in head order, so the f32 sums run in the
+// order an unblocked loop would take.
+constexpr int kAnyQFloats = 4096;
 
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
@@ -146,16 +174,16 @@ struct Chunk {
 // (batch, kv-head) row; code_row(i) / group_row(t) give the seq row (in
 // units of row_stride elements) of byte-row i and of the group holding token
 // t: the address policy (slab or paged) is the caller's.  Byte-rows past S8,
-// and every byte-row of an idle lane, load as zeros.
+// and every byte-row of an idle lane (`on` false), load as zeros.
 template <int kGroups, int kD, class CodeRow, class GroupRow>
 __device__ __forceinline__ void load_chunk(Chunk<kGroups, kD>& ch, int c, int S8,
                                            const uint8_t* codes_h,
                                            const __nv_bfloat16* scale_h,
                                            const __nv_bfloat16* zero_h, size_t row_stride,
-                                           CodeRow code_row, GroupRow group_row) {
+                                           CodeRow code_row, GroupRow group_row,
+                                           bool on = lane_active<kD>()) {
   using Code = typename LaneLoads<kD>::Code;
   using Pair = typename LaneLoads<kD>::Pair;
-  const bool on = lane_active<kD>();
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int i = c * 4 + j;  // byte-row: tokens 8i .. 8i+7
@@ -221,18 +249,17 @@ __host__ __device__ constexpr int table_floats() { return (1 << lane_channels(kD
 // or 3 is set hold their byte-rows in swapped order, so the first two steps
 // need no select.  The arithmetic, and the order of every f32 sum, are those
 // of the plain select-and-add loop over channels the first K1 ran.
-template <int kGroups, int kD>
-__device__ __forceinline__ float score_chunk(const Chunk<kGroups, kD>& ch, const float* q_r,
-                                             int lane, float* tab) {
+// The lookups of one chunk into acc[32] (entry block jj holds byte-row
+// jj ^ ((lane >> 3) & 3)), the lane's channel sums built in `tl` (its
+// column of the warp's table) once per group; kAdd adds them to acc (a
+// second 128-wide part of the generic layout).
+template <bool kAdd, int kGroups, int kD>
+__device__ __forceinline__ void chunk_lookups(const Chunk<kGroups, kD>& ch,
+                                              const float (&qv)[lane_channels(kD)], int lane,
+                                              float* tl, float (&acc)[32]) {
   constexpr int kDPL = lane_channels(kD);  // channels per lane
   constexpr int kEntries = 1 << kDPL;
-  const bool on = lane_active<kD>();
-  float qv[kDPL];
-#pragma unroll
-  for (int k = 0; k < kDPL; ++k) qv[k] = on ? q_r[lane * kDPL + k] : 0.0f;
-  float* tl = tab + lane;
   const int sw = (lane >> 3) & 3;  // entry block jj holds byte-row jj ^ sw
-  float acc[32];
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
     const int j = jj ^ sw;
@@ -272,14 +299,105 @@ __device__ __forceinline__ float score_chunk(const Chunk<kGroups, kD>& ch, const
     for (int g = 1; g < 4; ++g)
       if (j == g) w = ch.word[g];
 #pragma unroll
-    for (int b = 0; b < 8; ++b) acc[8 * jj + b] = tl[token_nibble(w, b) * 32];
+    for (int b = 0; b < 8; ++b) {
+      const float v = tl[token_nibble(w, b) * 32];
+      acc[8 * jj + b] = kAdd ? acc[8 * jj + b] + v : v;
+    }
   }
+}
+
+// The butterfly reduce-scatter of the 32 lanes' lookups: lane l ends with
+// token l's sum in acc[0] (lanes whose bit 4 or 3 is set hold their
+// byte-rows in swapped order, so the first two steps need no select).
+__device__ __forceinline__ float reduce_scatter(float (&acc)[32], int lane) {
   reduce_step_swapped<16>(acc);
   reduce_step_swapped<8>(acc);
   reduce_step<4>(acc, lane);
   reduce_step<2>(acc, lane);
   reduce_step<1>(acc, lane);
   return acc[0];
+}
+
+// The f32 score q_r . a of token 32c + lane for one query head q_r [kD] (f32
+// holding bf16 values), a = bf16(+-s + z) as score_block forms it.  Lane l
+// owns channels kDPL l .. kDPL l + kDPL - 1 (kDPL = lane_channels(kD): 4 at
+// 128 and 112, 2 at 64, 1 at 32 and 16; an idle lane at 112 or 16 takes q = 0
+// and its zero loads, so each of its sums is +0) and, for each of the 32
+// tokens, sums their exact products (bf16 x
+// bf16 in f32) in channel order starting from 0: (((0 + c0) + c1) + c2) + c3
+// at 128 with c_k = q_k * (bit ? hi_k : lo_k).  The sum depends on the token
+// only through its kDPL code bits, so the lane forms the 2^kDPL possible
+// sums once per group (`tab`, this warp's table_floats<kD>() of shared
+// memory, laid out [index][lane]) and looks each token's up
+// (chunk_lookups); reduce_scatter then leaves lane l with token l's sum.
+// The arithmetic, and the order of every f32 sum, are those of the plain
+// select-and-add loop over channels the first K1 ran.
+template <int kGroups, int kD>
+__device__ __forceinline__ float score_chunk(const Chunk<kGroups, kD>& ch, const float* q_r,
+                                             int lane, float* tab) {
+  constexpr int kDPL = lane_channels(kD);  // channels per lane
+  const bool on = lane_active<kD>();
+  float qv[kDPL];
+#pragma unroll
+  for (int k = 0; k < kDPL; ++k) qv[k] = on ? q_r[lane * kDPL + k] : 0.0f;
+  float acc[32];
+  chunk_lookups<false>(ch, qv, lane, tab + lane, acc);
+  return reduce_scatter(acc, lane);
+}
+
+// ---- the generic layout (d_head D at run time inside the class kW) -------
+
+// 128-wide parts of a head in class kW, and the lanes of part p that own
+// channels at d_head D.
+__host__ __device__ constexpr int any_parts(int kW) { return kW > 128 ? 2 : 1; }
+__device__ __forceinline__ bool any_lane_on(int kW, int D, int p, int lane) {
+  return lane * lane_channels(kW) < D - 128 * p;
+}
+
+// A chunk of the generic layout: one Chunk per 128-wide part.
+template <int kGroups, int kW>
+struct AnyChunk {
+  Chunk<kGroups, kW> part[any_parts(kW)];
+};
+
+// load_chunk for each part: part p of this lane sits 128 p channels past
+// codes_h/scale_h/zero_h (the lane's channels of part 0); an idle lane's
+// loads are zeros.
+template <int kGroups, int kW, class CodeRow, class GroupRow>
+__device__ __forceinline__ void load_chunk_any(AnyChunk<kGroups, kW>& ch, int D, int c, int S8,
+                                               const uint8_t* codes_h,
+                                               const __nv_bfloat16* scale_h,
+                                               const __nv_bfloat16* zero_h, size_t row_stride,
+                                               CodeRow code_row, GroupRow group_row) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int p = 0; p < any_parts(kW); ++p)
+    load_chunk(ch.part[p], c, S8, codes_h + 128 * p, scale_h + 128 * p, zero_h + 128 * p,
+               row_stride, code_row, group_row, any_lane_on(kW, D, p, lane));
+}
+
+// score_chunk at a run-time d_head D of class kW: each part's lookups (an
+// idle lane adds exact zeros) added in part order, then the butterfly.
+// Within a part each lookup is score_chunk's channel-order sum; the parts'
+// and the lanes' sums run in another order than the plain version's,
+// inside score_eps's bound.
+template <int kGroups, int kW>
+__device__ __forceinline__ float score_chunk_any(const AnyChunk<kGroups, kW>& ch, const float* q_r,
+                                                 int D, int lane, float* tab) {
+  constexpr int kDPL = lane_channels(kW);
+  float acc[32];
+#pragma unroll
+  for (int p = 0; p < any_parts(kW); ++p) {
+    const bool on = any_lane_on(kW, D, p, lane);
+    float qv[kDPL];
+#pragma unroll
+    for (int k = 0; k < kDPL; ++k) qv[k] = on ? q_r[128 * p + lane * kDPL + k] : 0.0f;
+    if (p == 0)
+      chunk_lookups<false>(ch.part[p], qv, lane, tab + lane, acc);
+    else
+      chunk_lookups<true>(ch.part[p], qv, lane, tab + lane, acc);
+  }
+  return reduce_scatter(acc, lane);
 }
 
 // Add the keys of one warp (one per lane, `in` false: not a key) to the

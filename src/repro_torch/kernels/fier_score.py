@@ -31,24 +31,44 @@ from . import build
 
 launches = 0  # K6 kernel launches since the last reset (the chip check reads it)
 
-# the d_heads K6's and K1/K3's CUDA kernels are instantiated for (they share
-# the scoring warp), each checked on the card by chip_smoke.py phase 2 (16:
-# every reduced config; 32: reduced zamba2-7b and the examples' bench model;
-# 64: granite-moe, minicpm, whisper-small; 112: zamba2-7b; 128: the rest);
-# any rep up to KERNEL_MAX_REP runs.  Anything else is ROADMAP Queue 2 item A.
+# the d_heads K6's and K1/K3's CUDA kernels have fixed instantiations for
+# (they share the scoring warp), each checked on the card by chip_smoke.py
+# phase 2 (16: every reduced config; 32: reduced zamba2-7b and the examples'
+# bench model; 64: granite-moe, minicpm, whisper-small; 112: zamba2-7b; 128:
+# the rest), at any rep up to KERNEL_MAX_REP.  Every other d_head that is a
+# multiple of 8 up to MAX_HEAD_DIM, and every rep above, runs the generic
+# instantiation of its layout class (csrc/fier_common.cuh: any_class).
 KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 KERNEL_MAX_REP = 16
+MAX_HEAD_DIM = 256
+# query-head floats the generic instantiation stages at once (kAnyQFloats)
+ANY_Q_FLOATS = 4096
+
+
+def check_head_dim(d_head: int) -> None:
+    """Raise for a d_head that no CUDA kernel of the port takes: one that is
+    not a multiple of 8 from 8 to 256 (the plain versions on the CPU take
+    any).  K2/K4/K8 copy a row in 16-byte pieces of 8 channels, and the
+    scoring warp's lane words (1, 2 or 4 channels) stay aligned only when a
+    head's channels start at a multiple of 8."""
+    if d_head % 8 or not 8 <= d_head <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take a d_head that is a multiple of 8 from 8 to "
+                         f"{MAX_HEAD_DIM}, got {d_head}: a row is copied 8 channels (16 bytes) "
+                         f"at a time and the scoring warp's lane loads must stay aligned")
+
+
+def fixed_shape(d_head: int, rep: int) -> bool:
+    """Whether (d_head, rep) runs on a fixed instantiation of K1/K3 and K6
+    (``fixed_shape`` in ``csrc/fier_common.cuh``); else the generic one."""
+    return d_head in KERNEL_HEAD_DIMS and 1 <= rep <= KERNEL_MAX_REP
 
 
 def check_kernel_shape(d_head: int, rep: int) -> None:
     """Raise for a (d_head, rep) that the CUDA kernels of K1/K3 and K6 do
     not take (the plain versions on the CPU take any)."""
-    if d_head not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIMS}, got {d_head} "
-                         f"(others: ROADMAP Queue 2 item A)")
-    if not 1 <= rep <= KERNEL_MAX_REP:
-        raise ValueError(f"the CUDA kernel takes at most {KERNEL_MAX_REP} query heads per "
-                         f"kv head, got {rep} (more: ROADMAP Queue 2 item A)")
+    check_head_dim(d_head)
+    if rep < 1:
+        raise ValueError(f"rep must be at least 1 query head per kv head, got {rep}")
 
 
 def score_block(

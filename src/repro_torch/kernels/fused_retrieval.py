@@ -11,13 +11,18 @@ where τ is the budget-th largest key and m the strictly-greater count.
 
 ``fier_retrieve`` reads the seq-major side-car of the cache directly
 (codes [B, S/8, Hkv, D], scale/zero [B, S/g, Hkv, D]) — no head-major copy.
-On a CUDA tensor it launches ``csrc/fier_retrieve.cu``: each row is split
+On a CUDA tensor it launches ``csrc/fier_retrieve.cuh``'s kernel, built
+as ``csrc/fier_retrieve.cu`` (K1's fixed instantiations; K3's are
+``fier_retrieve_paged.cu``'s) or ``csrc/fier_retrieve_any.cu`` (the
+generic layout): each row is split
 over a thread-block cluster as :func:`retrieval_plan` says, and its scores
 and keys live in registers and shared memory — except on the long-row path
 (keys of a row beyond what 8 CTAs' shared memory holds, ~379k tokens), where
-the keys, 4 bytes per token and kv head, go to a device scratch.  On a CPU
-tensor it runs :func:`fier_retrieve_plain`, the same function in plain
-PyTorch.
+the keys, 4 bytes per token and kv head, go to a device scratch.  Every
+d_head that is a multiple of 8 up to 256 runs at every rep (the shapes
+without a fixed instantiation on the generic layout, ``fier_score``).  On
+a CPU tensor it runs :func:`fier_retrieve_plain`, the same function in
+plain PyTorch.
 
 Given a ``block_table`` [B, n_btab], ``fier_retrieve`` is K3: it reads the
 side-car from a block pool (codes [N, bs/8, Hkv, D], scale/zero
@@ -38,7 +43,9 @@ from repro_torch.kvcache.paged import gather_block_rows
 from repro_torch.obs.flopcount import kernel_leaf
 
 from . import build
-from .fier_score import check_kernel_shape, retrieval_scores  # K1 shares K6's instantiations
+from .fier_score import (  # K1 shares K6's instantiations
+    ANY_Q_FLOATS, check_kernel_shape, fixed_shape, retrieval_scores,
+)
 from .topk_select import compact_indices, fier_topk_threshold_plain
 
 launches = 0  # K1 kernel launches since the last reset (the chip check reads it)
@@ -53,17 +60,24 @@ FILL_CLUSTER = 4
 
 def smem_static(d_head: int, rep: int) -> int:
     """The static shared memory of the instantiation taking (d_head, rep),
-    as ``smem_static`` in ``csrc/fier_retrieve.cu`` counts it: q in f32 for
+    as ``smem_static`` in ``csrc/fier_retrieve.cuh`` counts it: q in f32 for
     the query heads it stages (``rep_slots`` in ``csrc/fier_common.cuh``: 8
     at d_head 128 up to rep 8, the serving instantiation, else 16), each of
     16 warps' 2^c × 32 scoring sums (c = ``lane_channels``, the channels a
     lane owns: 1 at d_head 16 and 32, 2 at 64, 4 at 112 and 128), one radix histogram per
     pass and their sum, scan scratch, rounded up to a KiB (43,008 B at
     d_head 128, rep ≤ 8; 46,080 at 112; 12,288 at 32 and 11,264 at 16,
-    whose lanes own one channel each)."""
-    rep_slots = 8 if d_head == 128 and rep <= 8 else 16
-    lane_channels = 1 if d_head <= 32 else 2 if d_head == 64 else 4
-    floats = rep_slots * d_head + 16 * 32 * 2**lane_channels + 4 * 256 + 256 + 16 + 4
+    whose lanes own one channel each).  The generic instantiation (every
+    other shape) stages ANY_Q_FLOATS of query heads at a time and has 8
+    warps whose lanes own the channels of its layout class: 38,912 B in the
+    classes 128 and 256, 26,624 in 64, 24,576 in 32."""
+    if fixed_shape(d_head, rep):
+        q_floats, warps = (8 if d_head == 128 and rep <= 8 else 16) * d_head, 16
+        lane_channels = 1 if d_head <= 32 else 2 if d_head == 64 else 4
+    else:
+        q_floats, warps = ANY_Q_FLOATS, 8
+        lane_channels = 1 if d_head <= 32 else 2 if d_head <= 64 else 4
+    floats = q_floats + warps * 32 * 2**lane_channels + 4 * 256 + 256 + warps + 4
     return -(-4 * floats // 1024) * 1024
 
 
@@ -197,17 +211,20 @@ def _check(q, codes, scale, zero, block_table, lengths, budget, group, group_red
     return B, Hkv, rep, D, S, bs
 
 
-_fn = None
+_fns = {}  # library name -> its launch function
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("fier_retrieve").fier_retrieve_launch
+def _kernel(name: str = "fier_retrieve"):
+    """The launch function of ``csrc/<name>.cu``: "fier_retrieve" and
+    "fier_retrieve_paged" (K1's and K3's fixed instantiations) or
+    "fier_retrieve_any" (the generic layout of both)."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load(name), f"{name}_launch")
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 @kernel_leaf
@@ -262,7 +279,9 @@ def fier_retrieve(
         (B * Hkv, plan.cluster * plan.cta_tokens), dtype=torch.int32, device=dev
     )
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(
+    name = ("fier_retrieve_paged" if paged else "fier_retrieve") if fixed_shape(D, rep) else \
+        "fier_retrieve_any"
+    err = _kernel(name)(
         q.data_ptr(), codes.data_ptr(), scale.data_ptr(), zero.data_ptr(),
         table.data_ptr() if paged else None, lengths.data_ptr(), idx.data_ptr(),
         tau.data_ptr(), m.data_ptr(), B, S, bs, Hkv, rep, D, group, budget,

@@ -24,13 +24,9 @@ import torch
 from repro_torch.obs.flopcount import kernel_leaf
 
 from . import build
+from .fier_score import check_head_dim
 
 launches = 0  # K5 kernel launches since the last reset (the chip check reads it)
-
-# the d_heads the card has checked the kernel at (chip_smoke.py phase 2; the
-# .cu walks Hkv·D channels and takes any D, anything else is ROADMAP Queue 2
-# item A)
-KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def fier_pack_quantize_plain(k: torch.Tensor, group: int):
@@ -79,9 +75,9 @@ def fier_pack_quantize(k: torch.Tensor, group: int):
         return fier_pack_quantize_plain(k, group)
     if dev.type != "cuda":
         raise ValueError(f"fier_pack_quantize runs on cuda or cpu, not {dev}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIMS}, got {D} "
-                         f"(others: ROADMAP Queue 2 item A)")
+    # the .cu walks Hkv·D channels and takes any D; the rule is the other
+    # kernels', whose side-car it writes
+    check_head_dim(D)
     k = k.contiguous()
     codes = torch.empty((B, S // 8, H, D), dtype=torch.uint8, device=dev)
     scale = torch.empty((B, S // group, H, D), dtype=torch.bfloat16, device=dev)

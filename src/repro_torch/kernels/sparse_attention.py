@@ -10,9 +10,12 @@ from the seq-major [B, S, Hkv, D] K/V slabs (no K'/V' copy), and the
 1/√D, slots with idx ≥ length masked, f32 softmax, output
 out / max(den, 1e-30) in f32.
 
-On a CUDA tensor ``fier_attend_selected`` launches ``csrc/fier_attend.cu``
-once: each (b, h) row's slots are split over a thread-block cluster as
-:func:`attend_plan` says; in every CTA, 16 lane groups (32 at D ≤ 64)
+On a CUDA tensor ``fier_attend_selected`` launches ``csrc/fier_attend.cuh``'s
+kernel (K2's fixed instantiations built as ``csrc/fier_attend.cu``, K4's as
+``fier_attend_paged.cu``, K8's as ``fier_attend_gathered.cu``, the generic
+layout of all three as ``fier_attend_any.cu``) once: each (b, h) row's
+slots are split over a thread-block cluster as :func:`attend_plan` says; in
+every CTA, 16 lane groups (32 at D ≤ 64)
 stream their slots' K and V rows into shared memory with ``cp.async`` (a
 ring of 96 KiB, masked slots never read), each keeping an online softmax
 (above rep 8 two lane groups share a slot's rows and keep half the query
@@ -21,6 +24,10 @@ output) through distributed shared memory in rank order.  Only ``out`` is
 allocated.  The kernel is bound by bytes:
 at the serving shape (B 4, Hkv 16, budget 1024, D 128, lengths
 8192/5003/2100/700) it must move 31,211,536 B, 0.00932 ms at 3.35 TB/s.
+Every d_head that is a multiple of 8 up to 256 runs at every rep: the
+shapes without a fixed instantiation take a generic one (d_head and rep at
+run time, 32-lane row groups above d_head 128), each CTA attending for a
+block of :func:`head_block` query heads.
 On a CPU tensor it runs :func:`fier_attend_selected_plain`.
 
 Given a ``block_table`` [B, n_btab], ``fier_attend_selected`` is K4: it
@@ -50,15 +57,17 @@ from repro_torch.kvcache.paged import gather_block_rows
 from repro_torch.obs.flopcount import kernel_leaf
 
 from . import build
+from .fier_score import check_head_dim
 
 launches = 0  # K2 kernel launches since the last reset (the chip check reads it)
 launches_paged = 0  # K4 kernel launches since the last reset
 launches_gathered = 0  # K8 kernel launches since the last reset
 
-# the d_heads and the query heads per kv head the CUDA kernel is
-# instantiated for (one instantiation per pair: KERNEL_REPS at each d_head,
+# the d_heads and the query heads per kv head the CUDA kernel has fixed
+# instantiations for (one per pair: KERNEL_REPS at each d_head,
 # KERNEL_REPS_AT where a d_head takes fewer), each checked on the card by
-# chip_smoke.py phase 2; anything else is ROADMAP Queue 2 item A
+# chip_smoke.py phase 2; every other d_head that is a multiple of 8 up to
+# 256, at any rep, runs a generic instantiation (head_block)
 KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 KERNEL_REPS = (1, 2, 4, 8, 12, 16)
 KERNEL_REPS_AT = {112: (1,)}  # zamba2-7b's shared attention block: 32 kv heads, rep 1
@@ -70,21 +79,49 @@ MAX_CHUNK = 2048  # slots whose rows (4 bytes each) a CTA holds at once (kMaxChu
 SMEM_LIMIT = 232448  # shared memory a CTA may use on sm_90
 
 
+def fixed_shape(d_head: int, rep: int) -> bool:
+    """Whether (d_head, rep) has a fixed instantiation (``Fixed`` in
+    ``csrc/fier_attend.cuh``); every other shape runs a generic one
+    (``csrc/fier_attend_any.cu``)."""
+    return d_head in KERNEL_HEAD_DIMS and rep in KERNEL_REPS_AT.get(d_head, KERNEL_REPS)
+
+
+def head_block(d_head: int, rep: int) -> int:
+    """The query heads a CTA attends for (kRep in the .cu): all ``rep`` at
+    a fixed instantiation; in a generic one the next power of two ≥ rep, at
+    most 16 (8 above d_head 128, whose 32-lane row groups leave no room for
+    a head split), the grid taking ceil(rep / block) blocks per row."""
+    if fixed_shape(d_head, rep):
+        return rep
+    return min(1 << (rep - 1).bit_length(), 8 if d_head > 128 else 16)
+
+
+def row_stride(d_head: int, rep: int) -> int:
+    """Floats per query head of a CTA's merge scratch and receive slots
+    (kD in the .cu): d_head at a fixed instantiation, else the widest
+    d_head of its layout class (64, 128 or 256)."""
+    if fixed_shape(d_head, rep):
+        return d_head
+    return 64 if d_head <= 64 else 128 if d_head <= 128 else 256
+
+
 def lanes_per_row(d_head: int) -> int:
     """Lanes of a row's lane group (kLPR in the .cu): d_head/8, each lane
     copying 8 channels (16 bytes), rounded up to a power of two and at
     least 8 (at 112 a row's 14 chunks take a 16-lane group, two lanes idle;
-    at 32 and 16 its 4 or 2 chunks take an 8-lane group, as at 64)."""
-    return 8 if d_head <= 64 else 16
+    at 32 and 16 its 4 or 2 chunks take an 8-lane group, as at 64; above 128
+    a 32-lane group)."""
+    return 8 if d_head <= 64 else 16 if d_head <= 128 else 32
 
 
 def step(d_head: int, rep: int) -> int:
     """Slots a CTA takes per step (kStep in the .cu): a row takes
     :func:`lanes_per_row` lanes, so 256 threads hold 32 lane groups at d_head
-    ≤ 64 and 16 at 112 and 128; above rep 8 two lane groups share a slot's
-    rows (each keeps half the query heads); 4 slots per slot group and step.
-    64 at d_head 128 up to rep 8."""
-    return 4 * (256 // lanes_per_row(d_head)) // (2 if rep > 8 else 1)
+    ≤ 64, 16 up to 128 and 8 above; above 8 query heads a CTA (its
+    :func:`head_block`) two lane groups share a slot's rows (each keeps half
+    the query heads); 4 slots per slot group and step.  64 at d_head 128 up
+    to rep 8."""
+    return 4 * (256 // lanes_per_row(d_head)) // (2 if head_block(d_head, rep) > 8 else 1)
 
 
 class AttendPlan(NamedTuple):
@@ -106,25 +143,30 @@ def attend_plan(budget: int, rows: int, n_sm: int, rep: int, d_head: int) -> Att
     ``n_sm`` SMs, for ``rep`` query heads per kv head of ``d_head``.
 
     C, the CTAs per row, is the largest power of two (≤ 8) whose grid
-    ``rows·C`` still runs in one wave of one CTA per SM and whose CTAs each
-    get at least one whole step (:func:`step` slots).  Two CTAs per SM
+    ``rows·blocks·C`` (blocks: the row's blocks of :func:`head_block`
+    query heads, 1 at a fixed instantiation) still runs in one wave of one
+    CTA per SM and whose CTAs each get at least one whole step
+    (:func:`step` slots).  Two CTAs per SM
     (they would fit: the 96 KiB ring and at most 8 KiB of rows each, at
     rep ≤ 8) were measured slower:
     clusters of them were not all placed in one wave (PERF.md).  A CTA finds
     the rows of up to ``MAX_CHUNK`` slots at once (its whole range unless
     the budget is very large).  ``rep`` selects the kernel's instantiation
-    and, with ``d_head``, sizes rank 0's receive slots and the step.  The
+    and, with ``d_head``, sizes rank 0's receive slots (C·block·
+    :func:`row_stride`·4 bytes, then 8 per head) and the step.  The
     plan never depends on where the rows are found (slab, pool or
     gathered), so K2, K4 and K8 split a row alike and give equal outputs
     bit for bit."""
     check_kernel_shape(d_head, rep)
     if budget <= 0 or rows <= 0 or n_sm <= 0:
         raise ValueError(f"budget {budget}, rows {rows} and n_sm {n_sm} must be positive")
+    block = head_block(d_head, rep)
+    units = rows * -(-rep // block)
     c = 1
-    while c < MAX_CLUSTER and rows * 2 * c <= n_sm and budget >= 2 * c * step(d_head, rep):
+    while c < MAX_CLUSTER and units * 2 * c <= n_sm and budget >= 2 * c * step(d_head, rep):
         c *= 2
     chunk = min(-(-budget // c), MAX_CHUNK)
-    recv = c * rep * (d_head + 2) * 4  # each rank's output and (max, den)
+    recv = c * block * (row_stride(d_head, rep) + 2) * 4  # each rank's output and (max, den)
     return AttendPlan(c, chunk, RING_BYTES + recv + 4 * chunk)
 
 
@@ -203,14 +245,11 @@ def _check(q, K, V, block_table, idx, lengths):
 
 
 def check_kernel_shape(d_head: int, rep: int) -> None:
-    """Raise for a (d_head, rep) the CUDA kernel has no instantiation for."""
-    if d_head not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes d_head {KERNEL_HEAD_DIMS}, got {d_head} "
-                         f"(others: ROADMAP Queue 2 item A)")
-    reps = KERNEL_REPS_AT.get(d_head, KERNEL_REPS)
-    if rep not in reps:
-        raise ValueError(f"the CUDA kernel takes {reps} query heads per kv head at "
-                         f"d_head {d_head}, got {rep} (others: ROADMAP Queue 2 item A)")
+    """Raise for a (d_head, rep) the CUDA kernel does not take: a d_head
+    that is not a multiple of 8 from 8 to 256, or rep below 1."""
+    check_head_dim(d_head)
+    if rep < 1:
+        raise ValueError(f"rep must be at least 1 query head per kv head, got {rep}")
 
 
 def check_kernel_operands(q, K, V) -> None:
@@ -232,20 +271,33 @@ def _plan(dev, rows: int, budget: int, rep: int, d_head: int) -> AttendPlan:
     return attend_plan(budget, rows, n_sm, rep, d_head)
 
 
-_fn = None
+_fns = {}  # (library, entry point) -> its launch function
+_SLAB_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_GATHERED_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+                  + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("fier_attend").fier_attend_launch
-        fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        )
+def _kernel(d_head: int = 128, rep: int = 1, rows: str = "slab"):
+    """The launch function for (d_head, rep) and where the rows are found
+    (``rows``: "slab" K2, "paged" K4, "gathered" K8): the fixed
+    instantiations' library of that kernel (``csrc/fier_attend.cu``,
+    ``fier_attend_paged.cu``, ``fier_attend_gathered.cu``) or the generic
+    layout's (``csrc/fier_attend_any.cu``, whose entry point takes slab and
+    pool alike)."""
+    if fixed_shape(d_head, rep):
+        lib = "fier_attend" if rows == "slab" else f"fier_attend_{rows}"
+        name = f"{lib}_launch"
+    else:
+        lib = "fier_attend_any"
+        name = "fier_attend_any_gathered_launch" if rows == "gathered" else "fier_attend_any_launch"
+    fn = _fns.get((lib, name))
+    if fn is None:
+        fn = getattr(build.load(lib), name)
+        fn.argtypes = _GATHERED_ARGS if rows == "gathered" else _SLAB_ARGS
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[(lib, name)] = fn
+    return fn
 
 
 @kernel_leaf
@@ -284,7 +336,7 @@ def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None,
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((B, Hkv, rep, D), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(
+    err = _kernel(D, rep, "paged" if paged else "slab")(
         q.data_ptr(), K.data_ptr(), V.data_ptr(), table.data_ptr() if paged else None,
         idx.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, S, bs, Hkv, rep, D, budget,
         1.0 / (D ** 0.5), plan.cluster, plan.chunk, int(q_bf16), stream,
@@ -298,28 +350,12 @@ def fier_attend_selected(q, K, V, idx, lengths=None, *, block_table=None,
     return out
 
 
-_fn_gathered = None
-
-
 def _strided_rows_ok(k_sel, v_sel) -> bool:
     """K8 reads k_sel/v_sel in place: equal strides, contiguous channels,
     every stride a multiple of 8 elements and 16-byte aligned data."""
     st = k_sel.stride()
     return (st == v_sel.stride() and st[3] == 1 and all(x % 8 == 0 for x in st[:3])
             and k_sel.data_ptr() % 16 == 0 and v_sel.data_ptr() % 16 == 0)
-
-
-def _kernel_gathered():
-    global _fn_gathered
-    if _fn_gathered is None:
-        fn = build.load("fier_attend").fier_attend_gathered_launch
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _fn_gathered = fn
-    return _fn_gathered
 
 
 @kernel_leaf
@@ -362,7 +398,7 @@ def fier_attend_gathered(q, k_sel, v_sel, mask) -> torch.Tensor:
     mask = mask.contiguous()
     out = torch.empty((B, Hkv, rep, D), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel_gathered()(
+    err = _kernel(D, rep, "gathered")(
         q.data_ptr(), k_sel.data_ptr(), v_sel.data_ptr(), mask.data_ptr(), out.data_ptr(),
         B, budget, Hkv, rep, D, *k_sel.stride()[:3], 1.0 / (D ** 0.5), plan.cluster, plan.chunk,
         int(q_bf16), stream,

@@ -296,24 +296,25 @@ def test_attend_plan_splits_slots(rows, budget, rep):
 
 @pytest.mark.parametrize("rep", [1, 2, 4, 8, 3, 5, 16])
 def test_attend_kernel_admits_reps(rep):
-    """The CUDA kernel has one instantiation per (d_head, rep) in
-    KERNEL_HEAD_DIMS x KERNEL_REPS (rep 16 and d_heads 64, 32, 16 among them): the
-    wrapper's operand check and the plan raise for any other, naming ROADMAP
-    Queue 2 item A (the plain version on the CPU takes it)."""
+    """The CUDA kernel has one fixed instantiation per (d_head, rep) in
+    KERNEL_HEAD_DIMS x KERNEL_REPS (rep 16 and d_heads 64, 32, 16 among
+    them); any other rep (3, 5) takes a generic instantiation whose block of
+    query heads is the next power of two.  The wrapper's operand check
+    admits every rep and every d_head that is a multiple of 8 up to 256
+    (96 among them), and refuses d_head 100 with the reason (the plain
+    version on the CPU takes it)."""
     q = torch.zeros((1, 2, rep, 128), dtype=torch.float32)
     K = torch.zeros((1, 64, 2, 128), dtype=torch.bfloat16)
-    if rep in sa.KERNEL_REPS:
-        for D in (128, 64, 32, 16):
-            sa.check_kernel_operands(q[..., :D], K[..., :D], K[..., :D])
-            C = sa.attend_plan(64, 2, 132, rep, D).cluster  # each CTA a whole step
-            assert C == 1 or C * sa.step(D, rep) <= 64
-    else:
-        with pytest.raises(ValueError, match="query heads per kv head.*item A"):
-            sa.check_kernel_operands(q, K, K)
-        with pytest.raises(ValueError, match="query heads per kv head"):
-            sa.attend_plan(64, 2, 132, rep, 128)
-    with pytest.raises(ValueError, match="d_head.*item A"):
-        sa.check_kernel_operands(q[..., :96], K[..., :96], K[..., :96])
+    for D in (128, 64, 32, 16):
+        sa.check_kernel_operands(q[..., :D], K[..., :D], K[..., :D])
+        C = sa.attend_plan(64, 2, 132, rep, D).cluster  # each CTA a whole step
+        assert C == 1 or C * sa.step(D, rep) <= 64
+        assert sa.fixed_shape(D, rep) == (rep in sa.KERNEL_REPS)
+        assert sa.head_block(D, rep) == (rep if rep in sa.KERNEL_REPS
+                                         else 1 << (rep - 1).bit_length())
+    sa.check_kernel_operands(q[..., :96], K[..., :96], K[..., :96])
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+        sa.check_kernel_operands(q[..., :100], K[..., :100], K[..., :100])
     with pytest.raises(ValueError, match="bf16"):
         sa.check_kernel_operands(q, K.float(), K)
     idx = torch.zeros((1, 2, 8), dtype=torch.int32)
@@ -344,10 +345,12 @@ def test_plans_fit_new_shapes(d_head, rep, rows):
         assert plan.smem_bytes == sa.RING_BYTES + recv + 4 * plan.chunk <= sa.SMEM_LIMIT
         covered = np.concatenate([np.arange(a, b) for a, b in plan.ranges(budget)])
         np.testing.assert_array_equal(covered, np.arange(budget))
-    with pytest.raises(ValueError, match="item A"):
-        fr.check_kernel_shape(96, 1)
-    with pytest.raises(ValueError, match="item A"):
-        fr.check_kernel_shape(128, 17)
+    fr.check_kernel_shape(96, 1)  # generic layouts: any multiple of 8 up to 256, any rep
+    fr.check_kernel_shape(128, 17)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 256"):
+        fr.check_kernel_shape(100, 1)
+    with pytest.raises(ValueError, match="at least 1"):
+        fr.check_kernel_shape(128, 0)
 
 
 @pytest.mark.parametrize("rows", [8, 128, 144])
@@ -355,8 +358,9 @@ def test_plans_fit_d112(rows):
     """d_head 112 (zamba2-7b's shared attention block): K1/K3/K6 take any
     rep up to 16 (the scoring warp's 28 active lanes own 4 channels each, so
     the static shared memory counts 128's 16-entry tables: 46,080 B at
-    every rep), while K2/K4/K8 take rep 1 only, on 16-lane row groups (two
-    lanes idle), so their step and ring are 128's."""
+    every rep), while K2/K4/K8 have a fixed instantiation at rep 1 only, on
+    16-lane row groups (two lanes idle), so their step and ring are 128's;
+    another rep there takes the generic layout of class 128."""
     assert fr.smem_static(112, 1) == fr.smem_static(112, 16) == 46080
     for S, bs in ((8192, None), (8192, 32), (65536, None)):
         for rep in (1, 4, 16):
@@ -370,12 +374,12 @@ def test_plans_fit_d112(rows):
         assert plan == sa.attend_plan(budget, rows, 132, 1, 128)._replace(
             smem_bytes=plan.smem_bytes)
         assert plan.smem_bytes == sa.RING_BYTES + plan.cluster * 114 * 4 + 4 * plan.chunk
-    with pytest.raises(ValueError, match="at d_head 112.*item A"):
-        sa.attend_plan(1024, rows, 132, 2, 112)
+    plan = sa.attend_plan(1024, rows, 132, 2, 112)
+    assert not sa.fixed_shape(112, 2) and sa.row_stride(112, 2) == 128
+    assert plan.smem_bytes == sa.RING_BYTES + plan.cluster * 2 * 130 * 4 + 4 * plan.chunk
     q = torch.zeros((1, 2, 4, 112))
     K = torch.zeros((1, 64, 2, 112), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="at d_head 112.*item A"):
-        sa.check_kernel_operands(q, K, K)
+    sa.check_kernel_operands(q, K, K)
     sa.check_kernel_operands(q[:, :, :1], K, K)
 
 
@@ -394,7 +398,7 @@ def test_plans_fit_small_heads(d_head, rep):
     assert fr.smem_static(d_head, rep) == fr.smem_static(d_head, 1) == static
     fr.check_kernel_shape(d_head, rep)
     sa.check_kernel_shape(d_head, rep)
-    assert d_head in pq.KERNEL_HEAD_DIMS
+    pq.check_head_dim(d_head)
     for S, bs in ((64, None), (64, 8), (264, None), (264, 8), (8192, None), (8192, 32)):
         for rows in (1, 8, 64):
             plan = fr.retrieval_plan(S, rows, 132, bs, d_head=d_head, rep=rep)

@@ -67,10 +67,10 @@ SOURCE_STAMPS = {
         ("  const size_t row_stride = (size_t)Hkv * D;  // elements between seq rows\n",
          "  const size_t row_stride = (size_t)Hkv * D;  // elements between seq rows\n"
          "  if (tid == 0) stamp(0);\n"),
-        ("      q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);\n    __syncthreads();\n",
-         "      q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);\n    __syncthreads();\n"
-         "    if (tid == 0 && u == (int)blockIdx.x) stamp(1);\n"),
-        ("      cur = nxt;\n", "      if (tid == 0 && c == c0) stamp(2);\n      cur = nxt;\n"),
+        ("        q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);\n      __syncthreads();\n",
+         "        q_s[i] = __bfloat162float(q[(size_t)row * rep * D + i]);\n      __syncthreads();\n"
+         "      if (tid == 0 && u == (int)blockIdx.x) stamp(1);\n"),
+        ("\n        cur = nxt;\n", "\n        if (tid == 0 && c == c0) stamp(2);\n        cur = nxt;\n"),
         ("    }\n  }\n}\n\ntemplate <int kD, int kMaxRep>",
          "    }\n  }\n  __syncthreads();\n  if (tid == 0) stamp(15);\n}\n\n"
          "template <int kD, int kMaxRep>"),
