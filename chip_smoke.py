@@ -8,6 +8,7 @@
     python3 chip_smoke.py --sharded-train-only  # phases 1 and 13 only, no result line
     python3 chip_smoke.py --examples-only # phases 1 and 14 only, no result line
     python3 chip_smoke.py --any-heads-only  # phases 1 and 15 only, no result line
+    python3 chip_smoke.py --wide-only     # phases 1 and 16 only, no result line
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
@@ -67,7 +68,8 @@ result line):
    K2 bit for bit, each timed (d_head 112 at rep 1 too, budgets 1000 and
    8192).  Then K1–K8 at the kernel shapes of the family configs
    (``FAMILY_SHAPES``: granite-moe's Hkv 8 x rep 2 and minicpm's 36 x 1 at
-   d_head 64, starcoder2's 2 x 12 and qwen3-moe's 4 x 16 at 128, zamba2's
+   d_head 64, starcoder2's 2 x 12, command-r's 8 x 12 and qwen3-moe's 4 x 16
+   at 128, zamba2's
    32 x 1 at 112, whisper's 12 x 1 at 64 with S 4096), with the gates and
    timings of the main path's shape, and K1/K3/K6 at d_head 112 with rep 4
    (``D112_GQA_SHAPE``; K2/K4/K8 take rep 1 only there).  Then d_head 16
@@ -142,7 +144,7 @@ result line):
    slm at budget = capacity give the ``full`` engine's first-step logits
    within 0.015·max|logit| (quest's reading with one page planted out of
    its choice is reported beside it); quest and slm launch
-   none of K1–K8 (their first steps counted alone, then 16 steps of each
+   none of K1–K8 (their first steps counted alone, then 8 steps of each
    engine in turns, timed, with only FIER's K1/K2 launched); the eviction
    family (StreamingLLM mask, SnapKV, 32 steps each of H2O and TOVA) on
    layer 2's cache of slot 0 gives equal alive sets on the card and a CPU
@@ -175,9 +177,10 @@ result line):
    weights from a seeded ``torch.Generator``, ``Engine.build``'s default
    policy (fier / one_pass / budget 1024 / skip 2), each model freed before
    the next: granite-moe-1b-a400m (24 layers, 32 experts top-8, d_head 64,
-   rep 2), minicpm-2b (40 layers, d_head 64, 36 kv heads) and starcoder2-3b
-   (30 layers, rep 12), 4 slots x 8192, prompts 8100/6000/3000/1500, and
-   llava-next-mistral-7b (32 layers, rep 4) at 2 slots x 8192 with 576
+   rep 2), minicpm-2b (d_head 64, 36 kv heads; 20 of its 40 layers) and
+   starcoder2-3b (30 layers, rep 12), 4 slots x 8192, prompts
+   8100/6000/3000/1500, and llava-next-mistral-7b (rep 4; 16 of its 32
+   layers) at 2 slots x 8192 with 576
    seeded vision embeddings before 7000/3000 text tokens.  Each: the first
    decode step with the kernels within 0.017·max|logit| of the step with
    their plain versions (``FAMILY_LOGIT_REL_TOL``, set between the sound
@@ -186,13 +189,13 @@ result line):
    replayed from the plain run where a near-tied router swapped one, the
    unpinned gap and the swaps reported), and two planted faults (K2 fed
    idx+1; K1's first-FIER-layer selection on the next kv head) above it;
-   ``generate`` of 32 (granite) or 16 greedy tokens with K1/K2 launched
+   ``generate`` of 16 greedy tokens with K1/K2 launched
    (layers − 2) x decode steps and no other FIER kernel (llava: 8
    ``decode`` steps after the bundle's ``prefill``); granite's prefill
    logits identical to the reference pipeline's, and its prompts through a
    paged engine (``paged_vs_slab``: tokens and first-step logits equal, K3/K4
-   per step).  Reported, not gated: unprofiled decode ms/step (median of 8),
-   TTFT, device-busy ms and launches per step under the profiler, peak
+   per step).  Reported, not gated: unprofiled decode ms/step (median of 4),
+   TTFT, device-busy ms and launches of a step under the profiler, peak
    memory above what was allocated before the model.
 10. The ssm, hybrid and encdec families at full width and depth
    (``ssm_hybrid_encdec_path``), random weights from a seeded
@@ -250,7 +253,7 @@ result line):
    (a) olmo-1b at full width, phase 4's weights and prompts, paged one_pass
    (bs 32, default pool) on ``make_mesh`` meshes tp2, dp2 and tp2 x dp2
    (``Engine.build(mesh=...)``) against the one-device paged engine: the
-   prefill logits bit for bit; 32 decode steps teacher-forced with the
+   prefill logits bit for bit; 16 decode steps teacher-forced with the
    one-device run's tokens, bit for bit on tp2 and dp2
    (``SHARD_BITWISE``) and on tp2 x dp2 the first within
    ``SHARD_LOGIT_REL_TOL`` and every one within ``SHARD_DRIFT_REL_TOL`` of
@@ -265,7 +268,7 @@ result line):
    (phase 2's tolerances); K3 = K4 = 14 × steps × shards and nothing else;
    clean audits; ``count_score_bytes`` of one sharded layer 0 for one_pass
    (every shard) and > 0 for the reference pipeline; decode ms/step
-   (median of 8) and a profile beside the one device's.  (b)
+   (median of 4) and a profile beside the one device's.  (b)
    granite-moe-1b-a400m, depth cut to 6 layers, at tp2 (4 kv heads × rep 2
    per shard, d_head 64): prefill logits and the first decode step bit for
    bit.  (c) phase 5's 12 requests through ``ContinuousScheduler`` (chunk
@@ -360,11 +363,28 @@ result line):
    greedy steps with equal tokens and first logits, each launching its own
    K1/K2 or K3/K4 14 × steps and nothing else, the slab's profiled
    (device-busy ms/step, K1/K2 per launch).
-16. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+16. The registry's two widest configs at full width (``wide_path``),
+   depth cut to 8 layers (2 dense skip layers + 6 FIER layers) to fit the
+   card: command-r-plus-104b (d_model 12288, 96 heads on 8 kv heads of 128,
+   d_ff 33792, a tied 256,000-word head) and qwen3-moe-235b-a22b (d_model
+   4096, 64 heads on 4 kv heads of 128, 128 experts top-8, an untied
+   151,936-word head), both with bf16 params, random weights from a seeded
+   ``torch.Generator``, ``Engine.build``'s default policy, 4 slots x 8192,
+   prompts 8100/6000/3000/1500, each freed before the next: phase 9's drive
+   with every check for both (prefill logits identical to the reference
+   pipeline's; the first decode step within phase 9's 0.017·max|logit| of
+   the plain versions' step with its two planted faults above it, qwen3's
+   expert choices replayed where a near-tied router swapped one;
+   ``generate`` of 16 tokens with K1/K2 launched 6 x 15 times and nothing
+   else; paged vs slab with K3/K4 6 a step), peak memory over init, the
+   prefill, the checks and the decode steps, TTFT, decode ms/step, a
+   profiled step and the head's device ms alone.
+17. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5, phase 12's
    per-shard counts in ``launches_sharded`` and phase 13(e)'s in
    ``launches_sharded_train``; K6/K7: phase 6's generate; K5/K8: phase 6's
-   building blocks; phases 9, 10, 11(e), 14 and 15's beside them; the d_head
+   building blocks; phases 9, 10, 11(e), 14, 15 and 16's beside them, phase
+   16's with its per-launch device times; the d_head
    16 and 32 entries of phase 2 under ``small_heads``, the generic layout's
    under ``any_heads``), the card line, and
    as the last line ``{"ok": true, "device": {...}}``.
@@ -1336,7 +1356,7 @@ ATTEND_VARIANTS = (
     ("d112_rep1_budget_8192", (SLOTS, 32, 1, 112), CAPACITY),
 )
 
-# The kernel shapes of the configs that phases 9 and 10 serve (g 32, budget
+# The kernel shapes of the configs that phases 9, 10 and 16 serve (g 32, budget
 # 1024, lengths S/5003/2100/700 scaled to S): (B, Hkv, rep, D, S, group
 # reduction) -> config.  Phase 2 holds K1-K8 to their plain versions at each,
 # as at the main path's.  zamba2-7b's shared attention block is the d_head
@@ -1345,6 +1365,7 @@ FAMILY_SHAPES = {
     "granite-moe-1b-a400m": (SLOTS, 8, 2, 64, CAPACITY, "max"),
     "minicpm-2b": (SLOTS, 36, 1, 64, CAPACITY, "max"),
     "starcoder2-3b": (SLOTS, 2, 12, 128, CAPACITY, "max"),
+    "command-r-plus-104b": (SLOTS, 8, 12, 128, CAPACITY, "max"),
     "qwen3-moe-235b-a22b": (SLOTS, 4, 16, 128, CAPACITY, "max"),
     "zamba2-7b": (SLOTS, 32, 1, 112, CAPACITY, "max"),
     "whisper-small": (SLOTS, 12, 1, 64, 4096, "max"),
@@ -2109,7 +2130,8 @@ def paged_vs_slab(torch, cfg, params, slab, prompts=PROMPTS, steps=MAX_NEW, prof
     into a paged one (bs 32, default pool), then ``steps`` greedy decode
     steps, the paged engine calling ``advance_slot`` for every slot before
     each step.  Tokens and the first step's logits must be equal; each
-    engine must have run only its own layout's kernels, 14 per step.
+    engine must have run only its own layout's kernels, once per FIER layer
+    (layers − skip) and step.
     ``profiles`` (a dict): each engine's launch counts, median ms/step and
     ``profile_decode`` readings (the paged engine's only with
     ``profile_paged``) go there under "slab" and "paged"."""
@@ -2522,13 +2544,15 @@ PORT_KERNEL_NAMES = ("fier_retrieve_kernel", "fier_attend_kernel", "fier_score_k
                      "topk_threshold_kernel", "pack_quantize_kernel")
 
 
-def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
+def profile_decode(torch, eng, params, tok, cache, active, steps: int = 1):
     """Device busy share of decode steps, their kernel launches and the
     kernels that fill them (torch.profiler; the profiler's own overhead
     slows the host side, so the busy share is a lower bound on an
     unprofiled step's).  Only kernel rows are summed: an operator row
     repeats its kernels' time.  A paged engine's step includes
-    ``advance_slot`` for every active slot, as the scheduler runs it."""
+    ``advance_slot`` for every active slot, as the scheduler runs it.  One
+    step by default: the trace's events, not the step, cost the time
+    (several seconds a step at olmo-1b's width)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2572,6 +2596,13 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 3):
                 launches_per_step=n_kernels / steps,
                 port={k: dict(ms_per_step=ms, ms_per_launch=ms / n)
                       for k, (ms, n) in port.items() if n})
+
+
+def launch_ms(prof, kernel):
+    """Device ms per launch of a port kernel in a ``profile_decode`` reading
+    (None without a reading or a launch)."""
+    entry = (prof or {}).get("port", {}).get(kernel)
+    return entry["ms_per_launch"] if entry else None
 
 
 # ------------------------------------------------------------ phase 6
@@ -2803,7 +2834,7 @@ def two_pass_path(torch, cfg, params, p3, one):
 # ------------------------------------------------------------ phase 7
 
 QUEST_PAGE = 16
-TURN_STEPS = 16             # phase 7's decode steps per engine, taken in turns
+TURN_STEPS = 8              # phase 7's decode steps per engine, taken in turns
 EVICT_STEPS = 32
 QUEST_OUT_REL_TOL = 1e-4    # quest's f32 attention output, card vs CPU: f32 sum order
 # quest and slm at budget = capacity select every valid token, as full attention
@@ -3587,18 +3618,21 @@ def robustness_path(torch, cfg, params, p3, outs_p5):
 
 # ------------------------------------------------------------ phase 9
 
-# The transformer-family configs served at full width and depth: (config,
-# slots, prompt lengths, greedy tokens).  The longest prompt leaves room in
-# the 8192-token slab for the generated, timed and profiled steps.
+# The transformer-family configs served at full width: (config, slots,
+# prompt lengths, greedy tokens, layers or None for the config's depth).  The
+# longest prompt leaves room in the 8192-token slab for the generated, timed
+# and profiled steps.  minicpm-2b (40 layers) and llava (32) run at half
+# depth for the script's time limit; starcoder2-3b keeps its 30, whose
+# planted faults sit nearest the gate.
 FAMILY_PROMPTS = (8100, 6000, 3000, 1500)
 FAMILY_RUNS = (
-    ("granite-moe-1b-a400m", SLOTS, FAMILY_PROMPTS, 32),
-    ("minicpm-2b", SLOTS, FAMILY_PROMPTS, 16),
-    ("starcoder2-3b", SLOTS, FAMILY_PROMPTS, 16),
+    ("granite-moe-1b-a400m", SLOTS, FAMILY_PROMPTS, 16, None),
+    ("minicpm-2b", SLOTS, FAMILY_PROMPTS, 16, 20),
+    ("starcoder2-3b", SLOTS, FAMILY_PROMPTS, 16, None),
 )
 VLM = "llava-next-mistral-7b"
-VLM_SLOTS, VLM_TEXT, VLM_STEPS = 2, (7000, 3000), 8
-TIMED_STEPS = 8
+VLM_SLOTS, VLM_TEXT, VLM_STEPS, VLM_LAYERS = 2, (7000, 3000), 8, 16
+TIMED_STEPS = 4
 # Phase 9's first-step gate as a fraction of max|logit|, set as phase 3's
 # were: between the largest sound reading and the smallest planted fault's
 # (PERF.md, PR 18).  Sound: minicpm-2b 0.01566 (38 FIER layers; above phase
@@ -3726,23 +3760,43 @@ def timed_steps(torch, eng, params, tok, cache, steps):
     return median(ms), tok, cache
 
 
-def family_drive(torch, arch, n_slots, prompts, max_new):
-    """One config at full width through ``Engine.build``'s default policy
-    (fier / one_pass / slab / budget 1024 / skip 2), random weights from a
-    seeded ``torch.Generator``: the first decode step with the kernels vs
-    their plain versions, then ``generate`` of ``max_new`` greedy tokens
-    with K1/K2 launched (layers − 2) × (max_new − 1) times and no other FIER
-    kernel, then timed and profiled decode steps.  granite-moe also checks
-    the reference pipeline's prefill logits (identical) and runs the same
-    prompts through a paged engine (``paged_vs_slab``: tokens equal, K3/K4
-    per step).  Returns a dict of what it measured."""
+def head_ms(torch, cfg, params, n_slots) -> float:
+    """Device ms of one decode step's head (``_masked_logits`` over
+    ``n_slots`` seeded hidden states), median of 5 CUDA-event readings."""
+    from repro_torch.configs import padded_vocab
+    from repro_torch.models.transformer import _masked_logits
+
+    W = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    h = torch.randn((n_slots, cfg.d_model), generator=torch.Generator(device=DEVICE).manual_seed(3),
+                    device=DEVICE).to(torch.bfloat16)
+    return Timer(torch)(lambda: _masked_logits(h, W, cfg.vocab, padded_vocab(cfg)), iters=5,
+                        warmup=1)
+
+
+def family_drive(torch, cfg, n_slots, prompts, max_new, *, full_checks=None):
+    """One config through ``Engine.build``'s default policy (fier / one_pass
+    / slab / budget 1024 / skip 2), random weights from a seeded
+    ``torch.Generator``: the first decode step with the kernels vs their
+    plain versions (``family_first_step``), then ``generate``
+    of ``max_new`` greedy tokens with K1/K2 launched (layers − 2) ×
+    (max_new − 1) times and no other FIER kernel, then timed and profiled
+    decode steps.  With ``full_checks`` (by default a moe config's) it also
+    checks the reference pipeline's prefill logits (identical) and runs the
+    same prompts through a paged engine (``paged_vs_slab``: tokens equal,
+    K3/K4 per step, both engines profiled).  Peak memory is read over init,
+    over the timed prefill, over the checks and ``generate`` after it, and
+    over the timed decode steps (absolute), and the drive's peak above what
+    was allocated before the model.
+    Returns a dict of what it measured."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import Engine, serving_policy
 
-    cfg = get_config(arch)
+    arch = cfg.name
+    if full_checks is None:
+        full_checks = cfg.family == "moe"
+    cuda = DEVICE == "cuda"
     base = peak_base(torch)
     eng = Engine.build(cfg, n_slots=n_slots, capacity=CAPACITY, device=DEVICE)
     pol = eng.bundle.policy
@@ -3751,12 +3805,18 @@ def family_drive(torch, arch, n_slots, prompts, max_new):
         raise AssertionError(f"Engine.build's default policy is {pol}")
     n_fier = cfg.n_layers - SKIP
     params = eng.compute_params(eng.bundle.init(torch.Generator(device=DEVICE).manual_seed(0)))
+    out = dict(arch=arch, layers=cfg.n_layers, d_head=cfg.d_head,
+               rep=cfg.n_heads // cfg.n_kv_heads, kv_heads=cfg.n_kv_heads)
+    memory = out["memory_gib"] = {}
+    if cuda:
+        sync(torch)
+        memory.update(base=base / 2**30, init_peak=peak_gib(torch, 0),
+                      after_init=torch.cuda.memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(9)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n_slots, max(prompts)))).to(DEVICE)
     lengths = torch.tensor(prompts, dtype=torch.int32, device=DEVICE)
     batch = {"tokens": toks, "lengths": lengths}
-    out = dict(arch=arch, layers=cfg.n_layers, d_head=cfg.d_head,
-               rep=cfg.n_heads // cfg.n_kv_heads, kv_heads=cfg.n_kv_heads)
 
     sync(torch)
     t0 = time.perf_counter()
@@ -3764,7 +3824,9 @@ def family_drive(torch, arch, n_slots, prompts, max_new):
     tok0 = torch.argmax(lg0, -1).to(torch.int32)
     sync(torch)
     out["ttft_ms"] = 1e3 * (time.perf_counter() - t0)
-    if cfg.family == "moe":
+    if cuda:
+        memory["prefill_peak"] = peak_gib(torch, 0)
+    if full_checks:
         ref = Engine.build(cfg, n_slots=n_slots, capacity=CAPACITY, device=DEVICE,
                            policy=serving_policy(budget=BUDGET, pipeline="reference"))
         lg_ref, cache_ref = ref.prefill_batch(params, batch)
@@ -3792,8 +3854,14 @@ def family_drive(torch, arch, n_slots, prompts, max_new):
     if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
         raise AssertionError(f"{arch}: generated tokens out of range")
     out["launches"] = {k: counts[k] for k in SLAB_KERNELS}
+    if cuda:
+        # the peak since the timed prefill (reference prefill, first steps, generate)
+        memory["checks_peak"] = peak_gib(torch, 0)
+        torch.cuda.reset_peak_memory_stats()
     out["ms_step"], tok, cache = timed_steps(torch, eng, params, gen[:, -1].clone(), cache,
                                              TIMED_STEPS)
+    if cuda:
+        memory["decode_peak"] = peak_gib(torch, 0)
     lens = cache["length"].tolist()
     want = [p + max_new - 1 + TIMED_STEPS for p in prompts]
     if lens != want:
@@ -3801,17 +3869,25 @@ def family_drive(torch, arch, n_slots, prompts, max_new):
     log(f"  launches {out['launches']}: {n_fier} x {max_new - 1} decode steps; generate "
         f"{max_new} tokens {t_gen:.3f} s; TTFT (prefill + sample) {out['ttft_ms']:.1f} ms; "
         f"decode median {out['ms_step']:.2f} ms/step (unprofiled, {TIMED_STEPS} steps)")
-    if DEVICE == "cuda":
-        profile_decode(torch, eng, params, tok, cache, None)
+    if cuda:
+        if not full_checks:  # else paged_vs_slab profiles this engine below
+            out["profile"] = profile_decode(torch, eng, params, tok, cache, None)
+        out["head_ms"] = head_ms(torch, cfg, params, n_slots)
+        log(f"  the head alone (device ms, median of 5): {out['head_ms']:.3f}")
     del cache
-    if cfg.family == "moe":
+    if full_checks:
         log(f"  paged vs slab on the same prompts (bs {BLOCK_SIZE}, default pool)")
+        profiles = {}
         out["launches_paged"] = {k: v for k, v in paged_vs_slab(
-            torch, cfg, params, eng, prompts=prompts, steps=max_new).items()
+            torch, cfg, params, eng, prompts=prompts, steps=max_new, profiles=profiles).items()
             if k in PAGED_KERNELS}
-    if DEVICE == "cuda":
-        out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
-        log(f"  peak memory {out['peak_gib']:.2f} GiB")
+        out["paged_vs_slab"] = profiles
+    if cuda:
+        # the whole drive's peak (the counter was reset after init and prefill)
+        out["peak_gib"] = max(peak_gib(torch, 0), *(
+            memory[k] for k in ("init_peak", "prefill_peak", "checks_peak"))) - memory["base"]
+        log(f"  peak memory {out['peak_gib']:.2f} GiB; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in memory.items()) + " GiB allocated (absolute)")
     del eng, params
     return out
 
@@ -3822,13 +3898,15 @@ def vlm_drive(torch):
     lengths counting them; the first decode step with the kernels vs their
     plain versions; then VLM_STEPS greedy ``decode`` steps with K1/K2
     launched (layers − 2) × VLM_STEPS times."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import Engine
 
-    cfg = get_config(VLM)
+    cfg = dataclasses.replace(get_config(VLM), n_layers=VLM_LAYERS)
     base = peak_base(torch)
     eng = Engine.build(cfg, n_slots=VLM_SLOTS, capacity=CAPACITY, device=DEVICE)
     n_fier = cfg.n_layers - SKIP
@@ -3884,12 +3962,19 @@ def vlm_drive(torch):
 def families_path(torch):
     """Phase 9: granite-moe-1b-a400m, minicpm-2b, starcoder2-3b and
     llava-next-mistral-7b at full width, each freed before the next."""
+    import dataclasses
     import gc
 
+    from repro_torch.configs import get_config
+
     runs = {}
-    for arch, n_slots, prompts, max_new in FAMILY_RUNS:
-        log(f"  [{arch}] {n_slots} slots x {CAPACITY}, prompts {prompts}, {max_new} tokens")
-        runs[arch] = family_drive(torch, arch, n_slots, prompts, max_new)
+    for arch, n_slots, prompts, max_new, layers in FAMILY_RUNS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        log(f"  [{arch}] {cfg.n_layers} layers, {n_slots} slots x {CAPACITY}, prompts {prompts}, "
+            f"{max_new} tokens")
+        runs[arch] = family_drive(torch, cfg, n_slots, prompts, max_new)
         gc.collect()
         if DEVICE == "cuda":
             torch.cuda.empty_cache()
@@ -4710,8 +4795,8 @@ def training_path(torch):
 # meshes of phase 12, every shard on the one card: name, shape, axes
 SHARD_MESHES = (("tp2", (2,), ("model",)), ("dp2", (2,), ("data",)),
                 ("tp2xdp2", (2, 2), ("data", "model")))
-SHARD_STEPS = MAX_NEW   # gated decode steps per engine in (a)
-SHARD_TIMED_STEPS = 8   # then timed ones (median), outside the counted window
+SHARD_STEPS = 16        # gated decode steps per engine in (a), cut from 32 for the time limit
+SHARD_TIMED_STEPS = 4   # then timed ones (median), outside the counted window
 GRANITE_SHARD_LAYERS = 6  # (b): granite-moe-1b-a400m's depth cut (4 FIER layers)
 LONG_SHARDS = 4
 LONG_SEQ = (1, 16, 1, 128, 524288, 4096)  # B, Hkv, rep, D, S, budget: long_500k
@@ -4726,9 +4811,10 @@ SHARD_BITWISE = ("tp2", "dp2")
 # decode step's gate and the band over every teacher-forced step (the
 # rounding reaches the cache and drifts) each sit between the sound reading
 # and the smallest planted fault's (as phase 3's).  The faults are read at
-# every one of the 32 steps; one present throughout is seen where its
-# largest step passes the band.  Readings on one "NVIDIA H100 80GB HBM3,
-# 700.00 W" (PERF.md §6; the faults' first / least / largest step):
+# every one of the SHARD_STEPS steps; one present throughout is seen where
+# its largest step passes the band.  Readings on one "NVIDIA H100 80GB HBM3,
+# 700.00 W" over 32 steps (PERF.md §6; the faults' first / least / largest
+# step):
 SHARD_LOGIT_REL_TOL = 0.017   # tp2 x dp2: sound 0.01255, faults 0.0226 / 0.0886 / 1.158
 SHARD_DRIFT_REL_TOL = 0.02    # sound: tp2 x dp2 0.01429, the dp2 stream 0.01431; faults
 #   K3 on the next kv head 0.0226 / 0.0189 / 0.0265, K4 idx+1 0.0886 / 0.0677 / 0.0975,
@@ -6002,7 +6088,7 @@ REDUCED_ROUNDED_CACHE = ("whisper-small", "zamba2-7b")
 # a paged engine (bs 8, sink 0, recent 0, so K1/K3 select), 4 requests
 REDUCED_STREAM_ARCHS = ("olmo-1b", "llava-next-mistral-7b")
 # (d): the passkey example's training steps (its default, as the JAX
-# example's)
+# example's; at 400 every policy reads 0.25)
 PASSKEY_STEPS = 600
 
 
@@ -6545,6 +6631,55 @@ def any_heads_path(torch):
     return out
 
 
+# ------------------------------------------------------------ phase 16
+
+# The registry's two widest configs at full width, depth cut to fit one
+# card (2 dense skip layers + 6 FIER layers; whole, they hold 208 and 470 GB
+# of bf16 weights): command-r-plus-104b (d_model 12288, 96 heads on 8 kv
+# heads of 128, d_ff 33792, a tied 256,000-word head) and qwen3-moe-235b-a22b
+# (d_model 4096, 64 heads on 4 kv heads of 128, 128 experts top-8 of d_ff
+# 1536, an untied 151,936-word head), both with bf16 params.  Their first
+# steps read 0.01134 and 0.006103 of max|logit| from the plain versions',
+# their planted faults 0.0760-0.1278 (PERF.md §6): phase 9's gate
+# FAMILY_LOGIT_REL_TOL holds them.
+WIDE_ARCHS = ("command-r-plus-104b", "qwen3-moe-235b-a22b")
+WIDE_LAYERS = 8
+WIDE_MAX_NEW = 16
+
+
+def wide_config(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=WIDE_LAYERS)
+
+
+def wide_path(torch):
+    """Phase 16: command-r-plus-104b and qwen3-moe-235b-a22b at full width
+    and WIDE_LAYERS layers through ``family_drive`` with every check
+    (reference prefill, first step, generate, paged vs slab), each freed
+    before the next."""
+    import gc
+
+    runs = {}
+    for arch in WIDE_ARCHS:
+        cfg = wide_config(arch)
+        log(f"  [{arch}] {cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} heads on "
+            f"{cfg.n_kv_heads} kv heads of {cfg.d_head}, vocab {cfg.vocab}, "
+            f"{cfg.param_dtype} params), {SLOTS} slots x {CAPACITY}, prompts {FAMILY_PROMPTS}, "
+            f"{WIDE_MAX_NEW} tokens")
+        t0 = time.perf_counter()
+        runs[arch] = family_drive(torch, cfg, SLOTS, FAMILY_PROMPTS, WIDE_MAX_NEW,
+                                  full_checks=True)
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        runs[arch]["seconds"] = time.perf_counter() - t0
+        log(f"  [{arch}] {runs[arch]['seconds']:.1f} s")
+    return runs
+
+
 def build_kernels():
     """Phase 1's build: every ``csrc/*.cu`` (one ``nvcc`` each, all at once),
     each kernel's ptxas line logged, none with a stack frame or spills."""
@@ -6606,9 +6741,14 @@ def main() -> int:
         log("[any heads] olmo-1b with d_head 256, 64 and 96 at rep 8, 32 and 7")
         any_heads_path(torch)
         return 0
+    if "--wide-only" in sys.argv:  # phase 16 alone after the build; no result line
+        log("[wide] command-r-plus-104b and qwen3-moe-235b-a22b at full width, 8 layers")
+        wide_path(torch)
+        return 0
 
     start_fault_builds()  # for phase 2's planted faults
-    log("[kernels] each kernel against its plain version")
+    since = lambda: f"[{time.perf_counter() - t_start:.1f} s]"
+    log(f"[kernels] each kernel against its plain version {since()}")
     timer = Timer(torch)
     empty_ms = empty_kernel_ms(torch, timer)
     log(f"  an empty kernel (one CTA, launched through ctypes) reads {empty_ms:.4f} ms in this "
@@ -6620,35 +6760,38 @@ def main() -> int:
     ]
     rows = check_kernels(torch, timer, shapes)
     rows.update(check_paged_kernels(torch, timer, shapes))
-    log("[kernels] K1/K3 on long and ragged rows")
+    log(f"[kernels] K1/K3 on long and ragged rows {since()}")
     long_rows = check_long_rows(torch, timer)
-    log("[kernels] K5-K8 and two_pass vs one_pass")
+    log(f"[kernels] K5-K8 and two_pass vs one_pass {since()}")
     unfused_base = None
     if "--baseline-unfused" in sys.argv:
         unfused_base = baseline_unfused(torch, sys.argv[sys.argv.index("--baseline-unfused") + 1])
     rows.update(check_unfused_kernels(torch, timer, shapes, unfused_base))
-    log("[kernels] K6 at rep 8, K7 on adversarial rows")
+    log(f"[kernels] K6 at rep 8, K7 on adversarial rows {since()}")
     for kname, rs in check_score_topk_variants(torch, timer).items():
         long_rows[kname].update(rs)
-    log("[kernels] K2/K4/K8 at every admitted rep, budgets 512 and 1000, determinism")
+    log(f"[kernels] K2/K4/K8 at every admitted rep, budgets 512 and 1000, determinism "
+        f"{since()}")
     baseline = None
     if "--baseline-attend" in sys.argv:
         baseline = baseline_attend(torch, sys.argv[sys.argv.index("--baseline-attend") + 1])
     attend_variants = check_attend_variants(torch, timer, baseline)
-    log("[kernels] K1-K8 at the family shapes (d_head 64 and 112, rep 12 and 16, S 4096)")
+    log(f"[kernels] K1-K8 at the family shapes (d_head 64 and 112, rep 12 and 16, S 4096) "
+        f"{since()}")
     family = list(FAMILY_SHAPES.values())
     # the plain versions and library calls once each here (over 3 launches)
     family_rows = check_kernels(torch, timer, family, timing=once_each)
     family_rows.update(check_paged_kernels(torch, timer, family, timing=once_each))
     family_rows.update(check_unfused_kernels(torch, timer, family, timing=once_each))
-    log("[kernels] K1/K3/K6 at a GQA rep at d_head 112")
+    log(f"[kernels] K1/K3/K6 at a GQA rep at d_head 112 {since()}")
     gqa_112 = check_scoring(torch, timer, D112_GQA_SHAPE)
     log("[kernels] K1-K8 at d_head 16 and 32: the main path's scale, the examples' shapes, "
-        "a planted fault")
+        f"a planted fault {since()}")
     t_small = time.perf_counter()
     small, small_fault = check_small_heads(torch, timer)
     log(f"  d_head 16 and 32 checks: {time.perf_counter() - t_small:.1f} s")
-    log("[kernels] K1-K8 on the generic layout: every d_head and rep, two planted faults")
+    log(f"[kernels] K1-K8 on the generic layout: every d_head and rep, two planted faults "
+        f"{since()}")
     t_any = time.perf_counter()
     any_rows, any_faults = check_any_heads(torch, timer)
     log(f"  generic layout checks: {time.perf_counter() - t_any:.1f} s")
@@ -6720,7 +6863,11 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[any heads] olmo-1b with d_head 256, 64 and 96 at rep 8, 32 and 7")
     p15 = any_heads_path(torch)
-    log(f"[done] phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    log("[wide] command-r-plus-104b and qwen3-moe-235b-a22b at full width, 8 layers")
+    p16 = wide_path(torch)
+    log(f"[done] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
@@ -6822,6 +6969,18 @@ def main() -> int:
         fam_key = "launches_paged" if name in PAGED_KERNELS else "launches"
         row["launches_families"] = {a: r[fam_key][name] for a, r in fam.items()
                                     if name in r.get(fam_key, {})}
+        # phase 16: the wide configs' generate (slab) and paged-vs-slab runs, each
+        # counted from 0, and the device ms per launch in the profiled steps of
+        # the paged-vs-slab run's engine of this kernel's layout
+        if name in SLAB_KERNELS + PAGED_KERNELS:
+            paged = name in PAGED_KERNELS
+            row["launches_wide"] = {a: r["launches_paged" if paged else "launches"][name]
+                                    for a, r in p16.items()}
+            row["wide_ms_per_launch"] = {
+                a: launch_ms(r["paged_vs_slab"]["paged" if paged else "slab"]["profile"],
+                             "fier_retrieve_kernel" if "retrieve" in name
+                             else "fier_attend_kernel")
+                for a, r in p16.items()}
         if name in SLAB_KERNELS:  # phase 11(e): a model trained on the card, then served
             row["launches_train_then_serve"] = p11["serve"]["launches"][name]
             # phase 14: the reduced configs' generate, the serve_longcontext example

@@ -53,16 +53,18 @@ class DistConfig:
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *, n: int = 1,
-                   d_in: int | None = None, device="cuda") -> dict:
-    """Attention params stacked over ``n`` layers (fp32); ``d_in`` is the
-    width the projections read (the hybrid's shared block reads 2·d_model),
-    d_model by default."""
+                   d_in: int | None = None, device="cuda",
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """Attention params stacked over ``n`` layers (``dtype``, f32 by default);
+    ``d_in`` is the width the projections read (the hybrid's shared block
+    reads 2·d_model), d_model by default."""
     d, Dh = d_in if d_in is not None else cfg.d_model, cfg.d_head
     p = {
-        "wq": init_linear(gen, d, cfg.n_heads * Dh, n=n, device=device),
-        "wk": init_linear(gen, d, cfg.n_kv_heads * Dh, n=n, device=device),
-        "wv": init_linear(gen, d, cfg.n_kv_heads * Dh, n=n, device=device),
-        "wo": init_linear(gen, cfg.n_heads * Dh, cfg.d_model, n=n, device=device),
+        "wq": init_linear(gen, d, cfg.n_heads * Dh, n=n, device=device, dtype=dtype),
+        "wk": init_linear(gen, d, cfg.n_kv_heads * Dh, n=n, device=device, dtype=dtype),
+        "wv": init_linear(gen, d, cfg.n_kv_heads * Dh, n=n, device=device, dtype=dtype),
+        "wo": init_linear(gen, cfg.n_heads * Dh, cfg.d_model, n=n, device=device,
+                          dtype=dtype),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads), ("bv", cfg.n_kv_heads)):

@@ -113,29 +113,34 @@ def mlp_apply(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
     return h @ p["w2"].to(x.dtype)
 
 
-def _normal(gen: torch.Generator, shape, std: float, device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
+def _normal(gen: torch.Generator, shape, std: float, device,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One f32 draw of ``shape`` scaled in place (the bits of ``randn * std``)
+    and cast once to ``dtype``: a leaf of bf16 params never exists twice in
+    f32."""
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).mul_(std).to(dtype)
 
 
 def init_mlp(gen: torch.Generator, d: int, ff: int, act: str, *, n: int = 1,
-             device="cuda") -> dict:
-    """MLP params stacked over ``n`` layers."""
+             device="cuda", dtype: torch.dtype = torch.float32) -> dict:
+    """MLP params stacked over ``n`` layers, each leaf cast to ``dtype`` as drawn."""
     p = {
-        "w1": _normal(gen, (n, d, ff), d**-0.5, device),
-        "w2": _normal(gen, (n, ff, d), ff**-0.5, device),
+        "w1": _normal(gen, (n, d, ff), d**-0.5, device, dtype),
+        "w2": _normal(gen, (n, ff, d), ff**-0.5, device, dtype),
     }
     if act == "silu":
-        p["w3"] = _normal(gen, (n, d, ff), d**-0.5, device)
+        p["w3"] = _normal(gen, (n, d, ff), d**-0.5, device, dtype)
     return p
 
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda") -> torch.Tensor:
-    return _normal(gen, (vocab, d), d**-0.5, device)
+def init_embedding(gen: torch.Generator, vocab: int, d: int, device="cuda",
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return _normal(gen, (vocab, d), d**-0.5, device, dtype)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, *, n: int = 1,
-                device="cuda") -> torch.Tensor:
-    return _normal(gen, (n, d_in, d_out), d_in**-0.5, device)
+                device="cuda", dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return _normal(gen, (n, d_in, d_out), d_in**-0.5, device, dtype)
 
 
 # ----------------------------------------------------------- flash attention

@@ -33,15 +33,17 @@ from repro_torch.core.placement import as_sharded, axis_coords
 from .layers import _normal, init_linear, silu
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig, *, n: int = 1, device="cuda") -> dict:
+def init_moe(gen: torch.Generator, cfg: ModelConfig, *, n: int = 1, device="cuda",
+             dtype: torch.dtype = torch.float32) -> dict:
     """MoE params stacked over ``n`` layers: router [n, d, E] and the
-    experts' SwiGLU weights w1/w3 [n, E, d, ff], w2 [n, E, ff, d]."""
+    experts' SwiGLU weights w1/w3 [n, E, d, ff], w2 [n, E, ff, d], each
+    leaf cast to ``dtype`` as drawn."""
     d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": init_linear(gen, d, E, n=n, device=device),
-        "w1": _normal(gen, (n, E, d, ff), d**-0.5, device),
-        "w3": _normal(gen, (n, E, d, ff), d**-0.5, device),
-        "w2": _normal(gen, (n, E, ff, d), ff**-0.5, device),
+        "router": init_linear(gen, d, E, n=n, device=device, dtype=dtype),
+        "w1": _normal(gen, (n, E, d, ff), d**-0.5, device, dtype),
+        "w3": _normal(gen, (n, E, d, ff), d**-0.5, device, dtype),
+        "w2": _normal(gen, (n, E, ff, d), ff**-0.5, device, dtype),
     }
 
 

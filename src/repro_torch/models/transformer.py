@@ -140,25 +140,29 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
 
     # ----------------------------------------------------------------- init
     def init(gen: torch.Generator | int) -> dict:
+        """Every leaf drawn in f32 in the reference's order and cast to
+        ``param_dtype`` before the next is drawn, so a bf16-param model never
+        holds its tree in f32 (the same bits as casting the f32 tree)."""
         if isinstance(gen, int):
             gen = torch.Generator(device=device).manual_seed(gen)
         params = {
-            "embed": init_embedding(gen, Vp, cfg.d_model, device=device),
+            "embed": init_embedding(gen, Vp, cfg.d_model, device=device, dtype=pdt),
             "layers": {
                 "norm1": init_norm(cfg.norm, cfg.d_model, n=L, device=device),
-                "attn": attn.init_attention(gen, cfg, n=L, device=device),
+                "attn": attn.init_attention(gen, cfg, n=L, device=device, dtype=pdt),
                 "norm2": init_norm(cfg.norm, cfg.d_model, n=L, device=device),
             },
             "final_norm": init_norm(cfg.norm, cfg.d_model, device=device),
         }
         if is_moe:
-            params["layers"]["moe"] = moe_mod.init_moe(gen, cfg, n=L, device=device)
+            params["layers"]["moe"] = moe_mod.init_moe(gen, cfg, n=L, device=device, dtype=pdt)
         else:
             params["layers"]["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, n=L,
-                                               device=device)
+                                               device=device, dtype=pdt)
         if not cfg.tie_embeddings:
-            params["lm_head"] = init_embedding(gen, Vp, cfg.d_model, device=device).T.contiguous()
-        return tree_map(lambda a: a.to(pdt), params)
+            params["lm_head"] = init_embedding(gen, Vp, cfg.d_model, device=device,
+                                               dtype=pdt).T.contiguous()
+        return tree_map(lambda a: a.to(pdt), params)  # the norms (and biases)
 
     def compute_params(params: dict) -> dict:
         """One compute-dtype copy of every layer matmul weight (what each
@@ -444,8 +448,23 @@ def _vocab_col_mask(vocab: int, Vp: int, device) -> torch.Tensor:
     )
 
 
+# the f32 transient of a head stored below f32, cast one column chunk at a time
+LOGIT_CHUNK_BYTES = 1 << 30
+
+
 def _masked_logits(h: torch.Tensor, W: torch.Tensor, vocab: int, Vp: int) -> torch.Tensor:
-    logits = h.to(torch.float32) @ W.to(torch.float32)
+    """f32 logits ``h.f32 @ W.f32`` with the padded columns at −1e30.  An f32
+    head multiplies in one product; a bf16 one (bf16 params) is cast over
+    column chunks of at most LOGIT_CHUNK_BYTES in f32, each just before its
+    product, the last chunk ragged: a whole-matrix f32 copy of command-r's
+    tied [12288, 256000] head would be 12.6 GB a step."""
+    hf = h.to(torch.float32)
+    if W.dtype == torch.float32:
+        logits = hf @ W
+    else:
+        n = max(1, LOGIT_CHUNK_BYTES // (4 * W.shape[0]))
+        logits = torch.cat([hf @ W[:, c:c + n].to(torch.float32)
+                            for c in range(0, W.shape[1], n)], dim=-1)
     return logits + _vocab_col_mask(vocab, Vp, h.device)
 
 

@@ -1,16 +1,20 @@
 """Port parity of the MoE FFN (``repro_torch.models.moe``) with the JAX
 package's ``repro.models.moe`` on reduced granite-moe-1b-a400m (d 64, 4
-experts, top-2, d_ff 64).
+experts, top-2, d_ff 64) and, for ``moe_apply`` and ``moe_apply_masked``,
+on reduced qwen3-moe-235b-a22b with its published 128 experts and top-8
+(``E128``: d 64, d_ff 64).
 
 Inputs are numpy-seeded [T, d] rows rounded to bf16, weights come from the
 reference's ``init_moe`` (numpy), and the reference runs jitted, as its
 serving path does.  Seed 0 keeps every token's k-th and (k+1)-th router
-logits more than 1e-3 apart (asserted), so both packages route alike.
+logits more than 1e-3 apart in both configs (asserted), so both packages
+route alike.
 
-* ``moe_apply`` at capacity factor 1.25 and at 0.5 (slots drop): the set of
-  dropped (token, expert) slots is equal, y within one bf16 step of the
-  largest output (2^-7·max|y|) with at most 1% of elements differing (the
-  expert matmuls sum in another order), aux within 1e-6.
+* ``moe_apply`` at capacity factor 1.25 and at 0.5 (slots drop; at 128
+  experts, capacity 4, slots drop at 1.25 too): the set of dropped (token,
+  expert) slots is equal, y within one bf16 step of the largest output
+  (2^-7·max|y|) with at most 1% of elements differing (the expert matmuls
+  sum in another order), aux within 1e-6.
 * ``moe_apply_masked`` the same way; its three-operand einsum is taken as
   (h1·gate) then one contraction over (e, f), another order than XLA's.
 * With nothing dropped, the port's scatter and masked paths agree within
@@ -35,17 +39,30 @@ from repro_torch.models import moe
 from repro_torch.models import transformer
 
 ARCH = "granite-moe-1b-a400m"
+E128 = "qwen3-moe-235b-a22b"  # at its published 128 experts, top-8
 T = 48
 
 
-def _cfgs(cf):
-    return tuple(dataclasses.replace(c, capacity_factor=cf)
-                 for c in (j_reduced_config(ARCH), reduced_config(ARCH)))
+def _cfgs(cf, arch=ARCH):
+    over = dict(capacity_factor=cf)
+    if arch == E128:
+        over.update(n_experts=128, topk_experts=8)
+    return tuple(dataclasses.replace(c, **over)
+                 for c in (j_reduced_config(arch), reduced_config(arch)))
 
 
 @pytest.fixture(scope="module")
 def inputs():
-    jc, _ = _cfgs(1.25)
+    return _inputs(ARCH)
+
+
+@pytest.fixture(scope="module")
+def inputs_e128():
+    return _inputs(E128)
+
+
+def _inputs(arch):
+    jc, _ = _cfgs(1.25, arch)
     p = jmoe.init_moe(jax.random.PRNGKey(1), jc)
     x = np.random.default_rng(0).standard_normal((T, jc.d_model)).astype(np.float32)
     xj = jnp.asarray(x).astype(jnp.bfloat16)
@@ -87,26 +104,41 @@ def _close(got, want):
     assert (diff > 0).mean() <= 0.01, (diff > 0).mean()
 
 
-@pytest.mark.parametrize("cf", [1.25, 0.5])
-def test_moe_apply_matches_reference(inputs, cf):
-    xj, p, xt, pt = inputs
-    jc, tc = _cfgs(cf)
+@pytest.mark.parametrize("cf, arch", [
+    pytest.param(1.25, ARCH, id="1.25"), pytest.param(0.5, ARCH, id="0.5"),
+    pytest.param(1.25, E128, id="1.25-e128"), pytest.param(0.5, E128, id="0.5-e128"),
+])
+def test_moe_apply_matches_reference(request, cf, arch):
+    xj, p, xt, pt = request.getfixturevalue("inputs" if arch == ARCH else "inputs_e128")
+    jc, tc = _cfgs(cf, arch)
     yj, auxj = jax.jit(lambda x, p: jmoe.moe_apply(x, p, jc))(xj, p)
     yt, auxt = moe.moe_apply(xt, pt, tc)
     dropped = _port_dropped(xt, pt, tc)
     assert dropped == _ref_dropped(xj, p, jc)
-    assert (len(dropped) > 0) == (cf < 1)  # 0.5 drops slots, 1.25 none here
+    # granite: 0.5 drops slots, 1.25 none here; 128 experts drop at both
+    assert (len(dropped) > 0) == (cf < 1 or arch == E128)
+    _close(yt, yj)
+    assert abs(float(auxt) - float(auxj)) <= 1e-6
+
+
+def _masked_matches(inputs, arch, cf=1.25):
+    xj, p, xt, pt = inputs
+    jc, tc = _cfgs(cf, arch)
+    yj, auxj = jax.jit(lambda x, p: jmoe.moe_apply_masked(x, p, jc))(xj, p)
+    yt, auxt = moe.moe_apply_masked(xt, pt, tc)
     _close(yt, yj)
     assert abs(float(auxt) - float(auxj)) <= 1e-6
 
 
 def test_moe_apply_masked_matches_reference(inputs):
-    xj, p, xt, pt = inputs
-    jc, tc = _cfgs(1.25)
-    yj, auxj = jax.jit(lambda x, p: jmoe.moe_apply_masked(x, p, jc))(xj, p)
-    yt, auxt = moe.moe_apply_masked(xt, pt, tc)
-    _close(yt, yj)
-    assert abs(float(auxt) - float(auxj)) <= 1e-6
+    _masked_matches(inputs, ARCH)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_apply_masked_matches_reference_e128(inputs_e128, cf):
+    """``moe_apply_masked`` at 128 experts, top-8, at both capacity factors
+    (the masked path drops nothing: its output is the same at both)."""
+    _masked_matches(inputs_e128, E128, cf)
 
 
 def test_masked_equals_scatter_when_nothing_drops(inputs):
