@@ -9,6 +9,7 @@
     python3 chip_smoke.py --examples-only # phases 1 and 14 only, no result line
     python3 chip_smoke.py --any-heads-only  # phases 1 and 15 only, no result line
     python3 chip_smoke.py --wide-only     # phases 1 and 16 only, no result line
+    python3 chip_smoke.py --dryrun-only   # phases 1 and 17 only, no result line
     python3 chip_smoke.py [--kernels-only] --baseline-attend OTHER/fier_attend.cu
         # phase 2 also times K2 built from another source with the earlier
         # two-launch interface (e.g. from an older commit) in turns with this one
@@ -379,7 +380,22 @@ result line):
    else; paged vs slab with K3/K4 6 a step), peak memory over init, the
    prefill, the checks and the decode steps, TTFT, decode ms/step, a
    profiled step and the head's device ms alone.
-17. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
+17. The dry run (``launch/dryrun.py``) against the card (``dryrun_path``):
+   (a) olmo-1b ``long_500k`` at cost depth 2, ``decode_32k`` at cost depth
+   1 with its batch cut to 32, and training at B 4 x S 2048 at cost depth
+   2, each traced on
+   a 1 x 1 fake mesh and run for real on a 1 x 1 mesh of the card: the
+   argument bytes and the FLOPs (``FlopCounterMode`` over the real step)
+   equal, the peak within ``DRYRUN_PEAK_REL_TOL`` of the card's
+   ``max_memory_allocated`` with two planted faults beyond it; (b) olmo-1b
+   training on tp2 x dp2 (phase 13's cell, 1 layer) and a ``long_500k`` layer over 4
+   sequence shards, every shard on the card: the collective records equal
+   entry for entry, the peak of the sum over devices within the same
+   tolerance, the decode's merges no larger than its partial outputs; (c)
+   olmo-1b ``decode_32k`` at cost depth 1 on the 16 x 16 fake mesh, its
+   record and seconds.  Every trace of the phase runs on the CPU in a
+   subprocess that starts before phase 2 and sees no card.
+18. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5, phase 12's
    per-shard counts in ``launches_sharded`` and phase 13(e)'s in
    ``launches_sharded_train``; K6/K7: phase 6's generate; K5/K8: phase 6's
@@ -4795,8 +4811,8 @@ def training_path(torch):
 # meshes of phase 12, every shard on the one card: name, shape, axes
 SHARD_MESHES = (("tp2", (2,), ("model",)), ("dp2", (2,), ("data",)),
                 ("tp2xdp2", (2, 2), ("data", "model")))
-SHARD_STEPS = 16        # gated decode steps per engine in (a), cut from 32 for the time limit
-SHARD_TIMED_STEPS = 4   # then timed ones (median), outside the counted window
+SHARD_STEPS = 8         # gated decode steps per engine in (a), cut from 32 and 16 for the time limit
+SHARD_TIMED_STEPS = 2   # then timed ones (median), outside the counted window (cut from 4)
 GRANITE_SHARD_LAYERS = 6  # (b): granite-moe-1b-a400m's depth cut (4 FIER layers)
 LONG_SHARDS = 4
 LONG_SEQ = (1, 16, 1, 128, 524288, 4096)  # B, Hkv, rep, D, S, budget: long_500k
@@ -6680,6 +6696,285 @@ def wide_path(torch):
     return runs
 
 
+# ------------------------------------------------------------ phase 17
+
+# (a) reference cells cut in depth by the reference's own --cost-depth, each
+# dry-run on a 1 x 1 fake mesh and then run for real on a 1 x 1 mesh of this
+# card: (arch, shape name or ShapeConfig fields, cost depth, whether the
+# views-as-allocations fault is traced too).  decode_32k's batch is cut from
+# 128 to 32: at 128 the plain scoring's f32 sign tensors ([B, S, Hkv, D]
+# twice) alone would take 69 GB beside 41 GB of arguments.  The training
+# cell is phase 11's B x S at cost depth 2 (16 layers trace in 36 s).
+DRYRUN_CALIBRATION = (
+    ("olmo-1b", "long_500k", 2, False),
+    ("olmo-1b", ("decode_32k/32", 32768, 32, "decode"), 1, True),
+    ("olmo-1b", ("train_2k/4", TRAIN_SEQ, TRAIN_BATCH, "train"), 2, False),
+)
+# the dry run's peak (arguments + temporaries) against the card's, as a
+# fraction of the card's: on one device the card read at most 7.3e-7;
+# (b)'s sum over 4 fake devices reads 8.0e-4 at 4 layers and 0.0117 at 1
+# (a copy between two shards is a copy there and nothing on one card, where
+# ``.to`` returns a tensor already in place); the faults 0.56-1.49 (PERF.md)
+DRYRUN_PEAK_REL_TOL = 0.02
+DRYRUN_TRAIN_LAYERS = 1  # (b): phase 13's tp2 x dp2 cell at this depth (4 trace in 41 s)
+DRYRUN_PRODUCTION = ("olmo-1b", "decode_32k", 1)  # (c): on the 16 x 16 fake mesh
+
+
+def _cell_shape(shape):
+    from repro_torch.configs.base import ShapeConfig
+
+    return shape if isinstance(shape, str) else ShapeConfig(*shape)
+
+
+def _collective_cells():
+    """(b)'s cells: (name, arch, shape, mesh shape, cost depth, config)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    train_cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=DRYRUN_TRAIN_LAYERS)
+    return (("tp2xdp2 train", "olmo-1b", _cell_shape(("train_2k/4", TRAIN_SEQ, TRAIN_BATCH,
+                                                          "train")), (2, 2), None, train_cfg),
+            ("long_500k x 4 shards", "olmo-1b", "long_500k", (1, 4), 1, None))
+
+
+def dry_trace(torch, arch, shape, mesh_shape, axes, cost_depth=None, cfg=None, accountant=None):
+    """The dry run of a cell on a fake mesh: ``launch.dryrun.trace``'s
+    figures (JSON-ready) and the seconds."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.specs import build_cell
+
+    t0 = time.perf_counter()
+    fake = FakeTensorMode()
+    fake.cache_enabled = False
+    with fake:
+        cell = build_cell(arch, shape, make_fake_mesh(mesh_shape, axes),
+                          cost_depth=cost_depth, cfg=cfg)
+        tr = dryrun.trace(cell, accountant)
+    acc = tr["acc"]
+    reduces = [b for k, b, *_ in tr["record"].entries if k == "all-reduce"]
+    return {"args": sum(tr["args"].values()), "peak_sum": acc.total_peak,
+            "peak": dict(acc.peak), "flops": sum(acc.flops.values()),
+            "record": [list(e) for e in tr["record"].summary()],
+            "largest_all_reduce": max(reduces, default=0),
+            "other": sum(acc.other_in.values()), "kind": cell.kind,
+            "seconds": time.perf_counter() - t0}
+
+
+def dry_runs():
+    """Every trace of phase 17, on the CPU: (a)'s cells on 1 x 1 fake meshes
+    (with the views fault where asked), (b)'s, and (c) through
+    ``launch.dryrun.run_cell``.  Run by ``start_dry_runs`` in a process of
+    its own; prints one JSON line."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    views_fault = _views_allocate()
+    out = {"calibration": {}, "collectives": {}}
+    for arch, shape, depth, with_views_fault in DRYRUN_CALIBRATION:
+        shape = _cell_shape(shape)
+        r = dry_trace(torch, arch, shape, (1, 1), ("data", "model"), depth)
+        if with_views_fault:
+            r["views_fault_peak_sum"] = dry_trace(torch, arch, shape, (1, 1), ("data", "model"),
+                                                  depth, accountant=views_fault)["peak_sum"]
+        out["calibration"][repr((arch, shape, depth))] = r
+    for name, arch, shape, mesh_shape, depth, cfg in _collective_cells():
+        out["collectives"][name] = dry_trace(torch, arch, shape, mesh_shape, ("data", "model"),
+                                             depth, cfg)
+    arch, shape, depth = DRYRUN_PRODUCTION
+    out["production"] = dryrun.run_cell(arch, shape, multi_pod=False, cost_depth=depth,
+                                        verbose=False)
+    print(json.dumps(out), flush=True)
+
+
+_DRY: dict = {}  # phase 17's trace process, started beside the card's phases
+
+
+def start_dry_runs():
+    """``dry_runs`` in a subprocess started before phase 2, so that its
+    CPU-only traces overlap the card's phases; it sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty).  ``stop_dry_runs`` ends it on every
+    way out."""
+    _DRY["t0"] = time.perf_counter()
+    _DRY["proc"] = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dry_runs()"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, os.path.join(HERE, "src")]),
+                 CUDA_VISIBLE_DEVICES=""))
+
+
+def stop_dry_runs():
+    proc = _DRY.pop("proc", None)
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def dry_results() -> dict:
+    proc = _DRY["proc"]
+    stdout, stderr = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 17's dry runs failed:\n{stderr[-3000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.perf_counter() - _DRY["t0"]
+    return out
+
+
+def real_run(torch, arch, shape, mesh_shape, axes, cost_depth=None, cfg=None):
+    """The same cell on this card, every shard on it, filled with zeros (the
+    lengths full): its placed arguments' bytes, the step's FLOPs by
+    ``FlopCounterMode`` and its collective record (one run), then its peak
+    over a second run — ``max_memory_allocated`` from a reset just before
+    the step, with the arguments resident."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.accounting import DeviceAccountant
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import build_cell
+
+    mesh = Mesh(mesh_shape, axes, [DEVICE] * math.prod(mesh_shape))
+    cell = build_cell(arch, shape, mesh, cost_depth=cost_depth, cfg=cfg, fill=True)
+    args = sum(DeviceAccountant().storage_bytes(cell.args).values())
+    with FlopCounterMode(display=False) as fc, dist.recording() as rec:
+        out = cell.fn(*cell.args)
+    del out
+    free(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + args
+    del out, cell
+    free(torch)
+    return {"args": args, "flops": fc.get_total_flops(),
+            "record": [list(e) for e in rec.summary()], "peak": peak}
+
+
+def _views_allocate():
+    """A planted fault: an accountant that counts every tensor an op
+    returns, views included, as an allocation of its own."""
+    import weakref
+
+    from repro_torch.launch.accounting import DeviceAccountant
+
+    class ViewsAllocate(DeviceAccountant):
+        def _track(self, t):
+            key = id(t)
+            if key in self._storages:
+                return False
+            d, n = self.dev(t.device), t.numel() * t.element_size()
+            self._storages[key] = (d, n)
+            weakref.finalize(t, self._release, key)
+            self.live[d] += n
+            self.total_live += n
+            self.peak[d] = max(self.peak[d], self.live[d])
+            self.total_peak = max(self.total_peak, self.total_live)
+            return True
+
+    return ViewsAllocate
+
+
+def dryrun_calibration(torch, dry):
+    """(a): each DRYRUN_CALIBRATION cell's dry run against the card: the
+    argument bytes and the FLOPs exactly, the peak within
+    DRYRUN_PEAK_REL_TOL, and two planted faults beyond it: the arguments
+    reported as the peak (every cell), every view counted as an allocation
+    (the decode_32k cell, whose peak holds views)."""
+    out = {}
+    for arch, shape, depth, _ in DRYRUN_CALIBRATION:
+        shape = _cell_shape(shape)
+        d = dry[repr((arch, shape, depth))]
+        name = f"{arch} {shape if isinstance(shape, str) else shape.name} @ depth {depth}"
+        real = real_run(torch, arch, shape, (1, 1), ("data", "model"), depth)
+        rel = lambda peak: abs(peak - real["peak"]) / real["peak"]
+        r = {"args_dry": d["args"], "args_card": real["args"],
+             "flops_dry": d["flops"], "flops_card": real["flops"],
+             "peak_dry": d["peak_sum"], "peak_card": real["peak"],
+             "peak_rel": rel(d["peak_sum"]), "fault_args_only_rel": rel(d["args"]),
+             "trace_s": d["seconds"], "card": CARD}
+        if "views_fault_peak_sum" in d:
+            r["fault_views_rel"] = rel(d["views_fault_peak_sum"])
+        out[name] = r
+        log(f"  (a) {name}: {json.dumps(r)}")
+        if r["args_dry"] != r["args_card"]:
+            raise AssertionError(f"{name}: the dry run's argument bytes are not the card's: {r}")
+        if r["flops_dry"] != r["flops_card"]:
+            raise AssertionError(f"{name}: the dry run's FLOPs are not FlopCounterMode's: {r}")
+        if not r["peak_rel"] <= DRYRUN_PEAK_REL_TOL < r["fault_args_only_rel"]:
+            raise AssertionError(f"{name}: peak gate {DRYRUN_PEAK_REL_TOL}: {r}")
+    # a view counted as an allocation moves the peak where views live at it
+    # (a decode step's per-layer slab views); the train step peaks after its
+    # views are gone (read 1.4e-7)
+    if not any(r.get("fault_views_rel", 0) > DRYRUN_PEAK_REL_TOL for r in out.values()):
+        raise AssertionError(f"the views-as-allocations fault passes the peak gate: {out}")
+    return out
+
+
+def dryrun_collectives(torch, dry):
+    """(b): olmo-1b training on tp2 x dp2 (phase 13's cell at
+    DRYRUN_TRAIN_LAYERS layers) and one long_500k layer over 4 sequence
+    shards, every shard on this card: the dry run's collective record
+    equals the real run's entry for entry, its peak of the sum over devices
+    lies within DRYRUN_PEAK_REL_TOL of the card's peak, and the decode
+    moves only O(B·Hq·D) partial outputs between shards: its all-reduces
+    and its other copies."""
+    from repro_torch.configs import SHAPES, get_config
+
+    out = {}
+    for name, arch, shape, mesh_shape, depth, cfg in _collective_cells():
+        d = dry[name]
+        real = real_run(torch, arch, shape, mesh_shape, ("data", "model"), depth, cfg)
+        r = {"entries": len(d["record"]), "record_equal": d["record"] == real["record"],
+             "flops_equal": d["flops"] == real["flops"],
+             "peak_sum_dry": d["peak_sum"], "peak_card": real["peak"],
+             "peak_rel": abs(d["peak_sum"] - real["peak"]) / real["peak"],
+             "per_device_peak_dry": d["peak"], "trace_s": d["seconds"], "card": CARD}
+        if d["kind"] == "decode":
+            cfg_ = get_config(arch)
+            B = (SHAPES[shape] if isinstance(shape, str) else shape).global_batch
+            r["largest_all_reduce"] = d["largest_all_reduce"]
+            r["other_bytes"] = d["other"]
+            r["partials_bound"] = B * cfg_.n_heads * cfg_.d_head * 4  # [B, Hq, D] f32
+        out[name] = r
+        log(f"  (b) {name}: {json.dumps(r)}")
+        if not (r["record_equal"] and r["flops_equal"]):
+            raise AssertionError(f"{name}: the dry run's record or FLOPs differ from the card's")
+        if r["peak_rel"] > DRYRUN_PEAK_REL_TOL:
+            raise AssertionError(f"{name}: peak gate {DRYRUN_PEAK_REL_TOL}: {r}")
+        if d["kind"] == "decode" and r["largest_all_reduce"] > r["partials_bound"]:
+            raise AssertionError(f"{name}: a merge moved more than the partial outputs: {r}")
+    return out
+
+
+def dryrun_path(torch):
+    """Phase 17: the dry run (``launch/dryrun.py``) against the card: (a)
+    calibration on 1 x 1 meshes, (b) collectives on one card, (c) a
+    production cell on the 16 x 16 fake mesh; every trace from the process
+    ``start_dry_runs`` started before phase 2."""
+    from repro_torch.launch.mesh import FAKE_DEVICE_TYPES, FAKE_TYPE_SHARDS
+
+    t0 = time.perf_counter()
+    dry = dry_results()
+    out = {"calibration": dryrun_calibration(torch, dry["calibration"])}
+    out["collectives"] = dryrun_collectives(torch, dry["collectives"])
+    arch, shape, depth = DRYRUN_PRODUCTION
+    rec = out["production"] = dry["production"]
+    log(f"  (c) {arch} {shape} @ depth {depth} on the 16 x 16 fake mesh (trace {rec['trace_s']} s; "
+        f"every trace of the phase {dry['wall_s']:.1f} s after their process started, beside "
+        f"the card's phases; {CARD}): {json.dumps(rec)}")
+    log(f"  (c) the 2 x 16 x 16 mesh needs 512 fake devices; torch names "
+        f"{FAKE_TYPE_SHARDS * len(FAKE_DEVICE_TYPES)} (launch/mesh.py)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 17 wall time {out['wall_s']:.1f} s")
+    return out
+
+
 def build_kernels():
     """Phase 1's build: every ``csrc/*.cu`` (one ``nvcc`` each, all at once),
     each kernel's ptxas line logged, none with a stack frame or spills."""
@@ -6744,6 +7039,11 @@ def main() -> int:
     if "--wide-only" in sys.argv:  # phase 16 alone after the build; no result line
         log("[wide] command-r-plus-104b and qwen3-moe-235b-a22b at full width, 8 layers")
         wide_path(torch)
+        return 0
+    start_dry_runs()  # phase 17's traces, on the CPU beside the card's phases
+    if "--dryrun-only" in sys.argv:  # phase 17 alone after the build; no result line
+        log("[dry run] the dry run's figures against this card")
+        dryrun_path(torch)
         return 0
 
     start_fault_builds()  # for phase 2's planted faults
@@ -6867,7 +7167,11 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
     log("[wide] command-r-plus-104b and qwen3-moe-235b-a22b at full width, 8 layers")
     p16 = wide_path(torch)
-    log(f"[done] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
+
+    log(f"[time] {time.perf_counter() - t_start:.1f} s since the start")
+    log("[dry run] the dry run's figures against this card")
+    dryrun_path(torch)
+    log(f"[done] phases 1-17 in {time.perf_counter() - t_start:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
@@ -7026,4 +7330,6 @@ if __name__ == "__main__":
     except Exception:
         traceback.print_exc()
         rc = 1
+    finally:
+        stop_dry_runs()
     sys.exit(rc)

@@ -39,6 +39,7 @@ gradient (a broadcast), with no hand-written transpose.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -50,13 +51,129 @@ from .retrieval import NEG_INF
 DROPPED = 2**30  # an exact-mode nominee below τ is pushed past every length
 
 
+# ------------------------------------------------------- the collective record
+
+class CollectiveRecord:
+    """What the collectives below did while :func:`recording` was active:
+    one entry per call with a group of more than one shard, as the
+    reference's HLO pass counts them (``repro/launch/dryrun.py``).  An
+    entry is (kind, bytes, group size, charged devices, phase): ``kind``
+    the reference's name of the collective; ``bytes`` the ring model's X
+    for the kind (one piece for an all-reduce, the gathered output for an
+    all-gather, one shard's output for a reduce-scatter); the devices it is
+    charged to (every shard of the group, or the one shard that gathers);
+    ``phase`` "forward", or "backward" for the transpose autograd runs (a
+    gather's is the reduce-scatter of its gradient, a psum's a psum)."""
+
+    def __init__(self):
+        self.entries: list[tuple[str, int, int, tuple, str]] = []
+
+    def note(self, kind: str, nbytes: int, n: int, devices, phase: str = "forward") -> None:
+        if n > 1:
+            self.entries.append((kind, int(nbytes), int(n), tuple(devices), phase))
+
+    def summary(self) -> list[tuple[str, int, int, str]]:
+        """The entries without their devices: what a run on fake devices and
+        the same run with every shard on one device share."""
+        return [(k, b, n, ph) for k, b, n, _, ph in self.entries]
+
+
+_records: list[CollectiveRecord] = []
+_wire = [0]  # > 0 while a collective (or autograd's transpose of one) moves bytes
+_compound = [0]  # > 0 inside ``gathered``: its gathers are one record
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the collectives called inside (:class:`CollectiveRecord`)."""
+    rec = CollectiveRecord()
+    _records.append(rec)
+    try:
+        yield rec
+    finally:
+        _records.pop()
+
+
+def in_collective() -> bool:
+    """Whether the bytes moved now belong to a collective (its forward, or
+    autograd's transpose of it) while recording."""
+    return _wire[0] > 0
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+class _NoteTranspose(torch.autograd.Function):
+    """Identity whose backward notes the transpose of a forward collective
+    in the record: the values and gradients pass through unchanged."""
+
+    @staticmethod
+    def forward(ctx, note, *xs):
+        ctx.note = note
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.note()
+        return (None,) + gs
+
+
+def _enter(x: torch.Tensor) -> None:
+    _wire[0] += 1
+
+
+def _leave(*_) -> None:
+    _wire[0] -= 1
+
+
+def move(x: torch.Tensor, device) -> torch.Tensor:
+    """``x.to(device)`` as a collective moves it: inside a recorded
+    collective, its backward copy is marked as the collective's too
+    (``in_collective``)."""
+    y = x.to(device)
+    if _records and _wire[0] and y is not x and y.grad_fn is not None:
+        y.grad_fn.register_prehook(_enter)
+        y.grad_fn.register_hook(_leave)
+    return y
+
+
+def _recorded(kind: str, nbytes: int, n: int, devices, outs: list[torch.Tensor],
+              transpose: tuple[str, int] | None) -> list[torch.Tensor]:
+    """While recording, note a forward collective and route its outputs
+    through a node whose backward notes ``transpose`` (kind, bytes) on the
+    same devices."""
+    if not _records:
+        return outs
+    rec = _records[-1]
+    rec.note(kind, nbytes, n, devices)
+    if transpose is None or not torch.is_grad_enabled() or not any(o.requires_grad for o in outs):
+        return outs
+    t_kind, t_bytes = transpose
+    return list(_NoteTranspose.apply(
+        lambda: rec.note(t_kind, t_bytes, n, devices, "backward"), *outs))
+
+
+@contextlib.contextmanager
+def _wired():
+    _wire[0] += 1
+    try:
+        yield
+    finally:
+        _wire[0] -= 1
+
+
 # ---------------------------------------------------------------- collectives
 
 def _fold(xs: Sequence[torch.Tensor], op) -> list[torch.Tensor]:
-    acc = xs[0]
-    for x in xs[1:]:
-        acc = op(acc, x.to(acc.device))
-    return [acc.to(x.device) for x in xs]
+    with _wired():
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = op(acc, move(x, acc.device))
+        outs = [move(acc, x.device) for x in xs]
+    n = _nbytes(xs[0])
+    return _recorded("all-reduce", n, len(xs), [x.device for x in xs], outs,
+                     ("all-reduce", n))
 
 
 def psum(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -73,8 +190,11 @@ def all_gather(xs: Sequence[torch.Tensor], dim: int) -> list[torch.Tensor]:
     """Tiled all-gather: the shards' tensors concatenated along ``dim`` in
     shard order (``lax.all_gather(..., tiled=True)``), on every shard."""
     home = xs[0].device
-    cat = torch.cat([x.to(home) for x in xs], dim=dim)
-    return [cat.to(x.device) for x in xs]
+    with _wired():
+        cat = torch.cat([move(x, home) for x in xs], dim=dim)
+        outs = [move(cat, x.device) for x in xs]
+    return _recorded("all-gather", _nbytes(cat), len(xs), [x.device for x in xs], outs,
+                     ("reduce-scatter", _nbytes(xs[0])))
 
 
 def pmean(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -86,7 +206,27 @@ def pmean(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
 def gather(xs: Sequence[torch.Tensor], dim: int, device) -> torch.Tensor:
     """One shard's result of the tiled all-gather: the shards' tensors
     concatenated along ``dim`` in shard order, on ``device``."""
-    return torch.cat([x.to(device) for x in xs], dim=dim)
+    with _wired():
+        out = torch.cat([move(x, device) for x in xs], dim=dim)
+    if _compound[0]:
+        return out
+    return _recorded("all-gather", _nbytes(out), len(xs), [out.device], [out],
+                     ("reduce-scatter", _nbytes(xs[0])))[0]
+
+
+def gathered(fn, n: int, piece_bytes: int, device) -> torch.Tensor:
+    """``fn()`` (which gathers ``n`` pieces of ``piece_bytes`` each onto
+    ``device`` through :func:`gather`, along several dims) recorded as one
+    all-gather: a value split along two dims is one collective over its
+    whole grid, as the reference's HLO has it."""
+    _compound[0] += 1
+    try:
+        with _wired():
+            out = fn()
+    finally:
+        _compound[0] -= 1
+    return _recorded("all-gather", n * piece_bytes, n, [device], [out],
+                     ("reduce-scatter", piece_bytes))[0]
 
 
 # --------------------------------------------------------- partial attention

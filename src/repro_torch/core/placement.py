@@ -163,13 +163,20 @@ class Sharded:
         return self.pieces[self._index[tuple(block)]]
 
     def _assemble(self, index_lists, device, gather=dist.gather) -> torch.Tensor:
+        """The blocks ``index_lists`` names (per dim, the block indices),
+        concatenated on ``device``: one all-gather of that many blocks in
+        the collective record, however many dims it spans."""
         def rec(dim, prefix):
             if dim == self.ndim:
-                return self.piece(prefix).to(device)
+                return dist.move(self.piece(prefix), device)
             parts = [rec(dim + 1, prefix + (i,)) for i in index_lists[dim]]
             return parts[0] if len(parts) == 1 else gather(parts, dim, device)
 
-        return rec(0, ())
+        n = math.prod(len(ix) for ix in index_lists)
+        if n == 1:
+            return rec(0, ())
+        piece = self.pieces[0]
+        return dist.gathered(lambda: rec(0, ()), n, piece.numel() * piece.element_size(), device)
 
     def full(self, device=None) -> torch.Tensor:
         """The logical tensor, gathered on ``device`` (the first piece's
@@ -211,13 +218,24 @@ class Sharded:
         return self.with_pieces([fn(p, *(r.pieces[i] for r in rest))
                                  for i, p in enumerate(self.pieces)])
 
-    def with_pieces(self, pieces: list) -> "Sharded":
+    def with_pieces(self, pieces: list, shape=None) -> "Sharded":
         """This value's sharding and layout over other pieces (which need
-        not be tensors: the optimizer maps to per-piece tuples)."""
+        not be tensors: the optimizer maps to per-piece tuples), of logical
+        ``shape`` when the pieces change it along a split dim."""
         out = Sharded.__new__(Sharded)
         out.__dict__.update(self.__dict__)
         out.pieces = list(pieces)
+        if shape is not None:
+            out.shape = torch.Size(shape)
         return out
+
+    def layer(self, i: int) -> "Sharded":
+        """Index ``i`` along an unsplit leading dim, piece by piece (views,
+        so in-place updates reach the pieces)."""
+        if self.grid[0] != 1:
+            raise ValueError("the leading dim is split; it cannot be indexed per piece")
+        sh = NamedSharding(self.mesh, P(*tuple(self.spec)[1:]))
+        return Sharded(sh, self.shape[1:], [p[i] for p in self.pieces])
 
     def unstack(self, n: int) -> list["Sharded"]:
         """The n values along an unsplit leading dim (one ``torch.unbind``
@@ -272,9 +290,15 @@ def resolve_at_use(tree: Any) -> Any:
 
 def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of nested dicts / named tuples / tuples /
-    lists (a Sharded is a leaf), with same-structured ``rest``."""
+    lists / side-car dataclasses (a cache's ``QuantizedKeys`` or
+    ``PageMeta``: their ``FIELDS``; a Sharded is a leaf), with
+    same-structured ``rest``."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and hasattr(tree, "FIELDS"):
+        return dataclasses.replace(tree, **{f: map_tree(fn, getattr(tree, f),
+                                                        *(getattr(r, f) for r in rest))
+                                            for f in tree.FIELDS})
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(map_tree(fn, getattr(tree, f), *(getattr(r, f) for r in rest))
                             for f in tree._fields))
@@ -307,6 +331,29 @@ def place(x, sharding: NamedSharding):
     return Sharded(sharding, x.shape, pieces)
 
 
+def place_new(x, sharding: NamedSharding, fill=None):
+    """A Sharded value of ``x``'s shape and dtype (``x`` only gives them: a
+    ``meta`` tensor will do) whose pieces are made on their owners' devices,
+    filled with ``fill`` (``torch.empty`` when None: under ``FakeTensorMode``
+    a fake piece, no storage).  Nothing is copied, so no device ever holds
+    more than its own blocks.  A 0-dim value stays a tensor on the mesh's
+    first device."""
+    mesh = sharding.mesh
+    shape = tuple(x.shape)
+
+    def make(block_shape, device):
+        if fill is None:
+            return torch.empty(block_shape, dtype=x.dtype, device=device)
+        return torch.full(block_shape, fill, dtype=x.dtype, device=device)
+
+    if not shape:
+        return make((), mesh.devices[0])
+    grid = sharding.grid(shape)
+    block_shape = tuple(n // k for n, k in zip(shape, grid))
+    return Sharded(sharding, shape, [make(block_shape, mesh.devices[owner])
+                                     for _, owner in sharding.blocks(len(shape))])
+
+
 def place_tree(tree: Any, shardings: Any) -> Any:
     """``place`` every leaf of ``tree`` by the matching leaf of
     ``shardings`` (a tree of the same structure) or by one sharding."""
@@ -329,19 +376,29 @@ def shard_bytes(x: Sharded) -> list[int]:
 def split_batch(batch: dict, mesh: "Mesh", batch_axes_: tuple[str, ...]) -> list[dict]:
     """The batch's slices, one per data shard in order over ``batch_axes_``
     (every leaf's leading dim split, a VLM's ``vision_embeds`` too), each
-    on the device of the data shard's first shard."""
+    on the device of the data shard's first shard.  A leaf placed with its
+    leading dim split over exactly those axes (``launch.sharding.
+    batch_shardings``) gives each data shard its own piece, where it lies."""
     axes = [a for a in batch_axes_ if a in mesh.shape]
     n = math.prod(mesh.shape[a] for a in axes)
     out = []
     for t in range(n):
         dev = mesh.device_at(axis_coords(mesh, axes, t))
-        out.append({k: None if v is None else
-                    v.narrow(0, t * (v.shape[0] // n), v.shape[0] // n).to(dev)
+        out.append({k: None if v is None else _batch_slice(v, t, n, axes, dev)
                     for k, v in batch.items()})
     return out
 
 
+def _batch_slice(v, t: int, n: int, axes, dev) -> torch.Tensor:
+    if isinstance(v, Sharded):
+        if v.sharding.dim_axes(v.ndim) != (tuple(axes),) + ((),) * (v.ndim - 1):
+            raise ValueError(f"a placed batch leaf splits by {v.spec}, not its leading "
+                             f"dim over {tuple(axes)}")
+        return v.piece((t,) + (0,) * (v.ndim - 1)).to(dev)
+    return v.narrow(0, t * (v.shape[0] // n), v.shape[0] // n).to(dev)
+
+
 __all__ = [
     "AtUse", "NamedSharding", "P", "Sharded", "as_sharded", "axis_coords", "gather_tree",
-    "map_tree", "place", "place_tree", "resolve_at_use", "shard_bytes", "split_batch",
+    "map_tree", "place", "place_new", "place_tree", "resolve_at_use", "shard_bytes", "split_batch",
 ]

@@ -89,7 +89,7 @@ def quest_token_indices(
     if length is not None:
         first_tok = torch.arange(P, dtype=torch.int32, device=s.device) * page
         valid = first_tok[None, None, :] < length[:, None, None]
-        s = torch.where(valid, s, torch.tensor(retrieval.NEG_INF, dtype=s.dtype, device=s.device))
+        s = torch.where(valid, s, torch.full((), retrieval.NEG_INF, dtype=s.dtype, device=s.device))
     pidx = torch.sort(s, dim=-1, descending=True, stable=True).indices[..., :n_pages]
     offs = torch.arange(page, dtype=torch.int64, device=s.device)
     idx = pidx[..., None] * page + offs  # [B, Hkv, n_pages, page]

@@ -25,7 +25,7 @@ NEG_INF = -1e30
 
 def _inv_sqrt(D: int, device: torch.device) -> torch.Tensor:
     """1/sqrt(D) evaluated in f32, as ``1.0 / jnp.sqrt(jnp.asarray(D, f32))``."""
-    return 1.0 / torch.sqrt(torch.tensor(float(D), dtype=torch.float32, device=device))
+    return 1.0 / torch.sqrt(torch.full((), float(D), dtype=torch.float32, device=device))
 
 
 def approx_scores(q: torch.Tensor, qk: QuantizedKeys) -> torch.Tensor:
@@ -85,10 +85,10 @@ def masked_scores(
     B, Hkv, S = scores.shape
     pos = torch.arange(S, dtype=torch.int32, device=scores.device)
     s = scores
-    inf = torch.tensor(float("inf"), dtype=s.dtype, device=s.device)
+    inf = torch.full((), float("inf"), dtype=s.dtype, device=s.device)
     if length is not None:
         valid = pos[None, None, :] < length[:, None, None]
-        s = torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+        s = torch.where(valid, s, torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
     if sink > 0:
         s = torch.where(pos[None, None, :] < sink, inf, s)
     if recent > 0 and length is not None:

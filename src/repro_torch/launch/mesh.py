@@ -14,9 +14,21 @@ Axis meanings, as in the reference:
     data   — data parallel: slots (serving), batch and FSDP storage (training)
     model  — tensor / expert parallel + decode-time KV sequence sharding
 
-The reference's ``make_production_mesh`` (the 512-chip TPU v5e layout) has
-no counterpart: it exists for the XLA dry run, which the port does not
-have (ROADMAP, Modules with no counterpart).
+``make_production_mesh`` is the reference's production layout, 16 × 16
+shards over ("data", "model") or 2 × 16 × 16 over ("pod", "data",
+"model"), over fake devices: the dry run (``launch/dryrun.py``) traces a
+step on it under ``FakeTensorMode`` and never touches a card.
+
+A fake device is a ``torch.device`` that only keys a shard.  torch keeps a
+device index in 8 bits (``cuda:300`` is ``cuda:44``), so one device type
+names at most 128 shards.  Of the device types, only ``cpu`` and ``meta``
+carry a fake trace, backward and ``torch.utils.checkpoint`` included, in
+both a CPU-only build and a CUDA build: a fake ``cuda`` device initialises
+the real card of its index (and fails past the count), and the other types
+lack a device guard, a ``torch.<type>`` module or kernels under the fake
+dispatch.  So shard i is ``cpu:i`` for i < 128 and ``meta:(i - 128)``
+after: a fake mesh holds at most 256 shards, the single-pod production
+mesh; the multi-pod mesh's 512 do not fit (ROADMAP).
 """
 from __future__ import annotations
 
@@ -26,6 +38,10 @@ from typing import Sequence
 import torch
 
 from repro_torch import resolve_device
+
+# the device types of the fake devices, 128 shards each (module docstring)
+FAKE_DEVICE_TYPES = ("cpu", "meta")
+FAKE_TYPE_SHARDS = 128
 
 
 class Mesh:
@@ -75,6 +91,30 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device="cuda") -> Me
     CUDA card unless ``device='cpu'``): the tests' mesh, and the one card's."""
     dev = resolve_device(device)
     return Mesh(shape, axes, [dev] * math.prod(shape))
+
+
+def fake_devices(n: int) -> list[torch.device]:
+    """``n`` distinct fake devices, one per shard (module docstring)."""
+    cap = FAKE_TYPE_SHARDS * len(FAKE_DEVICE_TYPES)
+    if not 0 < n <= cap:
+        raise ValueError(f"a fake mesh holds 1 to {cap} shards (one fake device each, "
+                         f"launch/mesh.py), not {n}")
+    return [torch.device(FAKE_DEVICE_TYPES[i // FAKE_TYPE_SHARDS], i % FAKE_TYPE_SHARDS)
+            for i in range(n)]
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh of ``shape`` over ``axes`` with one fake device per shard, for
+    a trace under ``FakeTensorMode`` (no card, no storage)."""
+    return Mesh(shape, axes, fake_devices(math.prod(shape)))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh over fake devices: (16, 16) over
+    ("data", "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_fake_mesh(shape, axes)
 
 
 def make_local_mesh(model_axis: int = 1, *, device="cuda") -> Mesh:

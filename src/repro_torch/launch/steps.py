@@ -15,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.placement import Sharded
 from repro_torch.models.transformer import ModelBundle
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                compress_decompress, cosine_schedule, ef_state_init,
@@ -63,6 +64,17 @@ def _loss_and_grads(bundle: ModelBundle, params: dict, batch: dict):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _microbatch(v, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of a batch leaf: rows i·B/n … of a tensor;
+    of a placed leaf (``core.placement.Sharded``, its rows split over the
+    data shards), microbatch ``i`` of every data shard's own rows, where
+    they lie."""
+    cut = lambda x: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+    if isinstance(v, Sharded):
+        return v.with_pieces([cut(p) for p in v.pieces], (v.shape[0] // n,) + tuple(v.shape[1:]))
+    return cut(v)
+
+
 def make_train_step(bundle: ModelBundle, hp: TrainHParams) -> Callable:
     """(state, batch) → (state, metrics): the gradient of
     ``bundle.train_loss`` (summed over ``hp.microbatches`` equal slices of
@@ -79,7 +91,7 @@ def make_train_step(bundle: ModelBundle, hp: TrainHParams) -> Callable:
             acc = map_leaves(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device), params)
             losses, ms = [], []
             for i in range(n):
-                mb = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
+                mb = {k: _microbatch(v, n, i) for k, v in batch.items()}
                 loss_i, m_i, g = _loss_and_grads(bundle, params, mb)
                 acc = map_leaves(lambda a, x: a + x.to(adt), acc, g)
                 losses.append(loss_i)

@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import distributed as dist
 from repro_torch.core import policy as core_policy
-from repro_torch.core.placement import axis_coords
+from repro_torch.core.placement import Sharded
 from repro_torch.core.policy import CacheView, DecodePlan, PolicyConfig
 from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
@@ -142,9 +142,10 @@ def decode_self_attention(
     dispatches through a paged ``CacheView`` — on every shard of the mesh
     when the plan carries a sharding spec (the pool leaves are then
     ``kvcache.sharded.ShardedPool``s).  With ``dcfg.seq_axes`` the slab
-    cache is sequence-sharded over those mesh axes: the append, the
-    side-car refresh and the attention run per shard, merged by the LSE
-    combine (``core.distributed``).  Returns out [B, 1, d]; the output
+    cache is sequence-sharded over those mesh axes, placed by
+    ``launch.sharding.cache_shardings`` (its leaves ``Sharded``): the
+    append, the side-car refresh and the attention run per shard on its
+    pieces, merged by the LSE combine (``core.distributed``).  Returns out [B, 1, d]; the output
     projection always runs on the whole [B, Hq·D] row.
     """
     B = x.shape[0]
@@ -173,7 +174,10 @@ def decode_self_attention(
             )
         out = core_policy.decode_attention(
             qh, CacheView.paged(k, v, meta, block_table, length + 1), plan)
-    elif seq_sharded:
+    elif seq_sharded or isinstance(layer_cache["k"], Sharded):
+        if not (seq_sharded and isinstance(layer_cache["k"], Sharded)):
+            raise ValueError("the sequence-sharded decode takes DistConfig.seq_axes and a "
+                             "cache placed by launch.sharding.cache_shardings")
         out = _sharded_decode_step(
             qh, k_new, v_new, layer_cache["k"], layer_cache["v"], meta, length,
             plan.policy, dcfg,
@@ -190,26 +194,31 @@ def _sharded_decode_step(
     q: torch.Tensor,
     k_new: torch.Tensor,
     v_new: torch.Tensor,
-    K: torch.Tensor,
-    V: torch.Tensor,
+    K: Sharded,
+    V: Sharded,
     meta: Any,
     length: torch.Tensor,
     pol: PolicyConfig,
     dcfg: DistConfig,
 ) -> torch.Tensor:
-    """Sequence-sharded slab decode: shard-local append + side-car refresh,
-    then distributed FIER (or full) attention with the LSE merge.  The slab
-    [B, S, Hkv, D] splits into ``dcfg.batch_axes`` row ranges × ``seq_axes``
-    position ranges; a shard on the slab's own device works on views of it,
-    a shard elsewhere on a copy that is written back after the append.  The
-    only collectives are the O(Hq·D) psum of partial outputs (and the small
-    candidate all-gather in mode 'exact').  Returns out [B, Hq, D]."""
+    """Sequence-sharded slab decode over a cache placed by
+    ``launch.sharding.cache_shardings``: K, V [B, S, Hkv, D] and the FIER
+    side-car split into ``dcfg.batch_axes`` row blocks × ``seq_axes``
+    position blocks, each piece on its shard's device from ``init_cache``
+    on.  Per shard, the append and the side-car refresh run on its own
+    pieces where they lie, then distributed FIER (or full) attention with
+    the LSE merge.  Only q, the new K/V row and the lengths reach the
+    shards, and the O(Hq·D) partial outputs leave them (plus the small
+    candidate all-gather in mode 'exact'); no slab range moves.  Returns
+    out [B, Hq, D] on q's device."""
     mesh, axes, baxes = dcfg.mesh, tuple(dcfg.seq_axes), tuple(dcfg.batch_axes)
     n_shards = math.prod(mesh.shape[a] for a in axes)
     n_b = math.prod(mesh.shape[a] for a in baxes)
     B, S = K.shape[:2]
-    if S % n_shards or B % n_b:
-        raise ValueError(f"slab [{B}, {S}] does not split into {n_b} × {n_shards} shards")
+    if K.grid != (n_b, n_shards, 1, 1) or V.grid != K.grid:
+        raise ValueError(f"the slab [{B}, {S}] is split {K.grid}, not into {n_b} row x "
+                         f"{n_shards} position blocks over {baxes} x {axes}: place the cache "
+                         f"with launch.sharding.cache_shardings")
     S_loc, B_loc = S // n_shards, B // n_b
     if k_new.dim() == 4:
         k_new, v_new = k_new[:, 0], v_new[:, 0]
@@ -219,17 +228,10 @@ def _sharded_decode_step(
         rows = slice(bi * B_loc, (bi + 1) * B_loc)
         group = {n: [] for n in ("q", "K", "V", "qk", "len", "start")}
         for si in range(n_shards):
-            dev = mesh.device_at({**axis_coords(mesh, baxes, bi),
-                                  **axis_coords(mesh, axes, si)})
+            block = (bi, si, 0, 0)
+            K_l, V_l = K.piece(block), V.piece(block)
+            dev = K_l.device
             start = si * S_loc
-            cols = slice(start, start + S_loc)
-            home = [K[rows, cols], V[rows, cols]]
-            if fier:
-                home += [meta.codes[rows, start // 8:(start + S_loc) // 8],
-                         meta.scale[rows, start // pol.group:(start + S_loc) // pol.group],
-                         meta.zero[rows, start // pol.group:(start + S_loc) // pol.group]]
-            local = [t.to(dev) for t in home]
-            K_l, V_l = local[:2]
             len_l = length[rows].to(dev)
             # shard-local append: only the owning shard commits the write; the
             # select runs on the one row, never on the slab
@@ -242,11 +244,9 @@ def _sharded_decode_step(
                 slab[r, wpos] = torch.where(owns[:, None, None], new, slab[r, wpos])
             qk_l = None
             if fier:
-                qk_l = dataclasses.replace(meta, codes=local[2], scale=local[3], zero=local[4])
+                qk_l = dataclasses.replace(meta, **{f: getattr(meta, f).piece(block)
+                                                    for f in meta.FIELDS})
                 kvcache.append_token_metadata(qk_l, K_l, wpos, pol, commit_mask=owns)
-            for h, l in zip(home, local):
-                if l.data_ptr() != h.data_ptr():
-                    h.copy_(l)
             group["q"].append(q[rows].to(dev))
             group["K"].append(K_l), group["V"].append(V_l), group["qk"].append(qk_l)
             group["len"].append(len_l + 1), group["start"].append(start)

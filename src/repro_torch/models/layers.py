@@ -98,7 +98,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     op in x's dtype with both constants rounded to it first, as XLA
     evaluates it.  ``F.gelu`` is the erf form: it differs in about half of
     the bf16 outputs."""
-    c, a = torch.tensor([math.sqrt(2.0 / math.pi), 0.044715], device=x.device).to(x.dtype)
+    c, a = (torch.full((), v, dtype=torch.float32, device=x.device).to(x.dtype)
+            for v in (math.sqrt(2.0 / math.pi), 0.044715))
     return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
 
 

@@ -97,15 +97,16 @@ def _tp_keep(path: str, ndim: int) -> dict[int, tuple[str, ...]]:
 
 
 class _Views:
-    """What each shard computes with, gathered once per (leaf, model
-    shard, device) within one call."""
+    """What each shard computes with, gathered once per (leaf, shard)
+    within one call: per shard, not per device, so the collectives a step
+    records do not depend on where the shards sit."""
 
     def __init__(self, shards: Shards):
         self.shards, self.memo = shards, {}
 
     def tp(self, x, path: str, t: int, m: int) -> torch.Tensor:
         dev = self.shards.dev(t, m)
-        key = (id(x), m, dev)
+        key = (id(x), t, m)
         if key not in self.memo:
             xs = as_sharded(x, self.shards.mesh)
             self.memo[key] = xs.view(self.shards.coords(t, m), _tp_keep(path, xs.ndim), dev)
@@ -192,10 +193,11 @@ def transformer_mesh_loss(cfg: ModelConfig, dcfg, *, remat: bool = True,
     mesh = dcfg.mesh
     sh = Shards(mesh, dcfg.batch_axes or batch_axes(mesh))
     n_tp = sh.n_tp
-    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff)):
-        if n % n_tp:
-            raise ValueError(f"{name} {n} does not divide over {n_tp} model shards")
+    # checked when the loss is called: a bundle built on this mesh may only
+    # serve (its prefill and decode need no head split)
+    undivided = [f"{name} {n}" for name, n in (("n_heads", cfg.n_heads),
+                                               ("n_kv_heads", cfg.n_kv_heads),
+                                               ("d_ff", cfg.d_ff)) if n % n_tp]
     cfg_tp = dataclasses.replace(cfg, n_heads=cfg.n_heads // n_tp,
                                  n_kv_heads=cfg.n_kv_heads // n_tp, d_ff=cfg.d_ff // n_tp)
     cdt = _DTYPES[cfg.compute_dtype]
@@ -244,6 +246,9 @@ def transformer_mesh_loss(cfg: ModelConfig, dcfg, *, remat: bool = True,
     def train_loss(params, batch):
         """(loss + MOE_AUX_COEF · mean aux, {loss, moe_aux, tokens}), the
         one-device ``train_loss``'s contract, over the mesh."""
+        if undivided:
+            raise ValueError(f"{', '.join(undivided)} does not divide over {n_tp} model "
+                             f"shards")
         views = _Views(sh)
         E = params["embed"]
         slices = split_batch(batch, mesh, sh.b_axes)
@@ -290,7 +295,7 @@ def data_parallel_loss(bundle, dcfg):
             xs = as_sharded(x, mesh)
             if lazy:
                 return AtUse(xs, coords, dev)
-            key = (id(x), dev)
+            key = (id(x), t)
             if key not in memo:
                 memo[key] = xs.view(coords, {}, dev)
             return memo[key]

@@ -107,11 +107,30 @@ def checkpointed(fn: Callable, enabled: bool) -> Callable:
     return lambda *args: checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+def _index(x, i: int):
+    """Layer ``i`` of a stacked leaf (a view; a placed leaf piece by piece)."""
+    return x.layer(i) if isinstance(x, Sharded) else x[i]
+
+
 def _layer_cache(stack: dict, i: int) -> dict:
-    lc = {"k": stack["k"][i], "v": stack["v"][i]}
+    lc = {"k": _index(stack["k"], i), "v": _index(stack["v"], i)}
     if "meta" in stack:
-        lc["meta"] = stack["meta"].layer(i)
+        meta = stack["meta"]
+        lc["meta"] = dataclasses.replace(meta, **{f: _index(getattr(meta, f), i)
+                                                  for f in meta.FIELDS})
     return lc
+
+
+def at_home(x, device, i: int | None = None):
+    """A leaf as the one-device code reads it (layer ``i`` of a stacked
+    one): a mesh-placed leaf (``core.placement.Sharded``) gathered whole on
+    ``device``, a tensor as it is.  The prefill and decode steps read
+    placed params this way, layer by layer: the reference runs them
+    Megatron-parallel under GSPMD, the port's single controller on the
+    bundle's device."""
+    if isinstance(x, Sharded):
+        return (x if i is None else x.layer(i)).full(device)
+    return x if i is None else x[i]
 
 
 def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
@@ -193,6 +212,12 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         y, aux = apply(xn.reshape(-1, cfg.d_model), lp["moe"], cfg)
         return r.to(cdt) + y.reshape(xn.shape), aux
 
+    def _home_globals(params):
+        """``params`` with its leaves outside the layer stack read
+        ``at_home`` (the layers are read one at a time)."""
+        return {k: v if k == "layers" else tree_map(lambda a: at_home(a, device_), v)
+                for k, v in params.items()}
+
     def _head(params):
         return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -242,6 +267,8 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         """Returns (last-token logits [B, Vp] f32, filled slab cache).
         ``batch["vision_embeds"]`` [B, n_vision, d], when present, precedes
         the token embeddings; ``lengths`` then count the vision positions."""
+        batch = {k: at_home(v, device_) for k, v in batch.items()}
+        params = _home_globals(params)
         lengths = batch["lengths"].to(torch.int32)
         h = _embed_inputs(params, batch)  # [B, S, d]
         B, S, _ = h.shape
@@ -250,7 +277,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         cache = _slab_cache(B, cap, 0)
         cache["length"] = lengths.clone()
         for l in range(L):
-            lp = _layer_params(params["layers"], l)
+            lp = tree_map(lambda a: at_home(a, device_, l), params["layers"])
             xn = apply_norm(h, lp["norm1"], cfg.norm)
             q, k, v = attn.qkv_proj(lp["attn"], xn, cfg, positions=None)
             o = flash_attention(q, k, v, causal=True, bias_mask=valid)
@@ -400,23 +427,30 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
     def decode_step(params, token, cache):
         """One token per sequence; the cache is updated in place and
         returned with ``length + 1``."""
-        length = cache["length"]
+        length = at_home(cache["length"], device_)
         block_table = cache.get("block_table") if paged else None
-        h = params["embed"][token][:, None, :].to(cdt)
+        params = _home_globals(params)
+        h = params["embed"][at_home(token, device_)][:, None, :].to(cdt)
         for l in range(L):
-            lp = _layer_params(params["layers"], l)
+            lp = tree_map(lambda a: at_home(a, device_, l), params["layers"])
             if l < skip:
                 lc, layer_plan = _layer_cache(cache["front"], l), plan_full
             else:
                 lc, layer_plan = _layer_cache(cache["rest"], l - skip), plan
+            # a placed cache runs every layer sequence-sharded, the skip
+            # layers densely (full_decode_sharded)
+            seq = l >= skip or isinstance(lc["k"], Sharded)
             o = attn.decode_self_attention(
                 lp["attn"], apply_norm(h, lp["norm1"], cfg.norm), lc, length, cfg,
-                layer_plan, dcfg if l >= skip else None, block_table=block_table,
+                layer_plan, dcfg if seq else None, block_table=block_table,
             )
             h, _ = _ffn_block(lp, h, o, decode=True)
         h = apply_norm(h, params["final_norm"], cfg.norm)[:, 0]
         logits = _masked_logits(h, _head(params), cfg.vocab, Vp)
-        return logits, dict(cache, length=length + 1)
+        new_len = cache["length"]
+        new_len = (new_len.map_pieces(lambda p: p + 1) if isinstance(new_len, Sharded)
+                   else new_len + 1)
+        return logits, dict(cache, length=new_len)
 
     return ModelBundle(
         cfg=cfg,
@@ -444,7 +478,7 @@ def _vocab_col_mask(vocab: int, Vp: int, device) -> torch.Tensor:
     # added in f32 after the head
     col = torch.arange(Vp, device=device)
     return torch.where(
-        col < vocab, torch.tensor(0.0, device=device), torch.tensor(-1e30, device=device)
+        col < vocab, torch.full((), 0.0, device=device), torch.full((), -1e30, device=device)
     )
 
 

@@ -56,8 +56,8 @@ def adamw_update(
 ) -> tuple[Any, AdamWState]:
     step = state.step + 1
     t = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, device=t.device), t)
-    bc2 = 1 - torch.pow(torch.tensor(b2, device=t.device), t)
+    bc1 = 1 - torch.pow(torch.full((), b1, device=t.device), t)
+    bc2 = 1 - torch.pow(torch.full((), b2, device=t.device), t)
 
     def upd(g, m, n, p):
         gf = g.to(torch.float32)

@@ -33,6 +33,6 @@ def wsd_schedule(step, *, peak_lr, warmup, total, decay_frac=0.1,
     decay_start = total - decay_steps
     warm = peak_lr * s / max(warmup, 1)
     prog = torch.clamp((s - decay_start) / max(decay_steps, 1), 0.0, 1.0)
-    decay = peak_lr * torch.pow(torch.tensor(final_frac, device=s.device), prog)
+    decay = peak_lr * torch.pow(torch.full((), final_frac, device=s.device), prog)
     out = torch.where(s < warmup, warm, torch.full_like(s, peak_lr))
     return torch.where(s > decay_start, decay, out)

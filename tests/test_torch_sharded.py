@@ -61,8 +61,9 @@ from repro_torch.core.quantize import QuantizedKeys
 from repro_torch.kvcache.paged import AllocatorAuditError
 from repro_torch.kvcache.sharded import ShardedBlockAllocator, ShardSpec
 from repro_torch.launch import serve
-from repro_torch.core.placement import axis_coords
+from repro_torch.core.placement import axis_coords, gather_tree, place_tree
 from repro_torch.launch.mesh import Mesh, make_local_mesh, make_mesh
+from repro_torch.launch.sharding import cache_batch_axes, cache_shardings
 from repro_torch.models import build_model
 from repro_torch.models import attention
 from repro_torch.models.attention import DistConfig
@@ -597,8 +598,13 @@ def test_seq_sharded_slab_decode_equals_dense(mode):
                             for n, v in c[k].items()} if isinstance(c[k], dict)
                            else c[k].clone()) for k in c}
     c_plain, c_sh = clone(cache), clone(cache)
+    # the sequence-sharded layers' slabs placed by cache_shardings, each
+    # shard's range on its device; the skip layer's stays whole
+    sh = cache_shardings(c_sh, mesh, ("data",), ("model",), cache_batch_axes(sharded.init_cache, 64))
+    c_sh["rest"] = place_tree(c_sh["rest"], sh["rest"])
     l_plain, c_plain = plain.decode_step(params, tok, c_plain)
     l_sh, c_sh = sharded.decode_step(params, tok, c_sh)
+    c_sh = gather_tree(c_sh)
     l_dense, _ = dense.decode_step(params, tok, dense.prefill(params, batch, capacity=64)[1])
     scale = l_dense[:, :cfg.vocab].abs().max()
     assert (l_sh - l_dense)[:, :cfg.vocab].abs().max() <= DENSE_TOL * scale
