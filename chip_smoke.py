@@ -3648,7 +3648,7 @@ FAMILY_RUNS = (
 )
 VLM = "llava-next-mistral-7b"
 VLM_SLOTS, VLM_TEXT, VLM_STEPS, VLM_LAYERS = 2, (7000, 3000), 8, 16
-TIMED_STEPS = 4
+TIMED_STEPS = 2  # timed decode steps per config (cut from 8, then 4)
 # Phase 9's first-step gate as a fraction of max|logit|, set as phase 3's
 # were: between the largest sound reading and the smallest planted fault's
 # (PERF.md, PR 18).  Sound: minicpm-2b 0.01566 (38 FIER layers; above phase
@@ -5421,7 +5421,7 @@ SHARD_TRAIN_LAYERS = 4
 SHARD_TRAIN_MESHES = (("dp2", (2,), ("data",)), ("tp2", (2,), ("model",)),
                       ("tp2xdp2", (2, 2), ("data", "model")))
 SHARD_TRAIN_LR = 1e-3
-SHARD_TRAIN_TIMED = 4      # more steps per mesh after the first, timed (median)
+SHARD_TRAIN_TIMED = 2      # more steps per mesh after the first, timed (median; cut from 4)
 GRANITE_TRAIN_LAYERS = 2   # (b)
 NO_DROP_FACTOR = 8.0       # (b): the capacity factor at which nothing drops
 EXPERT_LEAN = 0.05         # (b): the tokens' shift along expert 0's router column, × sqrt(d)
