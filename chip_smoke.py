@@ -5437,6 +5437,7 @@ SERVE_TRAINED_STEPS = 8    # (e): teacher-forced decode steps
 # gates).  The loss gate holds the first step and every timed step.
 # Readings on one "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md §6, phase 13):
 TRAIN_LOSS_REL_TOL = 2e-4   # |Δloss| / loss: sound 3.93e-05 (granite 9.12e-05), faults 2.99e-04-8.20
+# (over 2 timed steps the lost first moments read 3.10e-04, over 4 0.0123)
 TRAIN_GNORM_REL_TOL = 1e-3  # first step |Δ grad norm| / norm: sound 1.59e-05, faults 0.0108-0.420
 # the timed steps' grad norm: where the first gradient was near zero, v̂ is
 # tiny and AdamW's next updates are sign-like, so summation order flips
