@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # the whole check, as described below
     python3 chip_smoke.py --kernels-only  # phases 1-2 only, no result line
+    python3 chip_smoke.py --ssm-hybrid-encdec-only  # phases 1 and 10 only, no result line
     python3 chip_smoke.py --training-only # phases 1 and 11 only, no result line
     python3 chip_smoke.py --sharded-only  # phases 1 and 12 only, no result line
     python3 chip_smoke.py --sharded-train-only  # phases 1 and 13 only, no result line
@@ -190,7 +191,7 @@ result line):
    replayed from the plain run where a near-tied router swapped one, the
    unpinned gap and the swaps reported), and two planted faults (K2 fed
    idx+1; K1's first-FIER-layer selection on the next kv head) above it;
-   ``generate`` of 16 greedy tokens with K1/K2 launched
+   ``generate`` of 16 (granite) or 8 greedy tokens with K1/K2 launched
    (layers − 2) x decode steps and no other FIER kernel (llava: 8
    ``decode`` steps after the bundle's ``prefill``); granite's prefill
    logits identical to the reference pipeline's, and its prompts through a
@@ -213,10 +214,25 @@ result line):
    prompts 4000/3000/2000/1000): the first decode step with the kernels vs
    their plain versions within ``PHASE10_LOGIT_REL_TOL`` and two planted
    faults above it (``family_first_step``), K1 = K2 = 13 (zamba2) or 10
-   (whisper) × decode steps in ``generate`` of 16 greedy tokens and no other
+   (whisper) × decode steps in ``generate`` of 8 greedy tokens and no other
    FIER kernel; zamba2's prefill logits identical to the reference
    pipeline's and a two_pass engine's first step equal to one_pass bit for
-   bit.  Reported, not gated: as phase 9.
+   bit.  (d) each of the three on a 2 x 2 (data x model) mesh with every
+   shard on the card (``mesh10_decode``): ``build_model`` with a
+   ``DistConfig`` (``seq_axes=("model",)``, ``batch_axes=("data",)``,
+   ``mode="exact"``) decodes 4 steps from the prefill cache placed by
+   ``cache_shardings`` (slabs over batch x sequence, Mamba2 states and
+   cross K/V over batch, every piece on a storage of its own), teacher-
+   forced with the one-device bundle's tokens (the same policy without the
+   guard rails): the logits within ``MESH10_LOGIT_REL_TOL`` of the
+   one-device steps' (mamba2 and zamba2 at ``SSM_STEP_REL_TOL``: cuBLAS
+   gives the state readout's rows other last bits at 2 rows than at 4),
+   zamba2's and whisper's every exact-mode selection equal to K1's on the
+   same query and side-car up to scores near τ; one planted fault per
+   family (each batch shard stepping the next shard's state rows, or
+   attending the next shard's cross K/V) above the gate.  Reported, not
+   gated: as phase 9 (only zamba2's step profiled), and (d)'s ms per step
+   beside the one-device step's.
 11. Training (``training_path``): (a) ``flash_attention``'s blockwise
    backward (a ``torch.autograd.Function``) against autograd through the
    dense ``attention_ref`` on bf16 inputs at olmo-1b's layer (B 4, S 2048,
@@ -2574,6 +2590,7 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 1):
 
     slots = [s for s in range(eng.n_slots) if active is None or bool(active[s])]
     torch.cuda.synchronize()
+    t_trace = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -2598,7 +2615,8 @@ def profile_decode(torch, eng, params, tok, cache, active, steps: int = 1):
     log(f"  profiled {steps} decode steps: wall {wall_us / steps / 1e3:.2f} ms/step, "
         f"device busy {busy_us / steps / 1e3:.3f} ms/step "
         f"({100 * busy_us / wall_us:.1f}% busy, {100 - 100 * busy_us / wall_us:.1f}% idle), "
-        f"{n_kernels // steps} kernel launches/step")
+        f"{n_kernels // steps} kernel launches/step (profiling took "
+        f"{time.perf_counter() - t_trace:.1f} s)")
     ranked = sorted(events, key=dev, reverse=True)
     # the ten largest rows, and every kernel of the port's own below them
     for i, e in enumerate(ranked):
@@ -3641,10 +3659,10 @@ def robustness_path(torch, cfg, params, p3, outs_p5):
 # depth for the script's time limit; starcoder2-3b keeps its 30, whose
 # planted faults sit nearest the gate.
 FAMILY_PROMPTS = (8100, 6000, 3000, 1500)
-FAMILY_RUNS = (
+FAMILY_RUNS = (  # granite's 16 tokens also run its paged-vs-slab comparison
     ("granite-moe-1b-a400m", SLOTS, FAMILY_PROMPTS, 16, None),
-    ("minicpm-2b", SLOTS, FAMILY_PROMPTS, 16, 20),
-    ("starcoder2-3b", SLOTS, FAMILY_PROMPTS, 16, None),
+    ("minicpm-2b", SLOTS, FAMILY_PROMPTS, 8, 20),
+    ("starcoder2-3b", SLOTS, FAMILY_PROMPTS, 8, None),
 )
 VLM = "llava-next-mistral-7b"
 VLM_SLOTS, VLM_TEXT, VLM_STEPS, VLM_LAYERS = 2, (7000, 3000), 8, 16
@@ -4012,10 +4030,14 @@ def families_path(torch):
 # capacity 4096 with a 4096-row position table (max_positions).
 SSM_PROMPTS = (8100, 6000, 3000, 1500)
 WHISPER_CAPACITY = 4096
+# the configs whose decode step phase 10 profiles; mamba2's and whisper's
+# steps read 6.198 and 5.146 ms/step device busy when last profiled
+# (PERF.md §5), and their profiles went to pay for (d)'s time
+PHASE10_PROFILED = ("zamba2-7b",)
 PHASE10_RUNS = (
-    ("mamba2-370m", SLOTS, CAPACITY, SSM_PROMPTS, 16),
-    ("zamba2-7b", SLOTS, CAPACITY, SSM_PROMPTS, 16),
-    ("whisper-small", SLOTS, WHISPER_CAPACITY, (4000, 3000, 2000, 1000), 16),
+    ("mamba2-370m", SLOTS, CAPACITY, SSM_PROMPTS, 8),
+    ("zamba2-7b", SLOTS, CAPACITY, SSM_PROMPTS, 8),
+    ("whisper-small", SLOTS, WHISPER_CAPACITY, (4000, 3000, 2000, 1000), 8),
 )
 # mamba2-370m: the recurrent step's first logits vs a prefill (the chunked
 # scan) of each prompt extended by the decoded token, as a fraction of
@@ -4035,6 +4057,215 @@ SSM_STEP_REL_TOL = 0.05
 # attention output) and its faults only 0.007103 and 0.00819 (the
 # cross-attention carries the decoder), so its gate is 0.004.
 PHASE10_LOGIT_REL_TOL = {"zamba2-7b": FAMILY_LOGIT_REL_TOL, "whisper-small": 0.004}
+
+
+# (d) the three families on a (data x model) mesh with every shard on the
+# card: MESH10_STEPS decode steps from phase 10's prefill cache placed by
+# cache_shardings (KV slabs over batch x sequence, Mamba2 states and cross
+# K/V over batch), teacher-forced with the one-device bundle's tokens.  The
+# one-device steps run the same policy without the guard rails (sink 0,
+# recent 0), which the sequence-sharded decode has not (the reference's
+# neither).  zamba2-7b and whisper-small run in exact mode: every selection
+# must equal K1's on the same inputs up to scores near τ.  The logits must
+# lie within MESH10_LOGIT_REL_TOL of max|logit| of the one-device steps',
+# set between the card's sound readings and the planted faults' (PERF.md
+# §6): mamba2 0.02839 sound, fault 1.271 (not bit for bit on the
+# card: cuBLAS's batched product for the state readout C·h gives a row
+# other last bits at 2 rows than at 4, tools/probe_mamba_rows.py, and 48
+# layers' bf16 roundings carry them as far as the recurrent step departs
+# from its scan, so SSM_STEP_REL_TOL); zamba2 0.03148, fault 1.496 (the
+# same readout in 81 Mamba2 layers, and the sharded attention's softmax
+# weights rounded to bf16 where K2 keeps f32); whisper 0.007249, fault
+# 0.05559 (the cross K/V of the other batch shard).
+MESH10_SHAPE = (2, 2)
+MESH10_STEPS = 4
+MESH10_LOGIT_REL_TOL = {"mamba2-370m": SSM_STEP_REL_TOL, "zamba2-7b": SSM_STEP_REL_TOL,
+                        "whisper-small": 0.02}
+
+
+def mesh10_selections(torch):
+    """A recorder of every exact-mode FIER call of the sequence-sharded
+    decode (one per layer, step and batch shard): the positions it attends
+    (``dist.select_sharded``) against K1's selection (``ops.fier_retrieve``)
+    on the same query and the same side-car joined along the sequence, and
+    the positions whose score lies near K1's τ: within 2·δ + 3·ε of it,
+    where δ is the largest difference between the kernels' score
+    expression (``retrieval_scores``, what K1 ranks) and the reference's
+    (``approx_scores``, what the sharded decode ranks) over the call's
+    valid positions and ε K1's bound against its plain version
+    (``score_eps``).  Returns (the records, install, remove)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import retrieval as rt
+    from repro_torch.core.quantize import QuantizedKeys
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fier_score import retrieval_scores
+    from repro_torch.kernels.fused_retrieval import masked_kv
+
+    calls = []
+    decode, select = dist.fier_decode_sharded, dist.select_sharded
+
+    def recorded(q, K, V, qk, budget, length, *, shard_start, group_reduce="max", **kw):
+        masks = []
+
+        def selecting(kv, budget, length, **skw):
+            sel = select(kv, budget, length, **skw)
+            masks.append(dist.selected_mask(sel, skw["shard_start"], length[0],
+                                            sum(k.shape[-1] for k in kv)))
+            return sel
+
+        dist.select_sharded = selecting
+        try:
+            out = decode(q, K, V, qk, budget, length, shard_start=shard_start,
+                         group_reduce=group_reduce, **kw)
+        finally:
+            dist.select_sharded = select
+        sync(torch)  # the check's own seconds are kept out of the step times
+        t0 = time.perf_counter()
+        dev = q[0].device
+        join = lambda f: torch.cat([getattr(c, f).to(dev) for c in qk], dim=1)
+        codes, scale, zero = join("codes"), join("scale"), join("zero")
+        B, Hq, D = q[0].shape
+        Hkv, S, g = codes.shape[2], codes.shape[1] * 8, qk[0].group
+        q4, lens = q[0].reshape(B, Hkv, Hq // Hkv, D), length[0].to(dev)
+        qk_all = QuantizedKeys(codes, scale, zero, g)
+        idx, tau, _ = ops.fier_retrieve(q4, codes, scale, zero, lens, budget, group=g,
+                                        group_reduce=group_reduce)
+        valid = torch.arange(S, device=dev)[None, None, :] < lens[:, None, None]
+        kv = masked_kv(retrieval_scores(q4, codes, scale, zero, group=g), lens, 0, 0,
+                       group_reduce)
+        kv_ref = rt.reduce_over_query_group(rt.approx_scores(q[0], qk_all), Hkv, group_reduce)
+        delta = float(torch.where(valid, kv - kv_ref, 0.0).abs().max())
+        band = 2 * delta + 3 * score_eps(q4, qk_all)
+        one = torch.zeros((B, Hkv, S), dtype=torch.bool, device=dev).scatter_(
+            2, idx.to(torch.int64), True) & valid
+        diff = one ^ masks[0].to(dev)
+        near = ((kv - tau[..., None]).abs() <= band) & valid
+        calls.append(dict(diff=int(diff.sum()), outside=int((diff & ~near).sum()),
+                          near=int(near.sum()), selected=int(one.sum()),
+                          seconds=time.perf_counter() - t0))
+        return out
+
+    def install():
+        dist.fier_decode_sharded = recorded
+
+    def remove():
+        dist.fier_decode_sharded = decode
+
+    return calls, install, remove
+
+
+def mesh10_rotated(x):
+    """``core.placement.row_blocks`` with each batch shard handed the next
+    shard's pieces: the planted fault of (d)."""
+    from repro_torch.core import placement
+
+    blocks = placement.row_blocks(x)
+    return [(rows, blocks[(i + 1) % len(blocks)][1]) for i, (rows, _) in enumerate(blocks)]
+
+
+def mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity):
+    """(d): ``build_model(cfg, pol, DistConfig(mesh, seq_axes=("model",),
+    batch_axes=("data",), mode="exact"))`` on a MESH10_SHAPE mesh with every
+    shard on the card decodes MESH10_STEPS steps from a placed copy of
+    ``cache`` (phase 10's prefill), teacher-forced with the one-device
+    bundle's tokens from another copy: the gates of the comment above, the
+    slab, state and cross pieces on distinct storages, the lengths equal,
+    and one planted fault (each batch shard stepping the next shard's state
+    rows, or attending the next shard's cross K/V) beyond the gate.
+    Returns what it measured, ms per step of both beside each other."""
+    import dataclasses
+
+    from repro_torch.core.placement import map_tree, place_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import cache_batch_axes, cache_shardings
+    from repro_torch.models import build_model, encdec, mamba2
+    from repro_torch.models.attention import DistConfig
+
+    t_start = time.perf_counter()
+    kw = {"max_positions": capacity} if cfg.family == "encdec" else {}
+    pol = eng.bundle.policy
+    if pol is not None:
+        pol = dataclasses.replace(pol, sink=0, recent=0)
+    one = build_model(cfg, pol, device=DEVICE, **kw)
+    mesh = make_mesh(MESH10_SHAPE, ("data", "model"), device=DEVICE)
+    sharded = build_model(cfg, pol, DistConfig(mesh=mesh, seq_axes=("model",),
+                                               batch_axes=("data",), mode="exact"),
+                          device=DEVICE, **kw)
+    sh = cache_shardings(cache, mesh, ("data",), ("model",),
+                         cache_batch_axes(sharded.init_cache, capacity))
+    placed = place_tree(cache, sh)
+    pieces = []
+    map_tree(lambda x: pieces.append(x) if hasattr(x, "pieces") else None, placed)
+    storages = [p.untyped_storage().data_ptr() for x in pieces for p in x.pieces]
+    if len(set(storages)) != len(storages):
+        raise AssertionError(f"{cfg.name}: two placed cache pieces share a storage")
+    calls, install, remove = mesh10_selections(torch)
+
+    def steps(bundle, c, tokens):
+        lgs, fed, ms, tok = [], [], [], tok0
+        for i in range(MESH10_STEPS):
+            tok = tokens[i] if tokens is not None else tok
+            fed.append(tok)
+            sync(torch)
+            t0, n0 = time.perf_counter(), len(calls)
+            lg, c = bundle.decode_step(params, tok, c)
+            sync(torch)
+            checked = sum(r["seconds"] for r in calls[n0:])
+            ms.append(1e3 * (time.perf_counter() - t0 - checked))
+            lgs.append(lg[:, :cfg.vocab])
+            tok = lg.argmax(-1).to(torch.int32)
+        return lgs, fed, median(ms), c
+
+    install()
+    try:
+        lg_one, tokens, ms_one, _ = steps(one, clone_cache(torch, cache), None)
+        lg_sh, _, ms_sh, placed = steps(sharded, placed, tokens)
+    finally:
+        remove()
+    lens = placed["length"].full().tolist()
+    if lens != [n + MESH10_STEPS for n in cache["length"].tolist()]:
+        raise AssertionError(f"{cfg.name}: the placed cache's lengths are {lens}")
+    s1 = max(float(lg.abs().max()) for lg in lg_one)
+    gap = max(float((a - b).abs().max()) for a, b in zip(lg_sh, lg_one))
+    out = dict(mesh="x".join(map(str, MESH10_SHAPE)), steps=MESH10_STEPS, gap=gap,
+               max_logit=s1, rel=gap / s1, ms_step_sharded=ms_sh, ms_step_one_device=ms_one)
+    if cfg.family != "ssm":
+        want = MESH10_STEPS * MESH10_SHAPE[0] * fier_layers(cfg, pol.skip_layers)
+        if len(calls) != want:  # one call per FIER layer, step and batch shard
+            raise AssertionError(f"{cfg.name} (d): {len(calls)} exact-mode FIER calls")
+        for k in ("diff", "outside", "near", "selected"):
+            out[f"index_{k}"] = sum(c[k] for c in calls)
+    del calls, placed
+    # the planted fault: the first step from a fresh placed copy with each batch
+    # shard's state rows or cross K/V taken from the next shard
+    saved = mamba2.row_blocks, encdec.row_blocks
+    mamba2.row_blocks = encdec.row_blocks = mesh10_rotated
+    try:
+        lg_f, _ = sharded.decode_step(params, tok0, place_tree(cache, sh))
+        sync(torch)
+    finally:
+        mamba2.row_blocks, encdec.row_blocks = saved
+    out["fault_gap"] = float((lg_f[:, :cfg.vocab] - lg_one[0]).abs().max())
+    tol = MESH10_LOGIT_REL_TOL[cfg.name]
+    log(f"  (d) on a {out['mesh']} mesh, {MESH10_STEPS} steps teacher-forced: max |Δlogit| vs "
+        f"the one-device steps {gap:.4g} = {gap / s1:.4g} of max|logit| {s1:.4g} (gate {tol}); "
+        + (f"index sets vs K1 on the same inputs: {out['index_diff']} of "
+           f"{out['index_selected']} positions differ, {out['index_outside']} outside the "
+           f"{out['index_near']} near τ; " if "index_diff" in out else "")
+        + f"planted fault (each batch shard on the next shard's "
+        f"{'cross K/V' if cfg.family == 'encdec' else 'state rows'}): {out['fault_gap']:.4g} = "
+        f"{out['fault_gap'] / s1:.4g}; ms/step sharded {ms_sh:.2f} vs one device {ms_one:.2f} "
+        f"(median of {MESH10_STEPS}, the index check's seconds left out; the one-device steps "
+        f"launch K1/K2); (d) took {time.perf_counter() - t_start:.1f} s")
+    if not out["fault_gap"] > tol * s1:
+        raise AssertionError(f"{cfg.name} (d): the gate does not see the planted fault: "
+                             f"{out['fault_gap']:.4g} <= {tol} · {s1:.4g}")
+    if not (all(bool(torch.isfinite(lg).all()) for lg in lg_sh) and gap <= tol * s1):
+        raise AssertionError(f"{cfg.name} (d): sharded vs one-device logits {gap:.4g} > "
+                             f"{tol} · {s1:.4g}")
+    if out.get("index_outside"):
+        raise AssertionError(f"{cfg.name} (d): index sets differ beyond the near-τ band: {out}")
+    return out
 
 
 def ssm_step_check(torch, eng, params, batch, tok0, cache, vocab):
@@ -4161,6 +4392,7 @@ def phase10_drive(torch, arch, n_slots, capacity, prompts, max_new):
                                      f"(max {float((lg1 - lg2).abs().max()):.3g})")
             del two, lg1, lg2
             log("  two_pass first-step logits equal to one_pass bit for bit (group max)")
+    out["mesh"] = mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity)
     del cache
 
     reset_launch_counts()
@@ -4187,7 +4419,8 @@ def phase10_drive(torch, arch, n_slots, capacity, prompts, max_new):
         f"{max_new} tokens {t_gen:.3f} s; TTFT (prefill + sample) {out['ttft_ms']:.1f} ms; "
         f"decode median {out['ms_step']:.2f} ms/step (unprofiled, {TIMED_STEPS} steps)")
     if DEVICE == "cuda":
-        profile_decode(torch, eng, params, tok, cache, None)
+        if arch in PHASE10_PROFILED:
+            profile_decode(torch, eng, params, tok, cache, None)
         out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
         log(f"  peak memory {out['peak_gib']:.2f} GiB")
     del eng, params, cache
@@ -7017,6 +7250,10 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     build_kernels()
 
+    if "--ssm-hybrid-encdec-only" in sys.argv:  # phase 10 alone after the build; no result line
+        log("[ssm / hybrid / encdec] mamba2-370m, zamba2-7b and whisper-small at full width")
+        ssm_hybrid_encdec_path(torch)
+        return 0
     if "--training-only" in sys.argv:  # phase 11 alone after the build; no result line
         log("[training] flash backward, olmo-1b, restart, the families, train then serve")
         training_path(torch)

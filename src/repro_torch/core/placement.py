@@ -286,6 +286,61 @@ def resolve_at_use(tree: Any) -> Any:
     return tree
 
 
+# ------------------------------------------------ reading placed values at use
+
+def index_layer(x, i):
+    """Entry ``i`` of a stacked leaf (an int; a tuple indexes nested stacks,
+    the hybrid's [n_apps, E, ...]): a view, and a placed leaf's piece by
+    piece, so in-place updates reach the pieces."""
+    if isinstance(x, Sharded):
+        for j in i if isinstance(i, tuple) else (i,):
+            x = x.layer(j)
+        return x
+    return x[i]
+
+
+def layer_cache(stack: dict, i) -> dict:
+    """Layer ``i``'s {k, v[, meta]} of a stacked KV cache (``index_layer``
+    of each leaf)."""
+    lc = {"k": index_layer(stack["k"], i), "v": index_layer(stack["v"], i)}
+    if "meta" in stack:
+        meta = stack["meta"]
+        lc["meta"] = dataclasses.replace(meta, **{f: index_layer(getattr(meta, f), i)
+                                                  for f in meta.FIELDS})
+    return lc
+
+
+def at_home(x, device, i=None):
+    """A leaf as the one-device code reads it (entry ``i`` of a stacked one,
+    as ``index_layer`` takes it): a placed leaf gathered whole on
+    ``device``, a tensor as it is.  The prefill and decode steps read placed
+    params this way, layer by layer: the reference runs them
+    Megatron-parallel under GSPMD, the port's single controller on the
+    bundle's device."""
+    if isinstance(x, Sharded):
+        return (x if i is None else index_layer(x, i)).full(device)
+    return x if i is None else x[i]
+
+
+def map_leaf(fn: Callable, x):
+    """``fn`` over a tensor, or over each piece of a placed value (keeping
+    its sharding): a decode step's ``length + 1``."""
+    return x.map_pieces(fn) if isinstance(x, Sharded) else fn(x)
+
+
+def row_blocks(x: Sharded) -> list[tuple[slice, torch.Tensor]]:
+    """The pieces of a value placed with its leading dim split and no other
+    (one layer's decode state or cross K/V, split over the batch axes by
+    ``launch.sharding.cache_shardings``), each with the rows it holds, in
+    row order: what a batch shard reads and updates where it lies."""
+    if any(g != 1 for g in x.grid[1:]):
+        raise ValueError(f"{x} is split along more than its leading dim")
+    n = x.grid[0]
+    rows = x.shape[0] // n
+    zeros = (0,) * (x.ndim - 1)
+    return [(slice(i * rows, (i + 1) * rows), x.piece((i,) + zeros)) for i in range(n)]
+
+
 # --------------------------------------------------------------- placement
 
 def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -399,6 +454,7 @@ def _batch_slice(v, t: int, n: int, axes, dev) -> torch.Tensor:
 
 
 __all__ = [
-    "AtUse", "NamedSharding", "P", "Sharded", "as_sharded", "axis_coords", "gather_tree",
-    "map_tree", "place", "place_new", "place_tree", "resolve_at_use", "shard_bytes", "split_batch",
+    "AtUse", "NamedSharding", "P", "Sharded", "as_sharded", "at_home", "axis_coords",
+    "gather_tree", "index_layer", "layer_cache", "map_leaf", "map_tree", "place", "place_new",
+    "place_tree", "resolve_at_use", "row_blocks", "shard_bytes", "split_batch",
 ]

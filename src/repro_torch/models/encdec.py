@@ -21,7 +21,11 @@ rematerialised in the backward when ``remat``, then the chunked
 cross-entropy (chunk 512) against the tied embedding.
 
 The cache is {"front", "rest" (as the transformer's), "cross_k", "cross_v"
-[L, B, enc_ctx, Hkv, D] bf16, "length"}, updated in place.
+[L, B, enc_ctx, Hkv, D] bf16, "length"}, updated in place.  On a mesh
+(``DistConfig.seq_axes``) it is placed by ``launch.sharding.cache_shardings``:
+``front`` and ``rest`` split over batch × sequence (sequence-sharded decode,
+the skip layers dense), the cross K/V over batch only, attended per batch
+shard where they lie.
 """
 from __future__ import annotations
 
@@ -29,14 +33,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.core.placement import (Sharded, at_home, index_layer, layer_cache, map_leaf,
+                                         row_blocks)
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.core.retrieval import full_attention_decode
 from repro_torch.kvcache import cache as kvcache
 
 from . import attention as attn
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
-from .transformer import (_DTYPES, ModelBundle, _layer_cache, _layer_params, _masked_logits,
-                          checkpointed, lm_loss, tree_map, unstack)
+from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, home_params,
+                          lm_loss, tree_map, unstack)
+
+STACKED = ("enc_layers", "dec_layers")  # the params read one layer at a time
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -69,12 +77,21 @@ def init_dec_layer(gen: torch.Generator, cfg: ModelConfig, *, n: int, device="cu
 
 
 def _cross_attention_decode(p, x, k_cross, v_cross, cfg: ModelConfig):
-    """q from x [B, 1, d] against the fixed cross K/V [B, Senc, Hkv, D] (full)."""
+    """q from x [B, 1, d] against the fixed cross K/V [B, Senc, Hkv, D]
+    (full).  A placed cross K/V (split over the batch axes) is attended per
+    batch shard where it lies: only the shard's rows of q go there and their
+    output comes back."""
     B = x.shape[0]
     q = x @ p["wq"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-    o = full_attention_decode(q.reshape(B, cfg.n_heads, cfg.d_head), k_cross, v_cross, length=None)
+    q = q.reshape(B, cfg.n_heads, cfg.d_head)
+    if isinstance(k_cross, Sharded):
+        o = torch.empty_like(q)
+        for (rows, k_l), (_, v_l) in zip(row_blocks(k_cross), row_blocks(v_cross)):
+            o[rows] = full_attention_decode(q[rows].to(k_l.device), k_l, v_l).to(o.device)
+    else:
+        o = full_attention_decode(q, k_cross, v_cross, length=None)
     return o.reshape(B, 1, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)
 
 
@@ -85,9 +102,14 @@ def _residual(h, a):
     return r.to(h.dtype), r
 
 
-def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
-          max_positions: int | None = None, remat: bool = True,
+def build(cfg: ModelConfig, pol: PolicyConfig | None = None, dcfg: attn.DistConfig | None = None,
+          *, device="cuda", max_positions: int | None = None, remat: bool = True,
           loss_chunk: int = 512) -> ModelBundle:
+    """``dcfg``: with ``seq_axes`` the decoder's self-attention decodes
+    sequence-sharded on a cache placed by ``launch.sharding.cache_shardings``
+    (the skip layers densely, ``full_decode_sharded``), and the cross K/V
+    are attended per batch shard where they lie; prefill and decode read
+    placed params and a placed batch at home (``core.placement.at_home``)."""
     device = torch.device(device)
     pol = pol or PolicyConfig(kind="full")
     plan = DecodePlan.build(pol)
@@ -130,12 +152,17 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
 
     def encode(params, frames, *, train: bool = False):
         """frames [B, Senc, d] → the encoder output [B, Senc, d] (bf16);
-        ``train`` rematerialises each layer when the bundle remats."""
+        ``train`` rematerialises each layer when the bundle remats;
+        otherwise each layer's params are read ``at_home``."""
         pos = torch.from_numpy(sinusoids(frames.shape[1], cfg.d_model)).to(frames.device, cdt)
         h = frames.to(cdt) + pos
-        layer = enc_layer_train if train else _enc_layer
-        for lp in unstack(params["enc_layers"], cfg.n_enc_layers):
-            h = layer(h, lp)
+        n = cfg.n_enc_layers
+        if train:
+            for lp in unstack(params["enc_layers"], n):
+                h = enc_layer_train(h, lp)
+        else:
+            for i in range(n):
+                h = _enc_layer(h, tree_map(lambda a: at_home(a, device, i), params["enc_layers"]))
         return apply_norm(h, params["enc_norm"], cfg.norm)
 
     def _dec_embed(params, tokens):
@@ -171,7 +198,10 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
     # -------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
         """Returns (last-token logits [B, Vp] f32, the filled cache).
-        ``batch["frames"]`` [B, enc_ctx, d] are the audio frame embeddings."""
+        ``batch["frames"]`` [B, enc_ctx, d] are the audio frame embeddings.
+        The cache is on the bundle's device."""
+        batch = {k: at_home(v, device) for k, v in batch.items()}
+        params = home_params(params, device, STACKED)
         lengths = batch["lengths"].to(torch.int32)
         enc = encode(params, batch["frames"])
         h = _dec_embed(params, batch["tokens"])
@@ -182,7 +212,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
         cache = init_cache(B, cap, 0)
         cache["length"] = lengths.clone()
         for l in range(L):
-            lp = _layer_params(params["dec_layers"], l)
+            lp = tree_map(lambda a: at_home(a, device, l), params["dec_layers"])
             xn = apply_norm(h, lp["norm1"], cfg.norm)
             q, k, v = attn.qkv_proj(lp["self_attn"], xn, cfg, positions=None)
             o = flash_attention(q, k, v, causal=True, bias_mask=valid)
@@ -213,28 +243,34 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
 
     # --------------------------------------------------------------- decode
     def decode_step(params, token, cache):
-        """One token per sequence; the cache is updated in place and returned
-        with ``length + 1``."""
-        length = cache["length"]
+        """One token per sequence; the cache is updated in place (a placed
+        one piece by piece where it lies) and returned with ``length + 1``."""
+        length = at_home(cache["length"], device)
+        params = home_params(params, device, STACKED)
         pos = torch.clamp(length.to(torch.int64), 0, max_pos - 1)
-        h = (params["embed"][token] + params["pos_dec"][pos])[:, None, :].to(cdt)
+        h = (params["embed"][at_home(token, device)] + params["pos_dec"][pos])[:, None, :].to(cdt)
         for l in range(L):
-            lp = _layer_params(params["dec_layers"], l)
+            lp = tree_map(lambda a: at_home(a, device, l), params["dec_layers"])
             if l < skip:
-                lc, layer_plan = _layer_cache(cache["front"], l), plan_full
+                lc, layer_plan = layer_cache(cache["front"], l), plan_full
             else:
-                lc, layer_plan = _layer_cache(cache["rest"], l - skip), plan
+                lc, layer_plan = layer_cache(cache["rest"], l - skip), plan
+            # a placed cache runs every layer sequence-sharded, the skip
+            # layers densely (full_decode_sharded), as the transformer's
+            seq = l >= skip or isinstance(lc["k"], Sharded)
             o = attn.decode_self_attention(
-                lp["self_attn"], apply_norm(h, lp["norm1"], cfg.norm), lc, length, cfg, layer_plan)
+                lp["self_attn"], apply_norm(h, lp["norm1"], cfg.norm), lc, length, cfg,
+                layer_plan, dcfg if seq else None)
             h, r = _residual(h, o)
             x = _cross_attention_decode(lp["cross_attn"],
                                         apply_norm(r, lp["norm_x"], cfg.norm).to(cdt),
-                                        cache["cross_k"][l], cache["cross_v"][l], cfg)
+                                        index_layer(cache["cross_k"], l),
+                                        index_layer(cache["cross_v"], l), cfg)
             h, r = _residual(h, x)
             h = h + mlp_apply(apply_norm(r, lp["norm2"], cfg.norm).to(cdt), lp["mlp"], cfg.act)
         h = apply_norm(h, params["dec_norm"], cfg.norm)[:, 0]
         logits = _masked_logits(h, params["embed"].T, cfg.vocab, Vp)
-        return logits, dict(cache, length=length + 1)
+        return logits, dict(cache, length=map_leaf(lambda n: n + 1, cache["length"]))
 
     def init_cache(B: int, capacity: int, length: int = 0, *, device=None) -> dict:
         plan.validate_capacity(capacity)
@@ -252,7 +288,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
     bundle = ModelBundle(
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
-        policy=pol, plan=plan, train_loss=train_loss,
+        policy=pol, plan=plan, train_loss=train_loss, dcfg=dcfg,
         train_hidden=train_hidden, loss_chunk=loss_chunk,
     )
     return bundle

@@ -19,13 +19,18 @@ block as one rematerialised unit (the reference's ``super_fn`` under
 application points, which autograd forms from its one weight copy.
 
 The cache is {"mamba": {conv, ssm} [n_apps, E, B, ...], "attn": {k, v[,
-meta]}, "length", ["mamba_tail"]}, updated in place.
+meta]}, "length", ["mamba_tail"]}, updated in place.  On a mesh
+(``DistConfig.seq_axes``) it is placed by ``launch.sharding.cache_shardings``:
+the shared block's slabs split over batch × sequence and decode through
+``attention._sharded_decode_step``, the Mamba2 states split over batch and
+step where they lie (``mamba2.decode_layer``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.core.placement import at_home, index_layer, layer_cache, map_leaf
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.kvcache import cache as kvcache
 
@@ -33,8 +38,10 @@ from . import attention as attn
 from . import mamba2
 from .layers import (apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply,
                      rms_norm)
-from .transformer import (_DTYPES, ModelBundle, _layer_cache, _layer_params, _masked_logits,
-                          checkpointed, lm_loss, tree_map, unstack)
+from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, home_params,
+                          lm_loss, tree_map, unstack)
+
+STACKED = ("mamba", "mamba_tail")  # the params read one layer at a time
 
 
 def _n_apps(cfg: ModelConfig) -> tuple[int, int]:
@@ -52,8 +59,13 @@ def init_shared_block(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> 
     }
 
 
-def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
-          remat: bool = True, loss_chunk: int = 1024) -> ModelBundle:
+def build(cfg: ModelConfig, pol: PolicyConfig | None = None, dcfg: attn.DistConfig | None = None,
+          *, device="cuda", remat: bool = True, loss_chunk: int = 1024) -> ModelBundle:
+    """``dcfg``: with ``seq_axes`` the shared block decodes sequence-sharded
+    on a cache placed by ``launch.sharding.cache_shardings``
+    (``attention.decode_self_attention``), and the Mamba2 states step where
+    they lie (``mamba2.decode_layer``); prefill and decode read placed
+    params and a placed batch at home (``core.placement.at_home``)."""
     device = torch.device(device)
     pol = pol or PolicyConfig(kind="full")
     plan = DecodePlan.build(pol)
@@ -129,7 +141,9 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
     def prefill(params, batch, capacity: int | None = None):
         """Returns (last-token logits [B, Vp] f32, the cache with each
         application point's K/V zero-padded to ``capacity`` and its side-car
-        over the whole padded slab)."""
+        over the whole padded slab), on the bundle's device."""
+        batch = {k: at_home(v, device) for k, v in batch.items()}
+        params = home_params(params, device, STACKED)
         lengths = batch["lengths"].to(torch.int32)
         h = params["embed"][batch["tokens"]].to(cdt)
         B, S, _ = h.shape
@@ -142,7 +156,8 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
         for a in range(n_apps):
             for e in range(E):
                 h, st = mamba2.mamba_prefill_step(
-                    h, _layer_params(params["mamba"], (a, e)), cfg, lengths, valid)
+                    h, tree_map(lambda x: at_home(x, device, (a, e)), params["mamba"]), cfg,
+                    lengths, valid)
                 ms["conv"][a, e], ms["ssm"][a, e] = st["conv"], st["ssm"]
             xn = apply_norm(torch.cat([h, x0], dim=-1), sp["norm1"], cfg.norm)
             q, k, v = attn.qkv_proj(sp["attn"], xn, cfg, positions=None)
@@ -160,7 +175,8 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
             mt = cache["mamba_tail"]
             for t in range(tail):
                 h, st = mamba2.mamba_prefill_step(
-                    h, _layer_params(params["mamba_tail"], t), cfg, lengths, valid)
+                    h, tree_map(lambda x: at_home(x, device, t), params["mamba_tail"]), cfg,
+                    lengths, valid)
                 mt["conv"][t], mt["ssm"][t] = st["conv"], st["ssm"]
         rows = torch.arange(B, device=h.device)
         last = rms_norm(h[rows, lengths.to(torch.int64) - 1], params["final_norm"])
@@ -169,29 +185,29 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
     # --------------------------------------------------------------- decode
     def _mamba_steps(h, p, st, idx):
         for i in idx:
-            h, s = mamba2.mamba_block_decode(
-                h, _layer_params(p, i), {"conv": st["conv"][i], "ssm": st["ssm"][i]}, cfg)
-            st["conv"][i], st["ssm"][i] = s["conv"], s["ssm"]
+            lp = tree_map(lambda x: at_home(x, device, i), p)
+            h = mamba2.decode_layer(h, lp, index_layer(st["conv"], i),
+                                    index_layer(st["ssm"], i), cfg)
         return h
 
     def decode_step(params, token, cache):
-        """One token per sequence; the cache is updated in place and returned
-        with ``length + 1``."""
-        length = cache["length"]
-        x0 = h = params["embed"][token][:, None, :].to(cdt)
+        """One token per sequence; the cache is updated in place (a placed
+        one piece by piece where it lies) and returned with ``length + 1``."""
+        length = at_home(cache["length"], device)
+        params = home_params(params, device, STACKED)
+        x0 = h = params["embed"][at_home(token, device)][:, None, :].to(cdt)
         sp = params["shared"]
         for a in range(n_apps):
             h = _mamba_steps(h, params["mamba"], cache["mamba"], [(a, e) for e in range(E)])
             xn = apply_norm(torch.cat([h, x0], dim=-1), sp["norm1"], cfg.norm)
             o = attn.decode_self_attention(
-                sp["attn"], xn, _layer_cache(cache["attn"], a), length, cfg, plan)
+                sp["attn"], xn, layer_cache(cache["attn"], a), length, cfg, plan, dcfg)
             h = _ffn(sp, h, o)
         if tail:
-            h = _mamba_steps(h, params["mamba_tail"], cache["mamba_tail"],
-                             [(t,) for t in range(tail)])
+            h = _mamba_steps(h, params["mamba_tail"], cache["mamba_tail"], range(tail))
         h = rms_norm(h, params["final_norm"])[:, 0]
         logits = _masked_logits(h, params["embed"].T, cfg.vocab, Vp)
-        return logits, dict(cache, length=length + 1)
+        return logits, dict(cache, length=map_leaf(lambda n: n + 1, cache["length"]))
 
     def init_cache(B: int, capacity: int, length: int = 0, *, device=None) -> dict:
         plan.validate_capacity(capacity)
@@ -211,7 +227,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, *, device="cuda",
     bundle = ModelBundle(
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
-        policy=pol, plan=plan, train_loss=train_loss,
+        policy=pol, plan=plan, train_loss=train_loss, dcfg=dcfg,
         train_hidden=train_hidden, loss_chunk=loss_chunk,
     )
     return bundle

@@ -19,6 +19,10 @@ port of ``repro.models.mamba2``.
 * The cache is {"layers": {"conv": [L, B, K-1, Ch] bf16 (the raw pre-conv
   inputs at each row's last K-1 valid positions), "ssm": [L, B, H, P, N]
   f32}, "length": [B]}, updated in place by every decode step.
+* On a mesh the cache is placed by ``launch.sharding.cache_shardings``
+  (the states split over the batch axes only) and each batch shard steps
+  its own rows where they lie (``decode_layer``); params and batch are
+  read at home (``core.placement.at_home``).
 """
 from __future__ import annotations
 
@@ -27,10 +31,11 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.core.placement import Sharded, at_home, index_layer, map_leaf, row_blocks
 from repro_torch.kvcache import cache as kvcache
 
 from .layers import init_embedding, init_linear, rms_norm, silu
-from .transformer import (_DTYPES, ModelBundle, _layer_params, _masked_logits, checkpointed,
+from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, home_params,
                           lm_loss, tree_map, unstack)
 
 
@@ -174,45 +179,89 @@ def mamba_block_train(hc, lp, cfg: ModelConfig):
     return _block(hc, lp, cfg, None)[0]
 
 
-def mamba_prefill_step(hc, lp, cfg: ModelConfig, lengths, valid):
+def mamba_prefill_step(hc, lp, cfg: ModelConfig, lengths, valid, uniform_full: bool = False):
     """One Mamba2 layer over the whole sequence, with its final state: the
     forward of the reference's mamba2 prefill layer and of the hybrid's
     ``_mamba_prefill_step``.  hc [B, S, d] (bf16); valid [B, S] masks the
-    prompt padding.  Returns (hc, {"conv": [B, K-1, Ch] bf16, "ssm":
-    [B, H, P, N] f32})."""
+    prompt padding.  ``uniform_full``: every row is S long, so the conv
+    tail is the last K-1 positions (the reference's static slice).  Returns
+    (hc, {"conv": [B, K-1, Ch] bf16, "ssm": [B, H, P, N] f32})."""
     B, S, _ = hc.shape
     hc, xBC, h_last = _block(hc, lp, cfg, valid)
     # conv state: the raw (pre-conv) inputs at each row's last K-1 valid
     # positions; the start clamped into [0, S-(K-1)] as dynamic_slice clamps it
     K = cfg.conv_kernel
-    start = torch.clamp(lengths.to(torch.int64) - (K - 1), min=0).clamp(max=S - (K - 1))
-    pos = start[:, None] + torch.arange(K - 1, device=hc.device)[None, :]
-    tail = xBC[torch.arange(B, device=hc.device)[:, None], pos]
+    if uniform_full:
+        tail = xBC[:, S - (K - 1):]
+    else:
+        start = torch.clamp(lengths.to(torch.int64) - (K - 1), min=0).clamp(max=S - (K - 1))
+        pos = start[:, None] + torch.arange(K - 1, device=hc.device)[None, :]
+        tail = xBC[torch.arange(B, device=hc.device)[:, None], pos]
     return hc, {"conv": tail.to(torch.bfloat16), "ssm": h_last}
+
+
+def _state_step(xBC: torch.Tensor, dt_raw: torch.Tensor, p: dict, conv: torch.Tensor,
+                ssm: torch.Tensor, cfg: ModelConfig):
+    """The recurrent state update of one decode step over some rows: the new
+    pre-conv inputs xBC [b, Ch] and dt_raw [b, H], the rows' state conv
+    [b, K-1, Ch] bf16 and ssm [b, H, P, N] f32, and the layer's conv_w,
+    conv_b, dt_bias, A_log and D.  Row by row, so a batch shard steps its
+    own rows alone.  Returns (y [b, H, P] f32, the new conv, the new ssm)."""
+    b = xBC.shape[0]
+    H, Pd, N, di = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
+    window = torch.cat([conv, xBC[:, None]], dim=1)  # [b, K, Ch] bf16
+    conv_out = torch.einsum("bkc,kc->bc", window.to(torch.float32), p["conv_w"])
+    xBC = silu(conv_out + p["conv_b"]).to(xBC.dtype)
+    xs = xBC[:, :di].reshape(b, H, Pd).to(torch.float32)
+    Bm = xBC[:, di:di + N].to(torch.float32)
+    Cm = xBC[:, di + N:].to(torch.float32)
+    dt = softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # [b, H]
+    A = -torch.exp(p["A_log"])
+    dec = torch.exp(dt * A)
+    upd = torch.einsum("bh,bn,bhp->bhpn", dt, Bm, xs)
+    h_new = ssm * dec[..., None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", Cm, h_new) + p["D"][None, :, None] * xs
+    return y, window[:, 1:], h_new
+
+
+STEP_LEAVES = ("conv_w", "conv_b", "dt_bias", "A_log", "D")  # what ``_state_step`` reads
+
+
+def decode_layer(h: torch.Tensor, p: dict, conv, ssm, cfg: ModelConfig) -> torch.Tensor:
+    """One-token recurrent step of one layer, its state updated in place.
+    h [B, 1, d] (on the bundle's device, with the layer's params p);
+    conv [B, K-1, Ch] / ssm [B, H, P, N]: views into the stacked cache, or
+    a placed cache's layer (``Sharded``, split over the batch axes).  The
+    projections and the gated output run on h's device over the whole
+    batch.  On a placed state each batch shard's rows of xBC and dt go to
+    the device of its state pieces, which step there in place, and only
+    the rows' y [b, H, P] comes back: no state piece moves.  Returns
+    out [B, 1, d]."""
+    B, di = h.shape[0], cfg.d_inner
+    xn = rms_norm(h, p["pre_norm"])
+    z, xBC, dt_raw = _split_proj(xn @ p["in_proj"].to(xn.dtype), cfg)
+    xBC, dt_raw = xBC[:, 0], dt_raw[:, 0]
+    if isinstance(conv, Sharded):
+        y = torch.empty((B, cfg.n_ssm_heads, cfg.ssm_head_dim), device=h.device)
+        for (rows, conv_l), (_, ssm_l) in zip(row_blocks(conv), row_blocks(ssm)):
+            dev = conv_l.device
+            y_l, conv_new, ssm_new = _state_step(
+                xBC[rows].to(dev), dt_raw[rows].to(dev), {k: p[k].to(dev) for k in STEP_LEAVES},
+                conv_l, ssm_l, cfg)
+            conv_l.copy_(conv_new), ssm_l.copy_(ssm_new)
+            y[rows] = y_l.to(h.device)
+    else:
+        y, conv_new, ssm_new = _state_step(xBC, dt_raw, p, conv, ssm, cfg)
+        conv.copy_(conv_new), ssm.copy_(ssm_new)
+    y = _gated_norm(y.reshape(B, 1, di).to(h.dtype), z, p["norm_w"])
+    return h + y @ p["out_proj"].to(h.dtype)
 
 
 def mamba_block_decode(h: torch.Tensor, p: dict, state: dict, cfg: ModelConfig):
     """One-token recurrent step.  h [B, 1, d]; state {conv [B, K-1, Ch] bf16,
     ssm [B, H, P, N] f32}.  Returns (out [B, 1, d], the new state)."""
-    B = h.shape[0]
-    H, Pd, N, di = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
-    xn = rms_norm(h, p["pre_norm"])
-    z, xBC, dt_raw = _split_proj(xn @ p["in_proj"].to(xn.dtype), cfg)
-    window = torch.cat([state["conv"], xBC[:, 0][:, None]], dim=1)  # [B, K, Ch] bf16
-    conv_out = torch.einsum("bkc,kc->bc", window.to(torch.float32), p["conv_w"])
-    xBC = silu(conv_out + p["conv_b"]).to(h.dtype)
-    xs = xBC[:, :di].reshape(B, H, Pd).to(torch.float32)
-    Bm = xBC[:, di:di + N].to(torch.float32)
-    Cm = xBC[:, di + N:].to(torch.float32)
-    dt = softplus(dt_raw[:, 0].to(torch.float32) + p["dt_bias"])  # [B, H]
-    A = -torch.exp(p["A_log"])
-    dec = torch.exp(dt * A)
-    upd = torch.einsum("bh,bn,bhp->bhpn", dt, Bm, xs)
-    h_new = state["ssm"] * dec[..., None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", Cm, h_new) + p["D"][None, :, None] * xs
-    y = _gated_norm(y.reshape(B, 1, di).to(h.dtype), z, p["norm_w"])
-    out = h + y @ p["out_proj"].to(h.dtype)
-    return out, {"conv": window[:, 1:], "ssm": h_new}
+    new = {k: v.clone() for k, v in state.items()}
+    return decode_layer(h, p, new["conv"], new["ssm"], cfg), new
 
 
 def init_mamba_state(lead: tuple, B: int, cfg: ModelConfig, device) -> dict:
@@ -238,8 +287,13 @@ def compute_block(p: dict, cdt: torch.dtype) -> dict:
 
 # ----------------------------------------------------------------- LM build
 
-def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
+def build(cfg: ModelConfig, dcfg=None, *, device="cuda", remat: bool = True,
           loss_chunk: int = 1024) -> ModelBundle:
+    """``dcfg`` (``attention.DistConfig``) is kept on the bundle: the state
+    needs no mesh switch, since ``decode_step`` steps a placed cache
+    (``launch.sharding.cache_shardings``) where it lies and an unplaced one
+    on the bundle's device; prefill and decode read placed params and a
+    placed batch at home (``core.placement.at_home``)."""
     device = torch.device(device)
     Vp = padded_vocab(cfg)
     cdt, pdt = _DTYPES[cfg.compute_dtype], _DTYPES[cfg.param_dtype]
@@ -273,9 +327,14 @@ def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
         """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
         return lm_loss(*train_hidden(params, batch), batch, cfg.vocab, Vp, loss_chunk)
 
-    def prefill(params, batch, capacity: int | None = None):
+    def prefill(params, batch, capacity: int | None = None, uniform_full: bool = False):
         """Sequential-state prefill (``capacity`` unused: the state is O(1)).
-        Returns (last-token logits [B, Vp] f32, the cache)."""
+        ``uniform_full``: every row is the whole sequence long (the
+        reference's static conv-tail slice, which its dry-run cell takes).
+        Returns (last-token logits [B, Vp] f32, the cache on the bundle's
+        device)."""
+        batch = {k: at_home(v, device) for k, v in batch.items()}
+        params = home_params(params, device)
         lengths = batch["lengths"].to(torch.int32)
         h = params["embed"][batch["tokens"]].to(cdt)
         B, S, _ = h.shape
@@ -284,22 +343,26 @@ def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
         cache["length"] = lengths.clone()
         st = cache["layers"]
         for l in range(L):
-            h, s = mamba_prefill_step(h, _layer_params(params["layers"], l), cfg, lengths, valid)
+            lp = tree_map(lambda a: at_home(a, device, l), params["layers"])
+            h, s = mamba_prefill_step(h, lp, cfg, lengths, valid, uniform_full)
             st["conv"][l], st["ssm"][l] = s["conv"], s["ssm"]
         rows = torch.arange(B, device=h.device)
         last = rms_norm(h[rows, lengths.to(torch.int64) - 1], params["final_norm"])
         return _masked_logits(last, params["embed"].T, cfg.vocab, Vp), cache
 
     def decode_step(params, token, cache):
-        h = params["embed"][token][:, None, :].to(cdt)
+        """One token per sequence; the state is updated in place (on a
+        placed cache each batch shard's pieces where they lie,
+        ``decode_layer``) and the cache returned with ``length + 1``."""
+        params = home_params(params, device)
+        h = params["embed"][at_home(token, device)][:, None, :].to(cdt)
         st = cache["layers"]
         for l in range(L):
-            h, s = mamba_block_decode(
-                h, _layer_params(params["layers"], l), {"conv": st["conv"][l], "ssm": st["ssm"][l]}, cfg)
-            st["conv"][l], st["ssm"][l] = s["conv"], s["ssm"]
+            lp = tree_map(lambda a: at_home(a, device, l), params["layers"])
+            h = decode_layer(h, lp, index_layer(st["conv"], l), index_layer(st["ssm"], l), cfg)
         h = rms_norm(h, params["final_norm"])[:, 0]
         logits = _masked_logits(h, params["embed"].T, cfg.vocab, Vp)
-        return logits, dict(cache, length=cache["length"] + 1)
+        return logits, dict(cache, length=map_leaf(lambda n: n + 1, cache["length"]))
 
     def init_cache(B: int, capacity: int, length: int = 0, *, device=None) -> dict:
         dev = device if device is not None else bundle.device
@@ -309,7 +372,7 @@ def build(cfg: ModelConfig, *, device="cuda", remat: bool = True,
     bundle = ModelBundle(
         cfg=cfg, init=init, prefill=prefill, decode_step=decode_step, init_cache=init_cache,
         param_count=cfg.param_count, compute_params=compute_params, device=device,
-        train_loss=train_loss,
+        train_loss=train_loss, dcfg=dcfg,
         train_hidden=train_hidden,
         loss_chunk=loss_chunk,
     )

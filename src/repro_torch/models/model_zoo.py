@@ -24,7 +24,9 @@ def build_model(
     the reference.  ``dcfg`` (``attention.DistConfig``) threads a mesh: a
     bundle built with ``dcfg.mesh`` trains over it (``sharded_train``:
     Megatron TP × DP for the transformer families, DP for the others), and
-    the transformer families also decode over it."""
+    with ``dcfg.seq_axes`` every family decodes on a cache placed by
+    ``launch.sharding.cache_shardings``: KV slabs sequence-sharded, Mamba2
+    states and cross K/V on their batch shards, each piece where it lies."""
     if pol is not None and pol.layout == "paged" and cfg.family not in transformer.FAMILIES:
         raise ValueError(
             f"paged KV cache is only supported for transformer families, not {cfg.family!r}"
@@ -32,18 +34,15 @@ def build_model(
     dev = resolve_device(device)
     if cfg.family in transformer.FAMILIES:
         return transformer.build(cfg, pol, dcfg, device=dev, remat=remat)
-    if dcfg is not None and (dcfg.seq_axes or dcfg.shard is not None):
-        raise ValueError(f"a mesh-sharded decode is only built for the transformer "
-                         f"families, not {cfg.family!r}")
     if cfg.family == "ssm":
-        bundle = mamba2.build(cfg, device=dev, remat=remat)
+        bundle = mamba2.build(cfg, dcfg, device=dev, remat=remat)
     elif cfg.family == "hybrid":
-        bundle = hybrid.build(cfg, pol, device=dev, remat=remat)
+        bundle = hybrid.build(cfg, pol, dcfg, device=dev, remat=remat)
     elif cfg.family == "encdec":
-        bundle = encdec.build(cfg, pol, device=dev, remat=remat, max_positions=max_positions)
+        bundle = encdec.build(cfg, pol, dcfg, device=dev, remat=remat,
+                              max_positions=max_positions)
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     if dcfg is not None and dcfg.mesh is not None:
         bundle.train_loss = sharded_train.data_parallel_loss(bundle, dcfg)
-        bundle.dcfg = dcfg
     return bundle

@@ -39,7 +39,8 @@ from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
-from repro_torch.core.placement import AtUse, Sharded, resolve_at_use
+from repro_torch.core.placement import (AtUse, Sharded, at_home, layer_cache, map_leaf,
+                                         resolve_at_use)
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -107,30 +108,11 @@ def checkpointed(fn: Callable, enabled: bool) -> Callable:
     return lambda *args: checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
-def _index(x, i: int):
-    """Layer ``i`` of a stacked leaf (a view; a placed leaf piece by piece)."""
-    return x.layer(i) if isinstance(x, Sharded) else x[i]
-
-
-def _layer_cache(stack: dict, i: int) -> dict:
-    lc = {"k": _index(stack["k"], i), "v": _index(stack["v"], i)}
-    if "meta" in stack:
-        meta = stack["meta"]
-        lc["meta"] = dataclasses.replace(meta, **{f: _index(getattr(meta, f), i)
-                                                  for f in meta.FIELDS})
-    return lc
-
-
-def at_home(x, device, i: int | None = None):
-    """A leaf as the one-device code reads it (layer ``i`` of a stacked
-    one): a mesh-placed leaf (``core.placement.Sharded``) gathered whole on
-    ``device``, a tensor as it is.  The prefill and decode steps read
-    placed params this way, layer by layer: the reference runs them
-    Megatron-parallel under GSPMD, the port's single controller on the
-    bundle's device."""
-    if isinstance(x, Sharded):
-        return (x if i is None else x.layer(i)).full(device)
-    return x if i is None else x[i]
+def home_params(params: dict, device, stacked: tuple[str, ...] = ("layers",)) -> dict:
+    """``params`` with every leaf outside the ``stacked`` keys read
+    ``at_home`` on ``device`` (the stacked layers are read one at a time)."""
+    return {k: v if k in stacked else tree_map(lambda a: at_home(a, device), v)
+            for k, v in params.items()}
 
 
 def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
@@ -212,12 +194,6 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         y, aux = apply(xn.reshape(-1, cfg.d_model), lp["moe"], cfg)
         return r.to(cdt) + y.reshape(xn.shape), aux
 
-    def _home_globals(params):
-        """``params`` with its leaves outside the layer stack read
-        ``at_home`` (the layers are read one at a time)."""
-        return {k: v if k == "layers" else tree_map(lambda a: at_home(a, device_), v)
-                for k, v in params.items()}
-
     def _head(params):
         return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -268,7 +244,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         ``batch["vision_embeds"]`` [B, n_vision, d], when present, precedes
         the token embeddings; ``lengths`` then count the vision positions."""
         batch = {k: at_home(v, device_) for k, v in batch.items()}
-        params = _home_globals(params)
+        params = home_params(params, device_)
         lengths = batch["lengths"].to(torch.int32)
         h = _embed_inputs(params, batch)  # [B, S, d]
         B, S, _ = h.shape
@@ -429,14 +405,14 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         returned with ``length + 1``."""
         length = at_home(cache["length"], device_)
         block_table = cache.get("block_table") if paged else None
-        params = _home_globals(params)
+        params = home_params(params, device_)
         h = params["embed"][at_home(token, device_)][:, None, :].to(cdt)
         for l in range(L):
             lp = tree_map(lambda a: at_home(a, device_, l), params["layers"])
             if l < skip:
-                lc, layer_plan = _layer_cache(cache["front"], l), plan_full
+                lc, layer_plan = layer_cache(cache["front"], l), plan_full
             else:
-                lc, layer_plan = _layer_cache(cache["rest"], l - skip), plan
+                lc, layer_plan = layer_cache(cache["rest"], l - skip), plan
             # a placed cache runs every layer sequence-sharded, the skip
             # layers densely (full_decode_sharded)
             seq = l >= skip or isinstance(lc["k"], Sharded)
@@ -447,10 +423,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
             h, _ = _ffn_block(lp, h, o, decode=True)
         h = apply_norm(h, params["final_norm"], cfg.norm)[:, 0]
         logits = _masked_logits(h, _head(params), cfg.vocab, Vp)
-        new_len = cache["length"]
-        new_len = (new_len.map_pieces(lambda p: p + 1) if isinstance(new_len, Sharded)
-                   else new_len + 1)
-        return logits, dict(cache, length=new_len)
+        return logits, dict(cache, length=map_leaf(lambda n: n + 1, cache["length"]))
 
     return ModelBundle(
         cfg=cfg,

@@ -25,6 +25,7 @@ a CPU tensor; the CUDA kernels themselves run only on the card, in
 * ``packed_nbytes``, ``load_ratio``, ``registered_backends`` and
   ``DecodePlan.with_pipeline`` equal to the reference's.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -25,6 +25,7 @@ with ``params_from_jax``.  Tolerances:
 * Each deprecated shim equals its ``CacheView`` call bit for bit and warns
   exactly once.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 import warnings
 

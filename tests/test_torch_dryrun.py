@@ -8,8 +8,9 @@ CPU.
   subprocess, no lowering), each leaf's ``NamedSharding.shard_shape``
   bytes per device, against the port's placed fake pieces on the same mesh
   shapes: olmo-1b ``train_4k`` (tp and fsdp_pure), qwen3-moe ``train_4k``,
-  olmo-1b and granite-moe ``decode_32k``, command-r-plus ``long_500k``,
-  all at full size.  Leaf by leaf the block a device computes with has the
+  olmo-1b, granite-moe, zamba2-7b and whisper-small ``decode_32k``,
+  command-r-plus and mamba2-370m ``long_500k``, all at full size (the
+  hybrid's stacked slabs and Mamba2 states, whisper's cross K/V).  Leaf by leaf the block a device computes with has the
   reference's shape and bytes, with the same dtype (no leaf differs).  The
   port stores a block the spec replicates once, on the first shard of its
   replica group (``core.placement``): per device, the bytes it stores plus
@@ -35,6 +36,7 @@ CPU.
   decode_32k --cost-depth 1 --json`` on the production mesh prints every
   field (it runs in the background while the tests above run).
 """
+import _torch_threads
 import ast
 import dataclasses
 import json
@@ -70,7 +72,8 @@ DENSE_TOL = 2e-2  # test_torch_sharded's: seq-sharded FIER at a full budget vs d
 PARITY_CELLS = [("olmo-1b", "train_4k", "tp"), ("olmo-1b", "train_4k", "fsdp_pure"),
                 ("qwen3-moe-235b-a22b", "train_4k", "tp"), ("olmo-1b", "decode_32k", "tp"),
                 ("granite-moe-1b-a400m", "decode_32k", "tp"),
-                ("command-r-plus-104b", "long_500k", "tp")]
+                ("command-r-plus-104b", "long_500k", "tp"), ("zamba2-7b", "decode_32k", "tp"),
+                ("whisper-small", "decode_32k", "tp"), ("mamba2-370m", "long_500k", "tp")]
 PARITY_MESHES = {"2x2x4": ((2, 2, 4), ("pod", "data", "model")),
                  "4x4": ((4, 4), ("data", "model"))}
 CLI = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
@@ -80,8 +83,9 @@ CLI = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
 @pytest.fixture(scope="module")
 def cli_run():
     """The CLI run, started once and read by the last test."""
-    proc = subprocess.Popen(CLI, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            env=dict(os.environ, PYTHONPATH=SRC))
+    with _torch_threads.subprocess_threads():
+        proc = subprocess.Popen(CLI, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=dict(os.environ, PYTHONPATH=SRC))
     yield proc
     if proc.poll() is None:
         proc.kill()
@@ -116,7 +120,9 @@ def reference_bytes():
                     for p, s in jax.tree_util.tree_leaves_with_path(cell.args)}}
         print(json.dumps(out))
     """)
-    return json.loads(run_in_subprocess(code, n_devices=16).strip().splitlines()[-1])
+    with _torch_threads.subprocess_threads():
+        out = run_in_subprocess(code, n_devices=16)
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def _port_leaves(tree, path=()):

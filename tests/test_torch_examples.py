@@ -29,6 +29,7 @@ port's token lists, handed to both sides.  Greedy decoding throughout, so
   final checkpoint's held-out loss lies below the initial weights', as the
   example requires after its 60 steps.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import importlib.util
 import os
 import sys

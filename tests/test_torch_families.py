@@ -21,6 +21,7 @@ With seed 0 the first step's top two logits lie 0.5% to 9.7% of max|logit|
 apart, above every gap measured, so equal tokens do not rest on a near-tie.
 The JAX engines are compiled once per arch in a module-scoped fixture.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 
 import jax

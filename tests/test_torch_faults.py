@@ -22,6 +22,7 @@ the same trace, with weights carried across by ``params_from_jax``.
 
 Every JAX reference run happens once, in a module-scoped fixture.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import warnings
 
 import jax

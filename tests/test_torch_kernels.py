@@ -19,6 +19,7 @@ K1 ``fier_retrieve`` is held three ways:
 K2 ``fier_attend_selected`` is held to ``fused_sparse_attention_hm``
 (interpret mode) within 1e-5·max|out| (f32 softmax, other summation order).
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -18,6 +18,7 @@ skip layer (the reduced model has two layers), sink 4 and recent 8.
 * Greedy ``Engine.generate`` with budget 32 < prompt lengths (selection
   active): tokens identical.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -22,6 +22,7 @@ route alike.
   reference's own two paths do).
 * ``init_moe``'s tree has the reference's keys and shapes, stacked per layer.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -9,6 +9,7 @@ Tolerances: AdamW and clipping 1e-6 of the largest magnitude (f32; XLA's
 and torch's pow/sqrt may differ in the last bit), the schedules 1e-6
 relative, compression exact up to one f32 rounding of the mean (1e-6).
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import json
 import os
 

@@ -19,6 +19,7 @@ PyTorch versions (what a wrapper runs on a CPU tensor).
   one seeded sequence of alloc/free/register/lookup/TTL-expiry operations:
   equal ``stats()`` after every operation and clean audits.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,5 +1,6 @@
 """Rules of the port that hold for the package as a whole: it stands alone
 (no ``jax``, no ``repro``) and runs on CUDA unless asked for the CPU."""
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import ast
 import os
 

@@ -21,6 +21,7 @@ fault-free tokens after preemption (run with ``-rP`` to see each package's
 readings).  The two packages' tokens are not compared with each other:
 greedy decoding at this size has near-ties across packages.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 import importlib.util
 import os

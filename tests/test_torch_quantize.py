@@ -5,6 +5,7 @@ The same numpy-seeded inputs go through ``repro`` (JAX, CPU) and
 must be bitwise equal (both packages round the same bf16 values the same
 way).
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 
 import jax.numpy as jnp

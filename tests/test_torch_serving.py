@@ -20,6 +20,7 @@ token lists:
   virtual-clock metrics exactly (the clock counts tokens, so this checks
   every host-side scheduling decision).
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import json
 import os
 from collections import deque

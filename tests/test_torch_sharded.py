@@ -29,6 +29,7 @@ on the CPU in one process: every shard of a mesh sits on ``cpu``.
   the cache equals dense decode within ``DENSE_TOL``·max|logit|;
   ``serve --paged --model-axis 2`` serves.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 import random
 import types

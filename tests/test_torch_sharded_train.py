@@ -50,6 +50,7 @@ every shard of a mesh sits on ``cpu``.
 * ``train --model-axis 2 --device cpu --fail-at 3`` resumes onto the mesh
   and ends on the uninterrupted run's loss, bit for bit.
 """
+import _torch_threads
 import dataclasses
 import json
 import math
@@ -229,7 +230,7 @@ def ep_reference(tmp_path_factory):
     aux and the gradients of sum(y·w) + 0.01·aux, in one subprocess."""
     out = tmp_path_factory.mktemp("ep") / "ref.npz"
     tests_dir = os.path.dirname(os.path.abspath(__file__))
-    run_in_subprocess(textwrap.dedent(f"""
+    code = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {tests_dir!r})
         import jax, jax.numpy as jnp, numpy as np
@@ -254,7 +255,9 @@ def ep_reference(tmp_path_factory):
         gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(p, xs)
         np.savez({str(out)!r}, y=np.asarray(y), aux=np.asarray(aux), gx=np.asarray(gx),
                  **{{"g_" + k: np.asarray(v) for k, v in gp.items()}})
-    """), n_devices=4)
+    """)
+    with _torch_threads.subprocess_threads():
+        run_in_subprocess(code, n_devices=4)
     return dict(np.load(out))
 
 

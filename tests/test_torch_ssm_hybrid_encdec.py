@@ -30,6 +30,7 @@ gap, inside the band where the interpret-mode K1's unrounded dequantized
 key (ROADMAP, Reference caveats) and the port's rounded one rank a near-τ
 token differently.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ two packages' f32 matmuls sum in other orders), 1e-2 in bf16 (measured up
 to 8.7e-4: a dq/dk element one bf16 step apart).
 """
 
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

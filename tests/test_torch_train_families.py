@@ -19,6 +19,7 @@ key-projection biases get exactly zero gradient in exact arithmetic
 (softmax ignores a constant added to every key's score), so both packages
 read rounding noise there.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 
 import jax

@@ -14,6 +14,7 @@ compute, the config's default) within 2e-3 absolute of the reference's
 (measured up to 1.5e-4: a loss of about 6.8 computed from bf16 activations,
 which XLA's and torch's CPU matmuls round differently in a few elements).
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 
 import jax

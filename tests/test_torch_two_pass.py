@@ -23,6 +23,7 @@ kernels in interpret mode.
 * ``count_score_bytes``: one_pass 0 on both layouts, two_pass at least
   2·4·Hq·S·B, reference > 0.
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 import warnings
 

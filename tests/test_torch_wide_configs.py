@@ -35,6 +35,7 @@ and casting it; an f32-param config's tree unchanged), and ``_masked_logits``
 multiplies a bf16 head over column chunks of at most ``LOGIT_CHUNK_BYTES``
 in f32 (an f32 head in one product).
 """
+import _torch_threads  # noqa: F401  (sizes torch's threads under xdist)
 import dataclasses
 import weakref
 
