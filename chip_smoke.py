@@ -214,10 +214,10 @@ result line):
    prompts 4000/3000/2000/1000): the first decode step with the kernels vs
    their plain versions within ``PHASE10_LOGIT_REL_TOL`` and two planted
    faults above it (``family_first_step``), K1 = K2 = 13 (zamba2) or 10
-   (whisper) × decode steps in ``generate`` of 8 greedy tokens and no other
-   FIER kernel; zamba2's prefill logits identical to the reference
-   pipeline's and a two_pass engine's first step equal to one_pass bit for
-   bit.  (d) each of the three on a 2 x 2 (data x model) mesh with every
+   (whisper) × decode steps in ``generate`` of 6 (zamba2) or 8 greedy
+   tokens and no other FIER kernel; zamba2's prefill logits identical to
+   the reference pipeline's and a two_pass engine's first step equal to
+   one_pass bit for bit.  (d) each of the three on a 2 x 2 (data x model) mesh with every
    shard on the card (``mesh10_decode``): ``build_model`` with a
    ``DistConfig`` (``seq_axes=("model",)``, ``batch_axes=("data",)``,
    ``mode="exact"``) decodes 4 steps from the prefill cache placed by
@@ -227,10 +227,13 @@ result line):
    guard rails): the logits within ``MESH10_LOGIT_REL_TOL`` of the
    one-device steps' (mamba2 and zamba2 at ``SSM_STEP_REL_TOL``: cuBLAS
    gives the state readout's rows other last bits at 2 rows than at 4),
-   zamba2's and whisper's every exact-mode selection equal to K1's on the
-   same query and side-car up to scores near τ; one planted fault per
-   family (each batch shard stepping the next shard's state rows, or
-   attending the next shard's cross K/V) above the gate.  Reported, not
+   zamba2's and whisper's every exact-mode selection equal to the plain
+   top-k of the same scores up to scores within 3ε of τ and to K1's on the
+   same query and side-car up to scores within 2δ + 3ε of τ; one planted
+   fault per family (each batch shard stepping the next shard's state rows,
+   or attending the next shard's cross K/V) above the gate, and a planted
+   selection fault (each sequence shard selecting from the next shard's
+   scores) outside both bands.  Reported, not
    gated: as phase 9 (only zamba2's step profiled), and (d)'s ms per step
    beside the one-device step's.
 11. Training (``training_path``): (a) ``flash_attention``'s blockwise
@@ -4032,11 +4035,12 @@ SSM_PROMPTS = (8100, 6000, 3000, 1500)
 WHISPER_CAPACITY = 4096
 # the configs whose decode step phase 10 profiles; mamba2's and whisper's
 # steps read 6.198 and 5.146 ms/step device busy when last profiled
-# (PERF.md §5), and their profiles went to pay for (d)'s time
+# (PERF.md §5), and their profiles went to pay for (d)'s time, as zamba2's
+# last 2 generated tokens went to pay for (d)'s selection checks
 PHASE10_PROFILED = ("zamba2-7b",)
 PHASE10_RUNS = (
     ("mamba2-370m", SLOTS, CAPACITY, SSM_PROMPTS, 8),
-    ("zamba2-7b", SLOTS, CAPACITY, SSM_PROMPTS, 8),
+    ("zamba2-7b", SLOTS, CAPACITY, SSM_PROMPTS, 6),
     ("whisper-small", SLOTS, WHISPER_CAPACITY, (4000, 3000, 2000, 1000), 8),
 )
 # mamba2-370m: the recurrent step's first logits vs a prefill (the chunked
@@ -4066,7 +4070,12 @@ PHASE10_LOGIT_REL_TOL = {"zamba2-7b": FAMILY_LOGIT_REL_TOL, "whisper-small": 0.0
 # one-device steps run the same policy without the guard rails (sink 0,
 # recent 0), which the sequence-sharded decode has not (the reference's
 # neither).  zamba2-7b and whisper-small run in exact mode: every selection
-# must equal K1's on the same inputs up to scores near τ.  The logits must
+# (kernels.check.ShardedSelections) must equal the plain top-k of the same
+# scores on the joined side-car up to scores within 3ε of its τ, and K1's on
+# the same inputs up to scores within 2δ + 3ε of K1's τ (ε: score_eps; δ: the
+# largest gap between K1's score expression and the sharded decode's), and a
+# planted selection fault (each sequence shard selecting from the next
+# shard's scores) must read outside both bands.  The logits must
 # lie within MESH10_LOGIT_REL_TOL of max|logit| of the one-device steps',
 # set between the card's sound readings and the planted faults' (PERF.md
 # §6): mamba2 0.02839 sound, fault 1.271 (not bit for bit on the
@@ -4081,77 +4090,6 @@ MESH10_SHAPE = (2, 2)
 MESH10_STEPS = 4
 MESH10_LOGIT_REL_TOL = {"mamba2-370m": SSM_STEP_REL_TOL, "zamba2-7b": SSM_STEP_REL_TOL,
                         "whisper-small": 0.02}
-
-
-def mesh10_selections(torch):
-    """A recorder of every exact-mode FIER call of the sequence-sharded
-    decode (one per layer, step and batch shard): the positions it attends
-    (``dist.select_sharded``) against K1's selection (``ops.fier_retrieve``)
-    on the same query and the same side-car joined along the sequence, and
-    the positions whose score lies near K1's τ: within 2·δ + 3·ε of it,
-    where δ is the largest difference between the kernels' score
-    expression (``retrieval_scores``, what K1 ranks) and the reference's
-    (``approx_scores``, what the sharded decode ranks) over the call's
-    valid positions and ε K1's bound against its plain version
-    (``score_eps``).  Returns (the records, install, remove)."""
-    from repro_torch.core import distributed as dist
-    from repro_torch.core import retrieval as rt
-    from repro_torch.core.quantize import QuantizedKeys
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fier_score import retrieval_scores
-    from repro_torch.kernels.fused_retrieval import masked_kv
-
-    calls = []
-    decode, select = dist.fier_decode_sharded, dist.select_sharded
-
-    def recorded(q, K, V, qk, budget, length, *, shard_start, group_reduce="max", **kw):
-        masks = []
-
-        def selecting(kv, budget, length, **skw):
-            sel = select(kv, budget, length, **skw)
-            masks.append(dist.selected_mask(sel, skw["shard_start"], length[0],
-                                            sum(k.shape[-1] for k in kv)))
-            return sel
-
-        dist.select_sharded = selecting
-        try:
-            out = decode(q, K, V, qk, budget, length, shard_start=shard_start,
-                         group_reduce=group_reduce, **kw)
-        finally:
-            dist.select_sharded = select
-        sync(torch)  # the check's own seconds are kept out of the step times
-        t0 = time.perf_counter()
-        dev = q[0].device
-        join = lambda f: torch.cat([getattr(c, f).to(dev) for c in qk], dim=1)
-        codes, scale, zero = join("codes"), join("scale"), join("zero")
-        B, Hq, D = q[0].shape
-        Hkv, S, g = codes.shape[2], codes.shape[1] * 8, qk[0].group
-        q4, lens = q[0].reshape(B, Hkv, Hq // Hkv, D), length[0].to(dev)
-        qk_all = QuantizedKeys(codes, scale, zero, g)
-        idx, tau, _ = ops.fier_retrieve(q4, codes, scale, zero, lens, budget, group=g,
-                                        group_reduce=group_reduce)
-        valid = torch.arange(S, device=dev)[None, None, :] < lens[:, None, None]
-        kv = masked_kv(retrieval_scores(q4, codes, scale, zero, group=g), lens, 0, 0,
-                       group_reduce)
-        kv_ref = rt.reduce_over_query_group(rt.approx_scores(q[0], qk_all), Hkv, group_reduce)
-        delta = float(torch.where(valid, kv - kv_ref, 0.0).abs().max())
-        band = 2 * delta + 3 * score_eps(q4, qk_all)
-        one = torch.zeros((B, Hkv, S), dtype=torch.bool, device=dev).scatter_(
-            2, idx.to(torch.int64), True) & valid
-        diff = one ^ masks[0].to(dev)
-        near = ((kv - tau[..., None]).abs() <= band) & valid
-        calls.append(dict(diff=int(diff.sum()), outside=int((diff & ~near).sum()),
-                          near=int(near.sum()), selected=int(one.sum()),
-                          seconds=time.perf_counter() - t0))
-        return out
-
-    def install():
-        dist.fier_decode_sharded = recorded
-
-    def remove():
-        dist.fier_decode_sharded = decode
-
-    return calls, install, remove
 
 
 def mesh10_rotated(x):
@@ -4170,12 +4108,14 @@ def mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity):
     ``cache`` (phase 10's prefill), teacher-forced with the one-device
     bundle's tokens from another copy: the gates of the comment above, the
     slab, state and cross pieces on distinct storages, the lengths equal,
-    and one planted fault (each batch shard stepping the next shard's state
-    rows, or attending the next shard's cross K/V) beyond the gate.
+    one planted fault (each batch shard stepping the next shard's state
+    rows, or attending the next shard's cross K/V) beyond the gate and, in
+    exact mode, one planted selection fault outside both selection bands.
     Returns what it measured, ms per step of both beside each other."""
     import dataclasses
 
     from repro_torch.core.placement import map_tree, place_tree
+    from repro_torch.kernels.check import ShardedSelections
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.sharding import cache_batch_axes, cache_shardings
     from repro_torch.models import build_model, encdec, mamba2
@@ -4199,7 +4139,8 @@ def mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity):
     storages = [p.untyped_storage().data_ptr() for x in pieces for p in x.pieces]
     if len(set(storages)) != len(storages):
         raise AssertionError(f"{cfg.name}: two placed cache pieces share a storage")
-    calls, install, remove = mesh10_selections(torch)
+    sel = ShardedSelections(lambda q4, qk: 3 * score_eps(q4, qk), sync=lambda: sync(torch))
+    calls = sel.calls
 
     def steps(bundle, c, tokens):
         lgs, fed, ms, tok = [], [], [], tok0
@@ -4216,12 +4157,9 @@ def mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity):
             tok = lg.argmax(-1).to(torch.int32)
         return lgs, fed, median(ms), c
 
-    install()
-    try:
-        lg_one, tokens, ms_one, _ = steps(one, clone_cache(torch, cache), None)
+    lg_one, tokens, ms_one, _ = steps(one, clone_cache(torch, cache), None)
+    with sel:
         lg_sh, _, ms_sh, placed = steps(sharded, placed, tokens)
-    finally:
-        remove()
     lens = placed["length"].full().tolist()
     if lens != [n + MESH10_STEPS for n in cache["length"].tolist()]:
         raise AssertionError(f"{cfg.name}: the placed cache's lengths are {lens}")
@@ -4233,8 +4171,14 @@ def mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity):
         want = MESH10_STEPS * MESH10_SHAPE[0] * fier_layers(cfg, pol.skip_layers)
         if len(calls) != want:  # one call per FIER layer, step and batch shard
             raise AssertionError(f"{cfg.name} (d): {len(calls)} exact-mode FIER calls")
-        for k in ("diff", "outside", "near", "selected"):
-            out[f"index_{k}"] = sum(c[k] for c in calls)
+        out.update({f"index_{k}": v for k, v in sel.totals().items() if k != "seconds"})
+        calls.clear()  # the planted selection fault: one step from a fresh placed copy
+        sel.fault = True
+        with sel:
+            sharded.decode_step(params, tok0, place_tree(cache, sh))
+        sync(torch)
+        out.update({f"sel_fault_{k}": v for k, v in sel.totals().items()
+                    if k in ("outside", "k1_outside")})
     del calls, placed
     # the planted fault: the first step from a fresh placed copy with each batch
     # shard's state rows or cross K/V taken from the next shard
@@ -4249,9 +4193,15 @@ def mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity):
     tol = MESH10_LOGIT_REL_TOL[cfg.name]
     log(f"  (d) on a {out['mesh']} mesh, {MESH10_STEPS} steps teacher-forced: max |Δlogit| vs "
         f"the one-device steps {gap:.4g} = {gap / s1:.4g} of max|logit| {s1:.4g} (gate {tol}); "
-        + (f"index sets vs K1 on the same inputs: {out['index_diff']} of "
-           f"{out['index_selected']} positions differ, {out['index_outside']} outside the "
-           f"{out['index_near']} near τ; " if "index_diff" in out else "")
+        + (f"index sets vs the plain top-k of the same scores: {out['index_diff_ref']} "
+           f"positions differ ({out['index_selected']} selected), {out['index_outside']} "
+           f"outside the "
+           f"{out['index_near_ref']} within 3ε of τ; vs K1 on the same inputs: "
+           f"{out['index_diff']} differ, {out['index_k1_outside']} outside the "
+           f"{out['index_near']} of {out['index_valid']} valid positions within 2δ + 3ε of τ "
+           f"(δ {out['index_delta']:.4g}, ε {out['index_eps'] / 3:.4g}); planted selection "
+           f"fault: {out['sel_fault_outside']} / {out['sel_fault_k1_outside']} outside; "
+           if "index_diff" in out else "")
         + f"planted fault (each batch shard on the next shard's "
         f"{'cross K/V' if cfg.family == 'encdec' else 'state rows'}): {out['fault_gap']:.4g} = "
         f"{out['fault_gap'] / s1:.4g}; ms/step sharded {ms_sh:.2f} vs one device {ms_one:.2f} "
@@ -4263,8 +4213,11 @@ def mesh10_decode(torch, eng, cfg, params, tok0, cache, capacity):
     if not (all(bool(torch.isfinite(lg).all()) for lg in lg_sh) and gap <= tol * s1):
         raise AssertionError(f"{cfg.name} (d): sharded vs one-device logits {gap:.4g} > "
                              f"{tol} · {s1:.4g}")
-    if out.get("index_outside"):
+    if out.get("index_outside") or out.get("index_k1_outside"):
         raise AssertionError(f"{cfg.name} (d): index sets differ beyond the near-τ band: {out}")
+    if "index_diff" in out and not (out["sel_fault_outside"] and out["sel_fault_k1_outside"]):
+        raise AssertionError(f"{cfg.name} (d): the selection check does not see the planted "
+                             f"fault: {out}")
     return out
 
 

@@ -299,17 +299,6 @@ def index_layer(x, i):
     return x[i]
 
 
-def layer_cache(stack: dict, i) -> dict:
-    """Layer ``i``'s {k, v[, meta]} of a stacked KV cache (``index_layer``
-    of each leaf)."""
-    lc = {"k": index_layer(stack["k"], i), "v": index_layer(stack["v"], i)}
-    if "meta" in stack:
-        meta = stack["meta"]
-        lc["meta"] = dataclasses.replace(meta, **{f: index_layer(getattr(meta, f), i)
-                                                  for f in meta.FIELDS})
-    return lc
-
-
 def at_home(x, device, i=None):
     """A leaf as the one-device code reads it (entry ``i`` of a stacked one,
     as ``index_layer`` takes it): a placed leaf gathered whole on
@@ -320,6 +309,13 @@ def at_home(x, device, i=None):
     if isinstance(x, Sharded):
         return (x if i is None else index_layer(x, i)).full(device)
     return x if i is None else x[i]
+
+
+def home_params(params: dict, device, stacked: tuple[str, ...] = ("layers",)) -> dict:
+    """``params`` with every leaf outside the ``stacked`` keys read
+    ``at_home`` on ``device`` (the stacked layers are read one at a time)."""
+    return {k: v if k in stacked else map_tree(lambda a: at_home(a, device), v)
+            for k, v in params.items()}
 
 
 def map_leaf(fn: Callable, x):
@@ -455,6 +451,6 @@ def _batch_slice(v, t: int, n: int, axes, dev) -> torch.Tensor:
 
 __all__ = [
     "AtUse", "NamedSharding", "P", "Sharded", "as_sharded", "at_home", "axis_coords",
-    "gather_tree", "index_layer", "layer_cache", "map_leaf", "map_tree", "place", "place_new",
+    "gather_tree", "home_params", "index_layer", "map_leaf", "map_tree", "place", "place_new",
     "place_tree", "resolve_at_use", "row_blocks", "shard_bytes", "split_batch",
 ]

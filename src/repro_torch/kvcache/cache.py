@@ -8,10 +8,12 @@ group (FIER) or page (Quest) of the side-car, and never copies a slab.  Position
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
+from repro_torch.core.placement import index_layer
 from repro_torch.core.policy import PolicyConfig
 from repro_torch.core.quantize import QuantizedKeys
 from repro_torch.core.quest import PageMeta
@@ -26,6 +28,17 @@ def _check_capacity(capacity: int, group: int, *, what: str = "capacity") -> Non
         raise ValueError(f"{what} {capacity} not divisible by 8 (bit packing)")
     if group and capacity % group:
         raise ValueError(f"{what} {capacity} not divisible by group {group}")
+
+
+def layer_cache(stack: dict, i) -> dict:
+    """Layer ``i``'s {k, v[, meta]} of a stacked KV cache: views, and of a
+    placed cache its pieces (``core.placement.index_layer`` of each leaf)."""
+    lc = {"k": index_layer(stack["k"], i), "v": index_layer(stack["v"], i)}
+    if "meta" in stack:
+        meta = stack["meta"]
+        lc["meta"] = dataclasses.replace(meta, **{f: index_layer(getattr(meta, f), i)
+                                                  for f in meta.FIELDS})
+    return lc
 
 
 def init_layer_cache(

@@ -196,9 +196,7 @@ def build_cell(
         batch = batch_meta(cfg, "prefill", B, _text_len(cfg, S))
         batch = _place(batch, shard.batch_shardings(batch, mesh, cell_b_axes),
                        _placer(fill, {"lengths": S}))
-        # ssm: every row full, so the reference's static conv-tail slice
-        kw = {"uniform_full": True} if cfg.family == "ssm" else {}
-        step_fn = lambda params, batch: bundle.prefill(params, batch, capacity=S, **kw)
+        step_fn = lambda params, batch: bundle.prefill(params, batch, capacity=S)
         return Cell(arch, shape_name, "prefill", step_fn, (params, batch), cfg, mesh,
                     "; ".join(notes))
 

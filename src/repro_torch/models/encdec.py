@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
-from repro_torch.core.placement import (Sharded, at_home, index_layer, layer_cache, map_leaf,
+from repro_torch.core.placement import (Sharded, at_home, home_params, index_layer, map_leaf,
                                          row_blocks)
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.core.retrieval import full_attention_decode
@@ -41,8 +41,8 @@ from repro_torch.kvcache import cache as kvcache
 
 from . import attention as attn
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
-from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, home_params,
-                          lm_loss, tree_map, unstack)
+from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, lm_loss,
+                          tree_map, unstack)
 
 STACKED = ("enc_layers", "dec_layers")  # the params read one layer at a time
 
@@ -252,9 +252,9 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, dcfg: attn.DistConf
         for l in range(L):
             lp = tree_map(lambda a: at_home(a, device, l), params["dec_layers"])
             if l < skip:
-                lc, layer_plan = layer_cache(cache["front"], l), plan_full
+                lc, layer_plan = kvcache.layer_cache(cache["front"], l), plan_full
             else:
-                lc, layer_plan = layer_cache(cache["rest"], l - skip), plan
+                lc, layer_plan = kvcache.layer_cache(cache["rest"], l - skip), plan
             # a placed cache runs every layer sequence-sharded, the skip
             # layers densely (full_decode_sharded), as the transformer's
             seq = l >= skip or isinstance(lc["k"], Sharded)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
-from repro_torch.core.placement import at_home, index_layer, layer_cache, map_leaf
+from repro_torch.core.placement import at_home, home_params, index_layer, map_leaf
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.kvcache import cache as kvcache
 
@@ -38,8 +38,8 @@ from . import attention as attn
 from . import mamba2
 from .layers import (apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply,
                      rms_norm)
-from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, home_params,
-                          lm_loss, tree_map, unstack)
+from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, lm_loss,
+                          tree_map, unstack)
 
 STACKED = ("mamba", "mamba_tail")  # the params read one layer at a time
 
@@ -201,7 +201,7 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None, dcfg: attn.DistConf
             h = _mamba_steps(h, params["mamba"], cache["mamba"], [(a, e) for e in range(E)])
             xn = apply_norm(torch.cat([h, x0], dim=-1), sp["norm1"], cfg.norm)
             o = attn.decode_self_attention(
-                sp["attn"], xn, layer_cache(cache["attn"], a), length, cfg, plan, dcfg)
+                sp["attn"], xn, kvcache.layer_cache(cache["attn"], a), length, cfg, plan, dcfg)
             h = _ffn(sp, h, o)
         if tail:
             h = _mamba_steps(h, params["mamba_tail"], cache["mamba_tail"], range(tail))

@@ -31,12 +31,13 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
-from repro_torch.core.placement import Sharded, at_home, index_layer, map_leaf, row_blocks
+from repro_torch.core.placement import (Sharded, at_home, home_params, index_layer, map_leaf,
+                                         row_blocks)
 from repro_torch.kvcache import cache as kvcache
 
 from .layers import init_embedding, init_linear, rms_norm, silu
-from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, home_params,
-                          lm_loss, tree_map, unstack)
+from .transformer import (_DTYPES, ModelBundle, _masked_logits, checkpointed, lm_loss,
+                          tree_map, unstack)
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -179,24 +180,21 @@ def mamba_block_train(hc, lp, cfg: ModelConfig):
     return _block(hc, lp, cfg, None)[0]
 
 
-def mamba_prefill_step(hc, lp, cfg: ModelConfig, lengths, valid, uniform_full: bool = False):
+def mamba_prefill_step(hc, lp, cfg: ModelConfig, lengths, valid):
     """One Mamba2 layer over the whole sequence, with its final state: the
     forward of the reference's mamba2 prefill layer and of the hybrid's
     ``_mamba_prefill_step``.  hc [B, S, d] (bf16); valid [B, S] masks the
-    prompt padding.  ``uniform_full``: every row is S long, so the conv
-    tail is the last K-1 positions (the reference's static slice).  Returns
-    (hc, {"conv": [B, K-1, Ch] bf16, "ssm": [B, H, P, N] f32})."""
+    prompt padding.  Returns (hc, {"conv": [B, K-1, Ch] bf16, "ssm":
+    [B, H, P, N] f32})."""
     B, S, _ = hc.shape
     hc, xBC, h_last = _block(hc, lp, cfg, valid)
     # conv state: the raw (pre-conv) inputs at each row's last K-1 valid
     # positions; the start clamped into [0, S-(K-1)] as dynamic_slice clamps it
+    # (rows S long take the last K-1: the reference's ``uniform_full`` slice)
     K = cfg.conv_kernel
-    if uniform_full:
-        tail = xBC[:, S - (K - 1):]
-    else:
-        start = torch.clamp(lengths.to(torch.int64) - (K - 1), min=0).clamp(max=S - (K - 1))
-        pos = start[:, None] + torch.arange(K - 1, device=hc.device)[None, :]
-        tail = xBC[torch.arange(B, device=hc.device)[:, None], pos]
+    start = torch.clamp(lengths.to(torch.int64) - (K - 1), min=0).clamp(max=S - (K - 1))
+    pos = start[:, None] + torch.arange(K - 1, device=hc.device)[None, :]
+    tail = xBC[torch.arange(B, device=hc.device)[:, None], pos]
     return hc, {"conv": tail.to(torch.bfloat16), "ssm": h_last}
 
 
@@ -255,13 +253,6 @@ def decode_layer(h: torch.Tensor, p: dict, conv, ssm, cfg: ModelConfig) -> torch
         conv.copy_(conv_new), ssm.copy_(ssm_new)
     y = _gated_norm(y.reshape(B, 1, di).to(h.dtype), z, p["norm_w"])
     return h + y @ p["out_proj"].to(h.dtype)
-
-
-def mamba_block_decode(h: torch.Tensor, p: dict, state: dict, cfg: ModelConfig):
-    """One-token recurrent step.  h [B, 1, d]; state {conv [B, K-1, Ch] bf16,
-    ssm [B, H, P, N] f32}.  Returns (out [B, 1, d], the new state)."""
-    new = {k: v.clone() for k, v in state.items()}
-    return decode_layer(h, p, new["conv"], new["ssm"], cfg), new
 
 
 def init_mamba_state(lead: tuple, B: int, cfg: ModelConfig, device) -> dict:
@@ -327,10 +318,8 @@ def build(cfg: ModelConfig, dcfg=None, *, device="cuda", remat: bool = True,
         """(loss, {loss, moe_aux: 0, tokens}) over {tokens, targets, loss_mask}."""
         return lm_loss(*train_hidden(params, batch), batch, cfg.vocab, Vp, loss_chunk)
 
-    def prefill(params, batch, capacity: int | None = None, uniform_full: bool = False):
+    def prefill(params, batch, capacity: int | None = None):
         """Sequential-state prefill (``capacity`` unused: the state is O(1)).
-        ``uniform_full``: every row is the whole sequence long (the
-        reference's static conv-tail slice, which its dry-run cell takes).
         Returns (last-token logits [B, Vp] f32, the cache on the bundle's
         device)."""
         batch = {k: at_home(v, device) for k, v in batch.items()}
@@ -344,7 +333,7 @@ def build(cfg: ModelConfig, dcfg=None, *, device="cuda", remat: bool = True,
         st = cache["layers"]
         for l in range(L):
             lp = tree_map(lambda a: at_home(a, device, l), params["layers"])
-            h, s = mamba_prefill_step(h, lp, cfg, lengths, valid, uniform_full)
+            h, s = mamba_prefill_step(h, lp, cfg, lengths, valid)
             st["conv"][l], st["ssm"][l] = s["conv"], s["ssm"]
         rows = torch.arange(B, device=h.device)
         last = rms_norm(h[rows, lengths.to(torch.int64) - 1], params["final_norm"])

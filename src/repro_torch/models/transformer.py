@@ -39,7 +39,7 @@ from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
-from repro_torch.core.placement import (AtUse, Sharded, at_home, layer_cache, map_leaf,
+from repro_torch.core.placement import (AtUse, Sharded, at_home, home_params, map_leaf,
                                          resolve_at_use)
 
 from . import attention as attn
@@ -106,13 +106,6 @@ def checkpointed(fn: Callable, enabled: bool) -> Callable:
         return run
     # the models draw no random numbers, so the RNG state need not be kept
     return lambda *args: checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
-
-
-def home_params(params: dict, device, stacked: tuple[str, ...] = ("layers",)) -> dict:
-    """``params`` with every leaf outside the ``stacked`` keys read
-    ``at_home`` on ``device`` (the stacked layers are read one at a time)."""
-    return {k: v if k in stacked else tree_map(lambda a: at_home(a, device), v)
-            for k, v in params.items()}
 
 
 def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
@@ -410,9 +403,9 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         for l in range(L):
             lp = tree_map(lambda a: at_home(a, device_, l), params["layers"])
             if l < skip:
-                lc, layer_plan = layer_cache(cache["front"], l), plan_full
+                lc, layer_plan = kvcache.layer_cache(cache["front"], l), plan_full
             else:
-                lc, layer_plan = layer_cache(cache["rest"], l - skip), plan
+                lc, layer_plan = kvcache.layer_cache(cache["rest"], l - skip), plan
             # a placed cache runs every layer sequence-sharded, the skip
             # layers densely (full_decode_sharded)
             seq = l >= skip or isinstance(lc["k"], Sharded)

@@ -152,10 +152,13 @@ def test_ssd_chunked_matches_reference(S):
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
 def test_mamba_block_matches_reference(arch):
     """One Mamba2 block's prefill step (output, final state, conv tail) over
-    two rows of 32 and 24 valid positions, then ``mamba_block_decode`` from
-    a shared state: the bf16 hidden states and conv tails within
-    BF16_REL_TOL·max (measured: one bf16 rounding of 960 conv-tail values,
-    an in_proj GEMM output, flips), the f32 states within F32_REL_TOL."""
+    two rows of 32 and 24 valid positions, then one decode step
+    (``decode_layer`` on a copy of the state) from a shared state: the bf16
+    hidden states and conv tails within BF16_REL_TOL·max (measured: one
+    bf16 rounding of 960 conv-tail values, an in_proj GEMM output, flips),
+    the f32 states within F32_REL_TOL.  With every row S long the general
+    conv-tail gather is the reference's ``uniform_full`` slice, the last
+    K-1 pre-conv inputs, bit for bit."""
     jcfg, cfg = j_reduced_config(arch), reduced_config(arch)
     lp = j_mamba2.init_mamba_block(jax.random.PRNGKey(1), jcfg)
     tlp = mamba2.compute_block({k: torch.from_numpy(np.array(v)) for k, v in lp.items()},
@@ -170,10 +173,15 @@ def test_mamba_block_matches_reference(arch):
     assert _rel(to.float().numpy(), jo.astype(jnp.float32)) <= BF16_REL_TOL
     assert _rel(ts["ssm"].numpy(), js["ssm"]) <= F32_REL_TOL
     assert _rel(ts["conv"].float().numpy(), js["conv"].astype(jnp.float32)) <= BF16_REL_TOL
+    full = torch.full((B,), S, dtype=torch.int32)
+    _, xBC, _ = mamba2._block(ht, tlp, cfg, valid_mask(S, full))
+    _, fs = mamba2.mamba_prefill_step(ht, tlp, cfg, full, valid_mask(S, full))
+    assert torch.equal(fs["conv"], xBC[:, S - (cfg.conv_kernel - 1):].to(torch.bfloat16))
 
     xj, xt = _bf16(rng.standard_normal((B, 1, cfg.d_model)))
     jd, jst = jax.jit(lambda x, p, s: j_mamba2.mamba_block_decode(x, p, s, jcfg))(xj, lp, js)
-    td, tst = mamba2.mamba_block_decode(xt, tlp, ts, cfg)
+    tst = {k: v.clone() for k, v in ts.items()}
+    td = mamba2.decode_layer(xt, tlp, tst["conv"], tst["ssm"], cfg)
     assert _rel(td.float().numpy(), jd.astype(jnp.float32)) <= BF16_REL_TOL
     assert _rel(tst["ssm"].numpy(), jst["ssm"]) <= F32_REL_TOL
     assert _rel(tst["conv"].float().numpy(), jst["conv"].astype(jnp.float32)) <= BF16_REL_TOL
