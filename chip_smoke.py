@@ -305,7 +305,25 @@ result line):
    (2× ``score_eps``) of τ, ``full_decode_sharded`` lies within
    ``LONG_FULL_REL_TOL``·max|out| of dense attention and the merge with
    the last shard dropped beyond it, local mode's overlap with the global
-   top-k is reported; all timed.
+   top-k is reported; all timed.  (e) placed params: phase 4's weights
+   placed by ``param_shardings`` (TP over 'model', FSDP over 'data') on
+   tp2 x dp2, through ``Engine.build(mesh=...)`` paged one_pass, each
+   (DP, TP) shard projecting its own rows and heads and launching K3/K4 on
+   them (``models/placed_serving.py``), against (a)'s one-device engine:
+   the prefill logits and (a)'s teacher-forced steps within
+   ``PLACED_REL_TOL`` (every layer's reductions split over the model
+   shards, so its bf16 roundings part from one device's in every layer;
+   the gates' readings are beside them), K3 = K4 = 14 × steps × shards,
+   and two planted faults read at the first ``PLACED_FAULT_STEPS`` steps
+   beyond it (model shard 1's wo partial dropped; each model shard on the
+   next shard's wq block); the sequence-sharded slab on tp2 x dp2: a
+   placed prefill of 4 prompts (K/V handed from heads to sequence per
+   layer) against the one-device prefill, one placed decode step against
+   the unplaced params' sharded step, within ``PLACED_REL_TOL``, and the
+   hand-off in swapped order beyond it; granite-moe (as (b)'s, 6 layers)
+   with placed params on tp2 x dp2: expert-parallel prefill and masked
+   expert-shard decode within ``PLACED_MOE_REL_TOL`` of the one-device
+   engine, an expert shard's partial dropped beyond it.
 13. Training on meshes (``sharded_train_path``), every shard on this card.
    (a) olmo-1b at full width, depth cut to 4 layers, phase 11(b)'s B 4 x
    S 2048, seed 0, AdamW + cosine (lr 1e-3, warmup 0): the one-device step
@@ -407,16 +425,18 @@ result line):
    argument bytes and the FLOPs (``FlopCounterMode`` over the real step)
    equal, the peak within ``DRYRUN_PEAK_REL_TOL`` of the card's
    ``max_memory_allocated`` with two planted faults beyond it; (b) olmo-1b
-   training on tp2 x dp2 (phase 13's cell, 1 layer) and a ``long_500k`` layer over 4
-   sequence shards, every shard on the card: the collective records equal
-   entry for entry, the peak of the sum over devices within the same
+   training on tp2 x dp2 (phase 13's cell, 1 layer), a ``long_500k`` layer over 4
+   sequence shards and a serving decode step on placed params on tp2 x dp2
+   (1 layer, 4 rows of 8192), every shard on the card: the collective
+   records equal entry for entry, the peak of the sum over devices within the same
    tolerance, the decode's merges no larger than its partial outputs; (c)
    olmo-1b ``decode_32k`` at cost depth 1 on the 16 x 16 fake mesh, its
    record and seconds.  Every trace of the phase runs on the CPU in a
    subprocess that starts before phase 2 and sees no card.
 18. One JSON line ``{"kernels": [...]}`` with each kernel's check, times,
    bound and launch count (K1/K2: phase 3; K3/K4: phase 5, phase 12's
-   per-shard counts in ``launches_sharded`` and phase 13(e)'s in
+   per-shard counts, (e)'s placed runs among them, in
+   ``launches_sharded`` and phase 13(e)'s in
    ``launches_sharded_train``; K6/K7: phase 6's generate; K5/K8: phase 6's
    building blocks; phases 9, 10, 11(e), 14, 15 and 16's beside them, phase
    16's with its per-launch device times; the d_head
@@ -5028,7 +5048,8 @@ def same(torch, a, b) -> bool:
 
 
 def sharded_drive(torch, cfg, params, mesh, prompts, steps, *, seed=4, forced=None,
-                  check=True, faults=False, timed=SHARD_TIMED_STEPS):
+                  check=True, faults=False, timed=SHARD_TIMED_STEPS, fault_fn=None,
+                  fault_steps=None, profile=True):
     """Phase 4's four prompts inserted one by one into a paged engine (bs 32,
     the default pool) on ``mesh`` (None: one device), then ``steps`` greedy
     decode steps with ``advance_slot`` for every slot first.  With
@@ -5036,10 +5057,12 @@ def sharded_drive(torch, cfg, params, mesh, prompts, steps, *, seed=4, forced=No
     those tokens instead of its own (teacher forcing), so every step's
     logits compare with the one-device run's on the same history.  The
     first step also runs K3/K4's plain versions on each shard's own tensors
-    (``checked_kernels``); with ``faults`` every step is first run again
-    from copies of the cache with three planted faults (``sharded_faults``).
+    (``checked_kernels``); with ``faults`` every step (the first
+    ``fault_steps`` when given) is first run again from copies of the cache
+    with the planted faults of ``fault_fn`` (``sharded_faults`` by
+    default).
     Counts the launches over the inserts and the steps (the faults' not),
-    audits, then times ``timed`` more steps and profiles three.  Returns the
+    audits, then times ``timed`` more steps and (``profile``) profiles one.  Returns the
     prefill logits, every step's logits (and each fault's), the tokens, the
     counts and the readings."""
     import numpy as np
@@ -5077,9 +5100,9 @@ def sharded_drive(torch, cfg, params, mesh, prompts, steps, *, seed=4, forced=No
     fault_lg, fault_launches = {}, {}
     for i in range(steps):
         cache = advance(cache)
-        if faults:
+        if faults and (fault_steps is None or i < fault_steps):
             before = launch_counts()  # the planted faults' launches are not the path's
-            for k, lg in sharded_faults(torch, eng, params, tok, cache).items():
+            for k, lg in (fault_fn or sharded_faults)(torch, eng, params, tok, cache).items():
                 fault_lg.setdefault(k, []).append(lg)
             for k, n in launch_counts().items():
                 fault_launches[k] = fault_launches.get(k, 0) + n - before.get(k, 0)
@@ -5105,7 +5128,7 @@ def sharded_drive(torch, cfg, params, mesh, prompts, steps, *, seed=4, forced=No
         tok, _, cache = eng.decode(params, tok, cache)
         sync(torch)
         ms.append(1e3 * (time.perf_counter() - t0))
-    if DEVICE == "cuda" and timed:
+    if DEVICE == "cuda" and timed and profile:
         profile_decode(torch, eng, params, tok, cache, None)
     return dict(eng=eng, cache=cache, pre=torch.cat(pre), logits=torch.stack(logits),
                 toks=torch.stack(out, 1), counts=counts, errs=errs,
@@ -5228,6 +5251,7 @@ def sharded_olmo(torch, cfg, params):
     check_launches(base["counts"], PAGED_KERNELS, n_fier * SHARD_STEPS)
     out = {"unsharded": dict(ms=base["ms"], launches=base["counts"])}
     del base["eng"], base["cache"]
+    out["base"] = base  # (e) holds the placed engine to the same run
     free(torch)
     V = cfg.vocab  # the padded columns read −1e30 in every run
     scale = float(base["logits"][..., :V].abs().max())
@@ -5237,8 +5261,9 @@ def sharded_olmo(torch, cfg, params):
         mesh = make_mesh(shape, axes, device=DEVICE)
         shards = math.prod(shape)
         exact = name in SHARD_BITWISE
+        # the bit-for-bit meshes' profiles went to pay for (e)'s time
         got = sharded_drive(torch, cfg, params, mesh, PROMPTS, SHARD_STEPS, forced=base["toks"],
-                            faults=not exact)
+                            faults=not exact, profile=not exact)
         spec = got["eng"].shard
         step_gap = (got["logits"][..., :V] - base["logits"][..., :V]).abs().amax(dim=(1, 2))
         gap, gap1 = float(step_gap.max()) / scale, float(step_gap[0]) / scale
@@ -5323,9 +5348,265 @@ def sharded_granite(torch):
     if not (same(torch, got["logits"], base["logits"]) and same(torch, got["toks"], base["toks"])):
         raise AssertionError(f"granite-moe tp2: the first decode step differs from one "
                              f"device's by {gap:.4g}")
+    placed = placed_granite(torch, cfg, params, base)
     del params
     free(torch)
-    return dict(launches=got["counts"], gap=gap / scale, errs=got["errs"])
+    return dict(launches=got["counts"], gap=gap / scale, errs=got["errs"], placed=placed)
+
+
+# (e) placed params: phase 4's weights placed by param_shardings (TP over
+# 'model', FSDP over 'data') on tp2 x dp2, served through Engine.build(mesh=)
+# paged one_pass (every (DP, TP) shard projecting its own rows and heads and
+# launching K3/K4 on them) and through the sequence-sharded slab (a placed
+# prefill's cache handed from heads to sequence).  Every projection's
+# reduction splits over the model shards, so every layer rounds its bf16
+# activations apart from one device's, and 16 layers carry it further than
+# (a)'s tp2 x dp2 (only its dense skip layers round apart): against the
+# one-device engine, × max|logit|, over 8 teacher-forced steps on one
+# "NVIDIA H100 80GB HBM3, 700.00 W" (tools/probe_placed.py, PERF.md §6),
+# olmo-1b's prefill read 0.0131 and its steps up to 0.0206 (0.0222 with the
+# column blocks summed in f32 and rounded once; the CPU at reduced width
+# reads 0.004-0.01), granite-moe's prefill 0.0051 and its first step 0.0474
+# (a router near-tie moves a token's experts).  The gates sit between these
+# and the planted faults' (olmo-1b's 0.764 and above, the slab's hand-off
+# 1.370, granite-moe's dropped expert shard 0.4019)
+PLACED_REL_TOL = 0.04       # olmo-1b: prefill and every step; the slab's prefill and step
+PLACED_MOE_REL_TOL = 0.1    # granite-moe: prefill and first step
+PLACED_MESH = ("tp2xdp2", (2, 2), ("data", "model"))
+PLACED_FAULT_STEPS = 2  # the planted faults are read at the first steps only
+PLACED_SLAB_PROMPTS = (2000, 1500, 1000, 500)  # (e)'s slab: B 4, placed prefill
+
+
+def placed_params(torch, params, mesh):
+    from repro_torch.core import placement as pl
+    from repro_torch.launch.sharding import param_shardings
+
+    return pl.place_tree(params, param_shardings(params, mesh, ("data",)))
+
+
+def placed_faults(torch, eng, params, tok, cache):
+    """One decode step of an engine on placed params from copies of
+    ``cache`` with two planted faults: model shard 1's wo partial dropped
+    from the psum; every model shard reading the next shard's column block
+    of wq (its heads' queries from another shard's weights).  Returns each
+    fault's logits."""
+    from repro_torch.models import tensor_parallel as tpm
+
+    row_sum, view = tpm.row_sum, tpm.Views.tp
+
+    def drop_wo(parts, name):
+        if name == "wo":
+            parts = [parts[0]] + [torch.zeros_like(p) for p in parts[1:]]
+        return row_sum(parts, name)
+
+    def next_wq(self, x, path, t, m):
+        if path.endswith("attn/wq"):
+            m = (m + 1) % self.shards.n_tp
+        return view(self, x, path, t, m)
+
+    out = {}
+    for name, attr, fn in (("model shard 1's wo partial dropped", "row_sum", drop_wo),
+                           ("each model shard on the next shard's wq block", "tp", next_wq)):
+        target = tpm.Views if attr == "tp" else tpm
+        orig = getattr(target, attr)
+        setattr(target, attr, fn)
+        try:
+            _, lg, _ = eng.decode(params, tok, clone_cache(torch, cache))
+            sync(torch)
+        finally:
+            setattr(target, attr, orig)
+        out[name] = lg.clone()
+    return out
+
+
+def fault_gaps_of(got, base, V, scale):
+    """Each planted fault's gap to the one-device steps (first, least and
+    largest step), × max|logit|."""
+    out = {}
+    for k, v in got["faults"].items():
+        n = v.shape[0]
+        g = (v[..., :V] - base["logits"][:n, ..., :V]).abs().amax(dim=(1, 2)) / scale
+        out[k] = dict(first=float(g[0]), least=float(g.min()), most=float(g.max()))
+    return out
+
+
+def placed_olmo(torch, cfg, params, base):
+    """(e) olmo-1b's placed params on tp2 x dp2 through the paged engine,
+    against (a)'s one-device run: the prefill logits and every
+    teacher-forced step within PLACED_REL_TOL, the planted faults
+    (``placed_faults``, read at the first PLACED_FAULT_STEPS steps) beyond
+    it; K3/K4 = 14 × steps × shards; decode ms/step beside the one
+    device's."""
+    from repro_torch.launch.mesh import make_mesh
+
+    name, shape, axes = PLACED_MESH
+    mesh = make_mesh(shape, axes, device=DEVICE)
+    shards = math.prod(shape)
+    placed = placed_params(torch, params, mesh)
+    got = sharded_drive(torch, cfg, placed, mesh, PROMPTS, SHARD_STEPS, forced=base["toks"],
+                        faults=True, fault_fn=placed_faults, fault_steps=PLACED_FAULT_STEPS,
+                        profile=False)
+    del got["eng"], got["cache"]
+    V = cfg.vocab
+    scale = float(base["logits"][..., :V].abs().max())
+    pre = float((got["pre"][:, :V] - base["pre"][:, :V]).abs().max()) / scale
+    step_gap = (got["logits"][..., :V] - base["logits"][..., :V]).abs().amax(dim=(1, 2)) / scale
+    gap, gap1 = float(step_gap.max()), float(step_gap[0])
+    top1 = int((got["logits"].argmax(-1).T == base["toks"][:, 1:]).sum())
+    faults = fault_gaps_of(got, base, V, scale)
+    n_fier = cfg.n_layers - SKIP
+    log(f"  (e) {name}, placed params (TP over 'model', FSDP over 'data'): prefill logits "
+        f"{pre:.4g} of max|logit|; first decode step {gap1:.4g}; over {SHARD_STEPS} "
+        f"teacher-forced steps {gap:.4g} (gate {PLACED_REL_TOL} for each); per step "
+        f"{json.dumps([round(float(g), 6) for g in step_gap])}; top-1 "
+        f"{top1}/{base['toks'][:, 1:].numel()}; planted faults "
+        f"(first, least and largest of {PLACED_FAULT_STEPS} steps) {json.dumps(faults)}; decode "
+        f"{got['ms']:.2f} ms/step (one device {base['ms']:.2f}); launches {got['counts']}")
+    log_errs(got["errs"], "K3", "K4")
+    check_launches(got["counts"], PAGED_KERNELS, n_fier * SHARD_STEPS * shards)
+    if not (pre <= PLACED_REL_TOL and gap <= PLACED_REL_TOL):
+        raise AssertionError(f"{name} placed: prefill {pre:.4g}, steps {gap:.4g} (gate "
+                             f"{PLACED_REL_TOL})")
+    if not all(g["least"] > PLACED_REL_TOL for g in faults.values()):
+        raise AssertionError(f"{name} placed: the gate does not see a planted fault: {faults}")
+    if got["errs"]["calls"] != n_fier * shards:
+        raise AssertionError(f"{name} placed: {got['errs']['calls']} checked K3 calls")
+    out = dict(ms=got["ms"], ms_one_device=base["ms"], launches=got["counts"], prefill=pre,
+               gap=gap, gap1=gap1, top1=top1, faults=faults, errs=got["errs"])
+    del got, placed
+    free(torch)
+    return out
+
+
+def placed_slab(torch, cfg, params):
+    """(e) the sequence-sharded slab on tp2 x dp2: the placed prefill of
+    PLACED_SLAB_PROMPTS (its cache placed by ``cache_shardings``, K/V handed
+    from heads to sequence per layer) against the one-device prefill; then
+    one decode step of the placed params on that cache against the
+    unplaced params' sharded step on the one-device cache placed the same
+    way (both the plain sharded FIER path, exact mode), within
+    PLACED_REL_TOL; the hand-off in swapped order (each shard given
+    another shard's sequence block) beyond it."""
+    import numpy as np
+
+    from repro_torch.core import placement as pl
+    from repro_torch.core.policy import PolicyConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import cache_batch_axes, cache_shardings
+    from repro_torch.models import build_model
+    from repro_torch.models import placed_serving as ps
+    from repro_torch.models.attention import DistConfig
+
+    name, shape, axes = PLACED_MESH
+    mesh = make_mesh(shape, axes, device=DEVICE)
+    pol = PolicyConfig(kind="fier", budget=BUDGET, group=GROUP, skip_layers=SKIP,
+                       pipeline="one_pass")
+    one = build_model(cfg, pol, device=DEVICE)
+    pre_b = build_model(cfg, pol, DistConfig(mesh=mesh, batch_axes=("data",)), device=DEVICE)
+    dec_b = build_model(cfg, pol, DistConfig(mesh=mesh, seq_axes=("model",),
+                                             batch_axes=("data",), mode="exact"), device=DEVICE)
+    rng = np.random.default_rng(21)
+    S = max(PLACED_SLAB_PROMPTS)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (len(PLACED_SLAB_PROMPTS), S))).to(DEVICE)
+    batch = {"tokens": toks, "lengths": torch.tensor(PLACED_SLAB_PROMPTS, dtype=torch.int32,
+                                                     device=DEVICE)}
+    placed = placed_params(torch, params, mesh)
+    V = cfg.vocab
+    with torch.no_grad():
+        lg_one, c_one = one.prefill(params, batch, capacity=CAPACITY)
+        tok = lg_one.argmax(-1).to(torch.int32)
+        c_one = pl.place_tree(c_one, cache_shardings(c_one, mesh, ("data",), ("model",),
+                                                     cache_batch_axes(dec_b.init_cache,
+                                                                      CAPACITY)))
+        ref, _ = dec_b.decode_step(params, tok, c_one)
+        del c_one
+        free(torch)
+        scale = float(ref[:, :V].abs().max())
+        runs = {}
+        hand_off = ps.heads_to_sequence
+        for run, fn in (("sound", hand_off),
+                        ("hand-off swapped", lambda xs, sd, hd: hand_off(xs, sd, hd)[::-1])):
+            ps.heads_to_sequence = fn
+            try:
+                sync(torch)
+                t0 = time.perf_counter()
+                lg, cache = pre_b.prefill(placed, batch, capacity=CAPACITY)
+                sync(torch)
+                ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                ps.heads_to_sequence = hand_off
+            step, _ = dec_b.decode_step(placed, tok, cache)
+            runs[run] = dict(prefill=float((lg[:, :V] - lg_one[:, :V]).abs().max()) / scale,
+                             step=float((step[:, :V] - ref[:, :V]).abs().max()) / scale,
+                             prefill_ms=ms)
+            del cache
+            free(torch)
+    log(f"  (e) {name} slab, placed prefill of {PLACED_SLAB_PROMPTS} at capacity {CAPACITY} "
+        f"and one sequence-sharded step, × max|logit| against the one-device prefill and the "
+        f"unplaced params' sharded step (gate {PLACED_REL_TOL}): {json.dumps(runs)}")
+    sound, fault = runs["sound"], runs["hand-off swapped"]
+    if not (sound["prefill"] <= PLACED_REL_TOL and sound["step"] <= PLACED_REL_TOL):
+        raise AssertionError(f"{name} placed slab: {sound} (gate {PLACED_REL_TOL})")
+    if not fault["step"] > PLACED_REL_TOL:
+        raise AssertionError(f"{name} placed slab: the gate does not see the swapped hand-off: "
+                             f"{fault}")
+    del placed, one, pre_b, dec_b
+    free(torch)
+    return runs
+
+
+def placed_granite(torch, cfg, params, base):
+    """(e) granite-moe (as (b)'s, GRANITE_SHARD_LAYERS layers) with placed
+    params on tp2 x dp2 through the paged engine: expert-parallel prefill
+    (one token shard per insert) and decode (each expert shard's experts
+    masked, the partials summed) against (b)'s one-device run: prefill
+    logits and the first step within PLACED_MOE_REL_TOL; one expert
+    shard's decode partial dropped beyond it."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import tensor_parallel as tpm
+
+    name, shape, axes = PLACED_MESH
+    mesh = make_mesh(shape, axes, device=DEVICE)
+    placed = placed_params(torch, params, mesh)
+    row_sum = tpm.row_sum
+
+    def drop_expert_shard(torch, eng, params, tok, cache):
+        def drop(parts, what):
+            if what == "moe":
+                parts = [parts[0]] + [torch.zeros_like(p) for p in parts[1:]]
+            return row_sum(parts, what)
+
+        tpm.row_sum = drop
+        try:
+            _, lg, _ = eng.decode(params, tok, clone_cache(torch, cache))
+            sync(torch)
+        finally:
+            tpm.row_sum = row_sum
+        return {"expert shard 1's partial dropped": lg.clone()}
+
+    got = sharded_drive(torch, cfg, placed, mesh, FAMILY_PROMPTS, 1, seed=9, forced=base["toks"],
+                        faults=True, fault_fn=drop_expert_shard, timed=0)
+    del got["eng"], got["cache"]
+    V = cfg.vocab
+    scale = float(base["logits"][..., :V].abs().max())
+    pre = float((got["pre"][:, :V] - base["pre"][:, :V]).abs().max()) / scale
+    gap = float((got["logits"][..., :V] - base["logits"][..., :V]).abs().max()) / scale
+    faults = fault_gaps_of(got, base, V, scale)
+    log(f"  (e) granite-moe ({cfg.n_layers} layers, {cfg.n_experts} experts, "
+        f"{cfg.n_experts // 2} per expert shard) {name}, placed params: prefill logits "
+        f"{pre:.4g} of max|logit|, first decode step {gap:.4g} (gate {PLACED_MOE_REL_TOL}); "
+        f"planted fault {json.dumps(faults)}; launches {got['counts']}")
+    log_errs(got["errs"], "K3", "K4")
+    check_launches(got["counts"], PAGED_KERNELS, (cfg.n_layers - SKIP) * math.prod(shape))
+    if not (pre <= PLACED_MOE_REL_TOL and gap <= PLACED_MOE_REL_TOL):
+        raise AssertionError(f"granite-moe placed: prefill {pre:.4g}, first step {gap:.4g} "
+                             f"(gate {PLACED_MOE_REL_TOL})")
+    if not all(g["first"] > PLACED_MOE_REL_TOL for g in faults.values()):
+        raise AssertionError(f"granite-moe placed: the gate does not see the fault: {faults}")
+    out = dict(launches=got["counts"], prefill=pre, gap=gap, faults=faults, errs=got["errs"])
+    del placed, got
+    free(torch)
+    return out
 
 
 def record_logits(sched, eng, reqs, vocab, forced=None):
@@ -5569,7 +5850,8 @@ def sharded_long(torch):
 def sharded_path(torch):
     """Phase 12: (a) olmo-1b on three meshes, (b) granite-moe at tp2, (c)
     phase 5's stream on dp2, (d) the sequence-sharded decode at
-    long_500k."""
+    long_500k, (e) olmo-1b and granite-moe with placed params on tp2 x
+    dp2."""
     from repro_torch.configs import get_config
     from repro_torch.serving import Engine
 
@@ -5587,11 +5869,16 @@ def sharded_path(torch):
 
     part("olmo", "(a) olmo-1b, paged one_pass, on tp2, dp2 and tp2 x dp2", sharded_olmo, cfg,
          params)
+    part("placed", "(e) olmo-1b with placed params on tp2 x dp2, paged one_pass",
+         lambda torch, *a: placed_olmo(torch, *a, out["olmo"].pop("base")), cfg, params)
+    part("placed_slab", "(e) olmo-1b with placed params on tp2 x dp2, the sequence-sharded "
+         "slab", placed_slab, cfg, params)
     part("stream", "(c) phase 5's stream through the scheduler on dp2", sharded_stream, cfg,
          params)
     del params, bundle
     free(torch)
-    part("granite", "(b) granite-moe-1b-a400m at tp2", sharded_granite)
+    part("granite", "(b) granite-moe-1b-a400m at tp2, then (e) placed on tp2 x dp2",
+         sharded_granite)
     part("long", "(d) the sequence-sharded decode at long_500k", sharded_long)
     out["wall_s"] = time.perf_counter() - t0
     log(f"  phase 12 wall time {out['wall_s']:.1f} s: {walls}")
@@ -5779,8 +6066,9 @@ def train_faults(torch, measure):
     swapped order.  Returns each fault's gaps."""
     from repro_torch.core import placement as pl
     from repro_torch.models import sharded_train as st
+    from repro_torch.models import tensor_parallel as tpm
 
-    split, row_sum, gather = st.split_batch, st._row_sum, pl._gather
+    split, row_sum, gather = st.split_batch, tpm.row_sum, pl._gather
 
     def other_rows(b, mesh, axes):
         parts = split(b, mesh, axes)
@@ -5803,7 +6091,7 @@ def train_faults(torch, measure):
     out = {}
     for name, mod, attr, fn in (("a DP shard fed another shard's rows", st, "split_batch",
                                  other_rows),
-                                ("TP shard 1's wo partial dropped", st, "_row_sum", drop_wo),
+                                ("TP shard 1's wo partial dropped", tpm, "row_sum", drop_wo),
                                 ("FSDP pieces gathered in swapped order", pl, "_gather",
                                  swapped)):
         orig = getattr(mod, attr)
@@ -5898,7 +6186,9 @@ def sharded_train_olmo(torch):
                                                 wrong_mu)
         st, ms, gib, metrics = train_steps_timed(torch, step, start, timed_batches())
         timed = metric_gaps(metrics, metrics_one)
-        prof = (profile_train_step(torch, step, st, batch(9)) if DEVICE == "cuda" else None)
+        # tp2 x dp2's profile only: dp2's and tp2's went to pay for phase 12(e)'s time
+        prof = (profile_train_step(torch, step, st, batch(9))
+                if DEVICE == "cuda" and name == "tp2xdp2" else None)
         log(f"  {name}: first step |Δloss|/loss {gaps['loss']:.3g} (gate {TRAIN_LOSS_REL_TOL}), "
             f"|Δ grad norm|/norm {gaps['grad_norm']:.3g} (gate {TRAIN_GNORM_REL_TOL}), "
             f"gradients max over leaves of max|Δg|/max|g| {gaps['grad']:.4g} (gate "
@@ -6904,6 +7194,9 @@ DRYRUN_CALIBRATION = (
 # ``.to`` returns a tensor already in place); the faults 0.56-1.49 (PERF.md)
 DRYRUN_PEAK_REL_TOL = 0.02
 DRYRUN_TRAIN_LAYERS = 1  # (b): phase 13's tp2 x dp2 cell at this depth (4 trace in 41 s)
+# (b): a serving decode step on placed params (Megatron-parallel, FSDP over
+# 'data') over a cache placed over batch x sequence, tp2 x dp2, 1 layer
+DRYRUN_PLACED_DECODE = ("decode_8k/4", CAPACITY, SLOTS, "decode")
 DRYRUN_PRODUCTION = ("olmo-1b", "decode_32k", 1)  # (c): on the 16 x 16 fake mesh
 
 
@@ -6922,7 +7215,9 @@ def _collective_cells():
     train_cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=DRYRUN_TRAIN_LAYERS)
     return (("tp2xdp2 train", "olmo-1b", _cell_shape(("train_2k/4", TRAIN_SEQ, TRAIN_BATCH,
                                                           "train")), (2, 2), None, train_cfg),
-            ("long_500k x 4 shards", "olmo-1b", "long_500k", (1, 4), 1, None))
+            ("long_500k x 4 shards", "olmo-1b", "long_500k", (1, 4), 1, None),
+            ("tp2xdp2 placed decode", "olmo-1b", _cell_shape(DRYRUN_PLACED_DECODE), (2, 2), 1,
+             None))
 
 
 def dry_trace(torch, arch, shape, mesh_shape, axes, cost_depth=None, cfg=None, accountant=None):
@@ -7105,8 +7400,9 @@ def dryrun_calibration(torch, dry):
 
 def dryrun_collectives(torch, dry):
     """(b): olmo-1b training on tp2 x dp2 (phase 13's cell at
-    DRYRUN_TRAIN_LAYERS layers) and one long_500k layer over 4 sequence
-    shards, every shard on this card: the dry run's collective record
+    DRYRUN_TRAIN_LAYERS layers), one long_500k layer over 4 sequence
+    shards and a placed serving decode step on tp2 x dp2
+    (DRYRUN_PLACED_DECODE), every shard on this card: the dry run's collective record
     equals the real run's entry for entry, its peak of the sum over devices
     lies within DRYRUN_PEAK_REL_TOL of the card's peak, and the decode
     moves only O(B·Hq·D) partial outputs between shards: its all-reduces
@@ -7457,6 +7753,8 @@ def main() -> int:
                 **{m: p12["olmo"][m]["launches"][name] for m, _, _ in SHARD_MESHES},
                 "granite_tp2": p12["granite"]["launches"][name],
                 "stream_dp2": p12["stream"]["launches"][name],
+                "placed_tp2xdp2": p12["placed"]["launches"][name],
+                "placed_granite_tp2xdp2": p12["granite"]["placed"]["launches"][name],
             }
             # phase 13(e): the model trained on the meshes, served on tp2
             row["launches_sharded_train"] = p13["serve"]["launches"][name]

@@ -197,6 +197,19 @@ def all_gather(xs: Sequence[torch.Tensor], dim: int) -> list[torch.Tensor]:
                      ("reduce-scatter", _nbytes(xs[0])))
 
 
+def all_to_all(xs: Sequence[torch.Tensor], split_dim: int, cat_dim: int) -> list[torch.Tensor]:
+    """Tiled all-to-all (``lax.all_to_all(..., tiled=True)``): shard j gets
+    block j of every shard's tensor split evenly along ``split_dim``,
+    joined along ``cat_dim`` in shard order, on its own device."""
+    n = len(xs)
+    with _wired():
+        blocks = [x.chunk(n, dim=split_dim) for x in xs]
+        outs = [torch.cat([move(blocks[i][j], xs[j].device) for i in range(n)], dim=cat_dim)
+                for j in range(n)]
+    nb = _nbytes(xs[0])
+    return _recorded("all-to-all", nb, n, [x.device for x in xs], outs, ("all-to-all", nb))
+
+
 def pmean(xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """Mean over one axis group (the psum over the shard count), on every
     shard."""

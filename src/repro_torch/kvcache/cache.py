@@ -50,21 +50,23 @@ def init_layer_cache(
     cfg: PolicyConfig | None,
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cuda",
+    zeros=torch.zeros,
 ) -> dict[str, Any]:
     """Stacked [L, B, S, Hkv, D] K/V slabs (+ the fier side-car or the
-    quest page metadata)."""
+    quest page metadata).  ``zeros(shape, dtype=, device=)`` makes each
+    leaf (a placed prefill passes one that only records the shape)."""
     if cfg is not None and cfg.kind == "fier":
         _check_capacity(capacity, cfg.group)
     elif cfg is not None and cfg.kind == "quest" and capacity % cfg.page:
         raise ValueError(f"capacity {capacity} not divisible by quest page {cfg.page}")
     shape = (n_layers, B, capacity, n_kv, d_head)
     kv = dict(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=zeros(shape, dtype=dtype, device=device),
+        v=zeros(shape, dtype=dtype, device=device),
     )
     if cfg is not None and cfg.kind == "fier":
         g = cfg.group
-        side = lambda n, dt: torch.zeros(
+        side = lambda n, dt: zeros(
             (n_layers, B, n, n_kv, d_head), dtype=dt, device=device
         )
         kv["meta"] = QuantizedKeys(
@@ -75,7 +77,7 @@ def init_layer_cache(
         )
     elif cfg is not None and cfg.kind == "quest":
         L = cfg.page
-        pages = lambda: torch.zeros(
+        pages = lambda: zeros(
             (n_layers, B, capacity // L, n_kv, d_head), dtype=torch.bfloat16, device=device
         )
         kv["meta"] = PageMeta(pages(), pages(), L)

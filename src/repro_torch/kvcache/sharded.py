@@ -63,6 +63,7 @@ __all__ = [
     "ShardedPool",
     "localize_block_table",
     "shard_cache",
+    "shard_decode_step",
     "sharded_paged_decode_step",
 ]
 
@@ -220,6 +221,17 @@ class ShardedPool:
                 v = self._heads(value, t, ba + 2).index_select(ba, sel.to(value.device))
                 part.index_copy_(ba, lid_p, v.to(part.device, part.dtype))
 
+    def write_heads(self, ids, t: int, value: torch.Tensor) -> None:
+        """Blocks ``ids`` (1-D) of TP shard ``t``'s heads ← ``value``
+        (``read(ids)``'s shape with that shard's heads only): a placed
+        prefill's head-split K/V, each piece into its own part."""
+        ba = self.block_axis
+        ids = torch.as_tensor(ids, dtype=torch.int64).reshape(-1)
+        for d, sel, lid in self._by_shard(ids):
+            part = self.parts[d][t]
+            v = value.index_select(ba, sel.to(value.device))
+            part.index_copy_(ba, lid.to(part.device), v.to(part.device, part.dtype))
+
     def write_rows(self, phys, offs, rows: torch.Tensor) -> None:
         """Token rows: block ``phys[i]``, offset ``offs[i]`` ← ``rows[i]``
         ([n, H, ...]) on one layer's leaf."""
@@ -324,25 +336,21 @@ def sharded_paged_decode_step(
     plan,
     spec: ShardSpec,
 ) -> torch.Tensor:
-    """One decode step of one layer on the mesh-sharded paged pool.
+    """One decode step of one layer on the mesh-sharded paged pool, for
+    params on one device (unplaced): ``shard_decode_step`` on every shard,
+    each handed its slots' rows and its KV heads' columns of the whole q and
+    new K/V.  The shards' outputs come back to the engine's device and
+    concatenate along the head axis (TP) and the slot axis (DP) in shard
+    order; the caller's output projection then runs on the whole [B, Hq·D]
+    row, as on one device (a per-shard partial product summed across
+    shards would change the reduction order).  Returns out [B, Hq, D].
 
-    Each shard appends its slots' new K/V (and side-car group) to its own
-    pool part, in place, and runs the plan's backend over its local heads
-    and slots — the ordinary single-device ``decode_attention`` on the
-    local views, with the plan re-built shard-free.  The shards' outputs
-    come back to the engine's device and concatenate along the head axis
-    (TP) and the slot axis (DP) in shard order; the caller's output
-    projection then runs on the whole [B, Hq·D] row, as on one device (a
-    per-shard partial product summed across shards would change the
-    reduction order).  Returns out [B, Hq, D].
-
-    The kernels size their split over the card from the number of (batch,
-    kv-head) rows (``attend_plan`` / ``retrieval_plan``), and a shard has
-    fewer rows than the unsharded call; a different split sums K4's partial
-    softmax in another order.  So the shard-free plan carries
-    ``plan_rows`` = the unsharded call's B·Hkv, and every shard launches
-    with the split the single-device step takes: the sharded step equals it
-    bit for bit."""
+    Placed params (``core.placement.place_tree`` by
+    ``launch.sharding.param_shardings``) take the Megatron route instead
+    (``models/placed_serving.py``): each (DP, TP) shard projects its own
+    slots' rows with its own column blocks of wq/wk/wv, which are exactly
+    its KV heads, calls ``shard_decode_step`` on inputs it made itself, and
+    multiplies by its own rows of wo before a psum over the TP shards."""
     B, Hq, D = q.shape
     n_dp, n_tp = spec.n_dp, spec.n_tp
     Hkv = k_pool.shape[2]
@@ -350,7 +358,6 @@ def sharded_paged_decode_step(
         raise ValueError(f"{B} slots not divisible by {n_dp} DP shards")
     if Hkv % n_tp:
         raise ValueError(f"n_kv_heads {Hkv} not divisible by TP degree {n_tp}")
-    plan_inner = dataclasses.replace(plan, shard=None, plan_rows=B * Hkv)
     if k_new.dim() == 4:
         k_new, v_new = k_new[:, 0], v_new[:, 0]
     b_loc, h_loc, hq_loc = B // n_dp, Hkv // n_tp, Hq // n_tp
@@ -361,21 +368,59 @@ def sharded_paged_decode_step(
         for t in range(n_tp):
             dev = spec.device(d, t)
             kv_h, q_h = slice(t * h_loc, (t + 1) * h_loc), slice(t * hq_loc, (t + 1) * hq_loc)
-            len_l = length[rows].to(dev)
-            bt_l = localize_block_table(block_table[rows].to(dev), d, k_pool.n_local, n_dp)
-            k_l, v_l = k_pool.parts[d][t], v_pool.parts[d][t]
-            paged_append_kv(k_l, v_l, k_new[rows, kv_h].to(dev), v_new[rows, kv_h].to(dev),
-                            bt_l, len_l)
-            meta_l = None
-            if meta is not None:
-                meta_l = dataclasses.replace(
-                    meta, **{f: getattr(meta, f).parts[d][t] for f in meta.FIELDS})
-                paged_append_token_metadata(meta_l, k_l, bt_l, len_l, pol)
-            view = core_policy.CacheView.paged(k_l, v_l, meta_l, bt_l, len_l + 1)
-            out = core_policy.decode_attention(q[rows, q_h].to(dev), view, plan_inner)
+            out = shard_decode_step(d, t, q[rows, q_h].to(dev), k_new[rows, kv_h].to(dev),
+                                    v_new[rows, kv_h].to(dev), k_pool, v_pool, meta,
+                                    block_table[rows], length[rows], pol, plan, B * Hkv)
             heads_out.append(out.to(q.device))
         rows_out.append(torch.cat(heads_out, dim=1))
     return torch.cat(rows_out, dim=0)
+
+
+def shard_decode_step(
+    d: int,
+    t: int,
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_pool: ShardedPool,
+    v_pool: ShardedPool,
+    meta: Any,
+    block_table: torch.Tensor,
+    length: torch.Tensor,
+    pol,
+    plan,
+    plan_rows: int,
+) -> torch.Tensor:
+    """The (DP ``d``, TP ``t``) shard's share of one layer's decode step:
+    q [b_loc, Hq/n_tp, D] and k_new/v_new [b_loc, Hkv/n_tp, D] are its
+    slots' rows and its heads, on its device; block_table [b_loc, n_btab]
+    (global ids) and length [b_loc] its slots'.  It appends the new K/V
+    (and side-car group) to its own pool part, in place, and runs the
+    plan's backend over its part — the ordinary single-device
+    ``decode_attention`` on the local views, with the plan re-built
+    shard-free.  Returns out [b_loc, Hq/n_tp, D] on the shard's device.
+
+    The kernels size their split over the card from the number of (batch,
+    kv-head) rows (``attend_plan`` / ``retrieval_plan``), and a shard has
+    fewer rows than the unsharded call; a different split sums K4's partial
+    softmax in another order.  So the shard-free plan carries
+    ``plan_rows`` = the unsharded call's B·Hkv, and every shard launches
+    with the split the single-device step takes: the unplaced sharded step
+    equals it bit for bit."""
+    spec = k_pool.spec
+    plan_inner = dataclasses.replace(plan, shard=None, plan_rows=plan_rows)
+    dev = spec.device(d, t)
+    len_l = length.to(dev)
+    bt_l = localize_block_table(block_table.to(dev), d, k_pool.n_local, spec.n_dp)
+    k_l, v_l = k_pool.parts[d][t], v_pool.parts[d][t]
+    paged_append_kv(k_l, v_l, k_new, v_new, bt_l, len_l)
+    meta_l = None
+    if meta is not None:
+        meta_l = dataclasses.replace(
+            meta, **{f: getattr(meta, f).parts[d][t] for f in meta.FIELDS})
+        paged_append_token_metadata(meta_l, k_l, bt_l, len_l, pol)
+    view = core_policy.CacheView.paged(k_l, v_l, meta_l, bt_l, len_l + 1)
+    return core_policy.decode_attention(q, view, plan_inner)
 
 
 # ---------------------------------------------------------- host allocator

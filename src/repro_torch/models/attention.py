@@ -131,26 +131,46 @@ def decode_self_attention(
     *,
     block_table: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One-token decode self-attention.
-
-    x: [B, 1, d]; layer_cache: {k, v[, meta]} of one layer (views into the
-    stacked cache, updated in place); length: [B] current lengths (the new
-    token is written at ``length``).  ``block_table`` [B, n_btab] switches
-    the layer to the paged cache: layer_cache holds the block-pool slabs
-    [N, bs, Hkv, D] (+ paged side-car) shared by all requests, the append
-    and the metadata refresh write through the table, and attention
-    dispatches through a paged ``CacheView`` — on every shard of the mesh
-    when the plan carries a sharding spec (the pool leaves are then
-    ``kvcache.sharded.ShardedPool``s).  With ``dcfg.seq_axes`` the slab
-    cache is sequence-sharded over those mesh axes, placed by
-    ``launch.sharding.cache_shardings`` (its leaves ``Sharded``): the
-    append, the side-car refresh and the attention run per shard on its
-    pieces, merged by the LSE combine (``core.distributed``).  Returns out [B, 1, d]; the output
-    projection always runs on the whole [B, Hq·D] row.
-    """
+    """One-token decode self-attention: the projections, ``decode_attend``
+    and the output projection on the whole [B, Hq·D] row.  x: [B, 1, d];
+    returns out [B, 1, d].  (The placed serving step,
+    ``models/transformer.py``, projects per model shard and calls
+    ``decode_attend`` or ``kvcache.sharded.shard_decode_step`` itself.)"""
     B = x.shape[0]
     q, k_new, v_new = qkv_proj(p, x, cfg, positions=length[:, None])
-    qh = q.reshape(B, cfg.n_heads, cfg.d_head)
+    out = decode_attend(q.reshape(B, cfg.n_heads, cfg.d_head), k_new, v_new, layer_cache,
+                        length, plan, dcfg, block_table=block_table)
+    return out.reshape(B, 1, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)
+
+
+def decode_attend(
+    qh: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    layer_cache: dict,
+    length: torch.Tensor,
+    plan: DecodePlan,
+    dcfg: DistConfig | None = None,
+    *,
+    block_table: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The new token's attention over one layer's cache.
+
+    qh: [B, Hq, D]; k_new/v_new [B, 1, Hkv, D]; layer_cache: {k, v[, meta]}
+    of one layer (views into the stacked cache, updated in place); length:
+    [B] current lengths (the new token is written at ``length``).
+    ``block_table`` [B, n_btab] switches the layer to the paged cache:
+    layer_cache holds the block-pool slabs [N, bs, Hkv, D] (+ paged
+    side-car) shared by all requests, the append and the metadata refresh
+    write through the table, and attention dispatches through a paged
+    ``CacheView`` — on every shard of the mesh when the plan carries a
+    sharding spec (the pool leaves are then ``kvcache.sharded.ShardedPool``s).
+    With ``dcfg.seq_axes`` the slab cache is sequence-sharded over those
+    mesh axes, placed by ``launch.sharding.cache_shardings`` (its leaves
+    ``Sharded``): the append, the side-car refresh and the attention run per
+    shard on its pieces, merged by the LSE combine (``core.distributed``).
+    Returns out [B, Hq, D].
+    """
     meta = layer_cache.get("meta")
     seq_sharded = dcfg is not None and bool(dcfg.seq_axes)
     if block_table is not None and seq_sharded:
@@ -160,11 +180,11 @@ def decode_self_attention(
             "(Engine.build(mesh=...) → kvcache.sharded)"
         )
     if block_table is not None and plan.shard is not None:
-        out = kvsharded.sharded_paged_decode_step(
+        return kvsharded.sharded_paged_decode_step(
             qh, k_new, v_new, layer_cache["k"], layer_cache["v"], meta,
             block_table, length, plan.policy, plan, plan.shard,
         )
-    elif block_table is not None:
+    if block_table is not None:
         k, v = kvpaged.paged_append_kv(
             layer_cache["k"], layer_cache["v"], k_new, v_new, block_table, length
         )
@@ -172,22 +192,20 @@ def decode_self_attention(
             meta = kvpaged.paged_append_token_metadata(
                 meta, k, block_table, length, plan.policy
             )
-        out = core_policy.decode_attention(
+        return core_policy.decode_attention(
             qh, CacheView.paged(k, v, meta, block_table, length + 1), plan)
-    elif seq_sharded or isinstance(layer_cache["k"], Sharded):
+    if seq_sharded or isinstance(layer_cache["k"], Sharded):
         if not (seq_sharded and isinstance(layer_cache["k"], Sharded)):
             raise ValueError("the sequence-sharded decode takes DistConfig.seq_axes and a "
                              "cache placed by launch.sharding.cache_shardings")
-        out = _sharded_decode_step(
+        return _sharded_decode_step(
             qh, k_new, v_new, layer_cache["k"], layer_cache["v"], meta, length,
             plan.policy, dcfg,
         )
-    else:
-        k, v = kvcache.append_kv(layer_cache["k"], layer_cache["v"], k_new, v_new, length)
-        if meta is not None:
-            meta = kvcache.append_token_metadata(meta, k, length, plan.policy)
-        out = core_policy.decode_attention(qh, CacheView.slab(k, v, meta, length + 1), plan)
-    return out.reshape(B, 1, cfg.n_heads * cfg.d_head) @ p["wo"].to(x.dtype)
+    k, v = kvcache.append_kv(layer_cache["k"], layer_cache["v"], k_new, v_new, length)
+    if meta is not None:
+        meta = kvcache.append_token_metadata(meta, k, length, plan.policy)
+    return core_policy.decode_attention(qh, CacheView.slab(k, v, meta, length + 1), plan)
 
 
 def _sharded_decode_step(
@@ -202,15 +220,23 @@ def _sharded_decode_step(
     dcfg: DistConfig,
 ) -> torch.Tensor:
     """Sequence-sharded slab decode over a cache placed by
-    ``launch.sharding.cache_shardings``: K, V [B, S, Hkv, D] and the FIER
-    side-car split into ``dcfg.batch_axes`` row blocks × ``seq_axes``
-    position blocks, each piece on its shard's device from ``init_cache``
-    on.  Per shard, the append and the side-car refresh run on its own
-    pieces where they lie, then distributed FIER (or full) attention with
-    the LSE merge.  Only q, the new K/V row and the lengths reach the
-    shards, and the O(Hq·D) partial outputs leave them (plus the small
-    candidate all-gather in mode 'exact'); no slab range moves.  Returns
-    out [B, Hq, D] on q's device."""
+    ``launch.sharding.cache_shardings``: ``sharded_decode_rows`` for each
+    batch shard of q [B, Hq, D], the results joined on q's device."""
+    n_b = check_sequence_sharded(K, V, dcfg)
+    B_loc = K.shape[0] // n_b
+    out = torch.empty_like(q)
+    for bi in range(n_b):
+        rows = slice(bi * B_loc, (bi + 1) * B_loc)
+        res = sharded_decode_rows(bi, q[rows], k_new[rows], v_new[rows], K, V, meta,
+                                  length[rows], pol, dcfg)
+        out[rows] = res.to(out.device)
+    return out
+
+
+def check_sequence_sharded(K: Sharded, V: Sharded, dcfg: DistConfig) -> int:
+    """The number of batch shards of a slab placed by
+    ``launch.sharding.cache_shardings`` over ``dcfg``'s batch × sequence
+    axes; raises when the slab is split otherwise."""
     mesh, axes, baxes = dcfg.mesh, tuple(dcfg.seq_axes), tuple(dcfg.batch_axes)
     n_shards = math.prod(mesh.shape[a] for a in axes)
     n_b = math.prod(mesh.shape[a] for a in baxes)
@@ -219,45 +245,70 @@ def _sharded_decode_step(
         raise ValueError(f"the slab [{B}, {S}] is split {K.grid}, not into {n_b} row x "
                          f"{n_shards} position blocks over {baxes} x {axes}: place the cache "
                          f"with launch.sharding.cache_shardings")
-    S_loc, B_loc = S // n_shards, B // n_b
+    return n_b
+
+
+def sharded_decode_rows(
+    bi: int,
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    K: Sharded,
+    V: Sharded,
+    meta: Any,
+    length: torch.Tensor,
+    pol: PolicyConfig,
+    dcfg: DistConfig,
+) -> torch.Tensor:
+    """Batch shard ``bi``'s share of the sequence-sharded slab decode: K, V
+    [B, S, Hkv, D] and the FIER side-car split into ``dcfg.batch_axes`` row
+    blocks × ``seq_axes`` position blocks, each piece on its shard's device
+    from ``init_cache`` on; q [B_loc, Hq, D], k_new/v_new [B_loc(, 1), Hkv,
+    D] and length [B_loc] are the batch shard's rows.  Per shard, the append
+    and the side-car refresh run on its own pieces where they lie, then
+    distributed FIER (or full) attention with the LSE merge.  Only q, the
+    new K/V row and the lengths reach the shards, and the O(Hq·D) partial
+    outputs leave them (plus the small candidate all-gather in mode
+    'exact'); no slab range moves.  Returns out [B_loc, Hq, D] on the first
+    sequence shard's device."""
+    axes = tuple(dcfg.seq_axes)
+    n_shards = math.prod(dcfg.mesh.shape[a] for a in axes)
+    S_loc = K.shape[1] // n_shards
     if k_new.dim() == 4:
         k_new, v_new = k_new[:, 0], v_new[:, 0]
+    B_loc = q.shape[0]
     fier = pol.kind == "fier" and meta is not None
-    out = torch.empty_like(q)
-    for bi in range(n_b):
-        rows = slice(bi * B_loc, (bi + 1) * B_loc)
-        group = {n: [] for n in ("q", "K", "V", "qk", "len", "start")}
-        for si in range(n_shards):
-            block = (bi, si, 0, 0)
-            K_l, V_l = K.piece(block), V.piece(block)
-            dev = K_l.device
-            start = si * S_loc
-            len_l = length[rows].to(dev)
-            # shard-local append: only the owning shard commits the write; the
-            # select runs on the one row, never on the slab
-            rel = len_l.to(torch.int64) - start
-            owns = (rel >= 0) & (rel < S_loc)
-            wpos = torch.clamp(rel, 0, S_loc - 1)
-            r = torch.arange(B_loc, device=dev)
-            for slab, new in ((K_l, k_new), (V_l, v_new)):
-                new = new[rows].to(dev, slab.dtype)
-                slab[r, wpos] = torch.where(owns[:, None, None], new, slab[r, wpos])
-            qk_l = None
-            if fier:
-                qk_l = dataclasses.replace(meta, **{f: getattr(meta, f).piece(block)
-                                                    for f in meta.FIELDS})
-                kvcache.append_token_metadata(qk_l, K_l, wpos, pol, commit_mask=owns)
-            group["q"].append(q[rows].to(dev))
-            group["K"].append(K_l), group["V"].append(V_l), group["qk"].append(qk_l)
-            group["len"].append(len_l + 1), group["start"].append(start)
+    group = {n: [] for n in ("q", "K", "V", "qk", "len", "start")}
+    for si in range(n_shards):
+        block = (bi, si, 0, 0)
+        K_l, V_l = K.piece(block), V.piece(block)
+        dev = K_l.device
+        start = si * S_loc
+        len_l = length.to(dev)
+        # shard-local append: only the owning shard commits the write; the
+        # select runs on the one row, never on the slab
+        rel = len_l.to(torch.int64) - start
+        owns = (rel >= 0) & (rel < S_loc)
+        wpos = torch.clamp(rel, 0, S_loc - 1)
+        r = torch.arange(B_loc, device=dev)
+        for slab, new in ((K_l, k_new), (V_l, v_new)):
+            new = new.to(dev, slab.dtype)
+            slab[r, wpos] = torch.where(owns[:, None, None], new, slab[r, wpos])
+        qk_l = None
         if fier:
-            res = dist.fier_decode_sharded(
-                group["q"], group["K"], group["V"], group["qk"], pol.budget, group["len"],
-                shard_start=group["start"], n_shards=n_shards,
-                group_reduce=pol.group_reduce, mode=dcfg.mode,
-            )
-        else:
-            res = dist.full_decode_sharded(group["q"], group["K"], group["V"], group["len"],
-                                           shard_start=group["start"])
-        out[rows] = res[0].to(out.device)
-    return out
+            qk_l = dataclasses.replace(meta, **{f: getattr(meta, f).piece(block)
+                                                for f in meta.FIELDS})
+            kvcache.append_token_metadata(qk_l, K_l, wpos, pol, commit_mask=owns)
+        group["q"].append(q.to(dev))
+        group["K"].append(K_l), group["V"].append(V_l), group["qk"].append(qk_l)
+        group["len"].append(len_l + 1), group["start"].append(start)
+    if fier:
+        res = dist.fier_decode_sharded(
+            group["q"], group["K"], group["V"], group["qk"], pol.budget, group["len"],
+            shard_start=group["start"], n_shards=n_shards,
+            group_reduce=pol.group_reduce, mode=dcfg.mode,
+        )
+    else:
+        res = dist.full_decode_sharded(group["q"], group["K"], group["V"], group["len"],
+                                       shard_start=group["start"])
+    return res[0]

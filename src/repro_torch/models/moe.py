@@ -104,17 +104,21 @@ def moe_apply(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor,
 
 
 def moe_apply_masked(
-    x: torch.Tensor, p: dict, cfg: ModelConfig
+    x: torch.Tensor, p: dict, cfg: ModelConfig, experts: slice | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense-masked MoE for decode (T ≈ batch): every expert on every
     token.  The reference's three-operand ``einsum("tef,efd,te->td")`` is
     taken as (h1 · gate), rounded to x's dtype, then one contraction over
     (e, f) with f32 accumulation: [T, E·ff] @ [E·ff, d], which reads w2
-    once."""
+    once.  ``experts`` (an expert shard's range; ``p``'s w1/w3/w2 then
+    hold those experts only) gives that shard's partial output, routed
+    over every expert: the expert shards' partials sum to the whole."""
     T, d = x.shape
     E, k = cfg.n_experts, cfg.topk_experts
     logits, eidx, gates = _route(x, p, k)
     g_full = (F.one_hot(eidx, E).to(torch.float32) * gates[..., None]).sum(dim=1)  # [T, E]
+    if experts is not None:
+        g_full = g_full[:, experts]
     w1, w3, w2 = (p[n].to(x.dtype) for n in ("w1", "w3", "w2"))
     h1 = silu(torch.matmul(x, w1)) * torch.matmul(x, w3)  # [E, T, ff]
     h1g = h1.permute(1, 0, 2) * g_full.to(x.dtype)[..., None]  # [T, E, ff]

@@ -16,6 +16,9 @@ FSDP reduce-scatter), and a psum hands every shard the whole gradient.
 * The loss is the global one: psum(NLL sums) / psum(mask sums).
 * FSDP: a layer's pieces are gathered inside its remat scope, so at most
   one layer's weights sit gathered above the stored pieces.
+* The readers of TP pieces (``Shards``, ``Views``, ``row_sum``,
+  ``vocab_parallel_embed``) live in ``models/tensor_parallel.py``, shared
+  with the placed serving steps.
 
 The transformer families (dense, moe, vlm) run Megatron TP over 'model'
 (:func:`transformer_mesh_loss`): column-parallel wq/wk/wv/bq/bk/bv/w1/w3
@@ -46,94 +49,25 @@ reference leaves that resharding to GSPMD (``repro/launch/sharding.py:
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core import distributed as dist
-from repro_torch.core.placement import AtUse, as_sharded, axis_coords, split_batch
+from repro_torch.core.placement import AtUse, as_sharded, split_batch
 from repro_torch.launch.mesh import batch_axes
-from repro_torch.launch.sharding import param_pspec
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import tensor_parallel as tp
+from .tensor_parallel import Shards, Views
 from .layers import apply_norm, mlp_apply
 from .transformer import (_DTYPES, MOE_AUX_COEF, _vocab_col_mask, ce_chunk_size,
                           checkpointed, chunked_ce_sum, unstack)
 
 # the stacked layer subtrees of each family's params (gathered per layer)
 STACKED = ("layers", "mamba", "mamba_tail", "enc_layers", "dec_layers")
-
-
-class Shards:
-    """The (data shard, model shard) grid of a mesh: the data shards run
-    over ``batch_axes`` (row-major), the model shards over 'model'."""
-
-    def __init__(self, mesh, b_axes):
-        self.mesh = mesh
-        self.b_axes = tuple(a for a in b_axes if a in mesh.shape)
-        other = set(mesh.axis_names) - set(self.b_axes) - {"model"}
-        if other:
-            raise ValueError(f"mesh axes {sorted(other)} are neither batch axes nor 'model'")
-        self.n_dp = math.prod(mesh.shape[a] for a in self.b_axes)
-        self.n_tp = mesh.shape.get("model", 1)
-
-    def coords(self, t: int, m: int = 0) -> dict[str, int]:
-        c = axis_coords(self.mesh, self.b_axes, t)
-        if "model" in self.mesh.shape:
-            c["model"] = m
-        return c
-
-    def dev(self, t: int, m: int = 0) -> torch.device:
-        return self.mesh.device_at(self.coords(t, m))
-
-
-def _tp_keep(path: str, ndim: int) -> dict[int, tuple[str, ...]]:
-    """The dims TP splits over 'model' for a leaf at ``path`` (the rules of
-    ``param_pspec`` without FSDP)."""
-    return {d: ("model",) for d, a in enumerate(param_pspec(path, ndim, None)) if a == "model"}
-
-
-class _Views:
-    """What each shard computes with, gathered once per (leaf, shard)
-    within one call: per shard, not per device, so the collectives a step
-    records do not depend on where the shards sit."""
-
-    def __init__(self, shards: Shards):
-        self.shards, self.memo = shards, {}
-
-    def tp(self, x, path: str, t: int, m: int) -> torch.Tensor:
-        dev = self.shards.dev(t, m)
-        key = (id(x), t, m)
-        if key not in self.memo:
-            xs = as_sharded(x, self.shards.mesh)
-            self.memo[key] = xs.view(self.shards.coords(t, m), _tp_keep(path, xs.ndim), dev)
-        return self.memo[key]
-
-    def tree(self, tree: dict, prefix: str, t: int, m: int) -> dict:
-        return {k: self.tree(v, f"{prefix}/{k}", t, m) if isinstance(v, dict)
-                else self.tp(v, f"{prefix}/{k}", t, m) for k, v in tree.items()}
-
-
-def _row_sum(parts: list[torch.Tensor], name: str) -> torch.Tensor:
-    """A row-parallel product's psum over the model shards (``name``: wo or
-    w2), in f32, on the first shard's device."""
-    return dist.psum([x.to(torch.float32) for x in parts])[0]
-
-
-def _vocab_parallel_embed(Es: list[torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of a vocab-split embedding: each model shard looks up the tokens
-    in its own rows (zeros elsewhere) and a psum adds them, exactly (one
-    non-zero term).  f32, on the first model shard's device."""
-    Vl = Es[0].shape[0]
-    parts = []
-    for m, E in enumerate(Es):
-        local = tokens.to(E.device) - m * Vl
-        ok = (local >= 0) & (local < Vl)
-        parts.append(torch.where(ok[..., None], E[local.clamp(0, Vl - 1)], 0.0))
-    return dist.psum(parts)[0]
 
 
 def _vp_ce_chunk(hs, Ws, cms, ts, ms):
@@ -208,9 +142,9 @@ def transformer_mesh_loss(cfg: ModelConfig, dcfg, *, remat: bool = True,
         """Each data shard's FFN output (``transformer._ffn_block``'s
         counterpart over the shards) and the layer's MoE aux."""
         if not is_moe:
-            return [_row_sum([mlp_apply(xn.to(sh.dev(t, m)), views.tree(lp["mlp"], "layers/mlp",
-                                                                        t, m), cfg.act)
-                              for m in range(n_tp)], "w2").to(cdt)
+            return [tp.row_sum([mlp_apply(xn.to(sh.dev(t, m)),
+                                          views.tree(lp["mlp"], "layers/mlp", t, m), cfg.act)
+                                for m in range(n_tp)], "w2").to(cdt)
                     for t, xn in enumerate(xns)], None
         flat = [xn.reshape(-1, cfg.d_model) for xn in xns]
         if dcfg.ep_axis is not None:
@@ -226,13 +160,13 @@ def transformer_mesh_loss(cfg: ModelConfig, dcfg, *, remat: bool = True,
         return [y.reshape(xn.shape) for y, xn in zip(ys, xns)], aux
 
     def _layer(hs, lp):
-        views = _Views(sh)
+        views = Views(sh)
         rs, xns = [], []
         for t, h in enumerate(hs):
             xn = apply_norm(h, views.tree(lp["norm1"], "layers/norm1", t, 0), cfg.norm)
-            a = _row_sum([attn.attention_train(views.tree(lp["attn"], "layers/attn", t, m),
-                                               xn.to(sh.dev(t, m)), cfg_tp)
-                          for m in range(n_tp)], "wo").to(cdt)
+            a = tp.row_sum([attn.attention_train(views.tree(lp["attn"], "layers/attn", t, m),
+                                                  xn.to(sh.dev(t, m)), cfg_tp)
+                            for m in range(n_tp)], "wo").to(cdt)
             r = h.to(torch.float32) + a.to(torch.float32)
             rs.append(r)
             xns.append(apply_norm(r, views.tree(lp["norm2"], "layers/norm2", t, 0),
@@ -249,12 +183,12 @@ def transformer_mesh_loss(cfg: ModelConfig, dcfg, *, remat: bool = True,
         if undivided:
             raise ValueError(f"{', '.join(undivided)} does not divide over {n_tp} model "
                              f"shards")
-        views = _Views(sh)
+        views = Views(sh)
         E = params["embed"]
         slices = split_batch(batch, mesh, sh.b_axes)
         hs = []
         for t, b in enumerate(slices):
-            h = _vocab_parallel_embed([views.tp(E, "embed", t, m) for m in range(n_tp)],
+            h = tp.vocab_parallel_embed([views.tp(E, "embed", t, m) for m in range(n_tp)],
                                       b["tokens"]).to(cdt)
             if b.get("vision_embeds") is not None:
                 h = torch.cat([b["vision_embeds"].to(h.device, cdt), h], dim=1)
@@ -321,5 +255,5 @@ def data_parallel_loss(bundle, dcfg):
     return train_loss
 
 
-__all__ = ["STACKED", "Shards", "data_parallel_loss", "transformer_mesh_loss",
+__all__ = ["STACKED", "data_parallel_loss", "transformer_mesh_loss",
            "vocab_parallel_ce_sum"]

@@ -25,6 +25,10 @@ of a vision-language model: prefill takes precomputed vision embeddings
   its ``shard`` spec rides on both plans of a paged layout (the front
   layers share the sharded pool), and its ``seq_axes`` shard the slab
   cache's sequence in the layers past ``skip``.
+* Params placed by ``launch.sharding.param_shardings`` (``core.placement.
+  place_tree``) run prefill, chunked prefill and decode Megatron-parallel
+  over their mesh (``models/placed_serving.py``); a plain tree runs the
+  one-device code below.
 * The vocab is padded to a multiple of 256; padded columns get −1e30.
 """
 from __future__ import annotations
@@ -39,12 +43,12 @@ from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.core.policy import DecodePlan, PolicyConfig, build_metadata
 from repro_torch.kvcache import cache as kvcache
 from repro_torch.kvcache import paged as kvpaged
-from repro_torch.core.placement import (AtUse, Sharded, at_home, home_params, map_leaf,
-                                         resolve_at_use)
+from repro_torch.core.placement import AtUse, Sharded, at_home, map_leaf, resolve_at_use
 
 from . import attention as attn
 from . import moe as moe_mod
 from .layers import apply_norm, flash_attention, init_embedding, init_mlp, init_norm, mlp_apply
+from .tensor_parallel import placed_mesh
 
 FAMILIES = ("dense", "moe", "vlm")  # what build() takes
 MOE_AUX_COEF = 0.01
@@ -169,23 +173,32 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         return dict(params, layers=layers)
 
     # ------------------------------------------------------------- helpers
-    def _ffn_block(lp, h, attn_out, decode: bool = False):
+    def _ffn_block(lp, h, attn_out, decode: bool = False, ep: bool = False):
         """h + attn_out, then the FFN sub-block on it; returns (h, the MoE
         aux loss or None).  The norm reads the f32 residual sum, not its
         bf16 rounding: compiled, the reference's layer
         (repro/models/transformer.py:185-196, :391-400) elides that round
         trip (XLA's excess precision), and the port mirrors it.  MoE
         dispatches as the reference's ``_ffn`` (:129-145): the dense-masked
-        experts in decode, the capacity scatter over every position of the
-        call (prompt padding included) in training, prefill and chunked
-        prefill."""
+        experts in decode; in prefill and chunked prefill (``ep``) the
+        expert-parallel ``moe_apply_ep`` over the mesh when
+        ``dcfg.ep_axis`` is set (capacity per token shard over
+        ``dcfg.batch_axes``); else, and in training, the capacity scatter
+        over every position of the call (prompt padding included)."""
         r = h.to(torch.float32) + attn_out.to(torch.float32)
         xn = apply_norm(r, lp["norm2"], cfg.norm).to(cdt)
         if not is_moe:
             return r.to(cdt) + mlp_apply(xn, lp["mlp"], cfg.act), None
-        apply = moe_mod.moe_apply_masked if decode else moe_mod.moe_apply
-        y, aux = apply(xn.reshape(-1, cfg.d_model), lp["moe"], cfg)
-        return r.to(cdt) + y.reshape(xn.shape), aux
+        x2 = xn.reshape(-1, cfg.d_model)
+        if decode:
+            y, aux = moe_mod.moe_apply_masked(x2, lp["moe"], cfg)
+        elif ep and dcfg is not None and dcfg.ep_axis is not None:
+            y, aux = moe_mod.moe_apply_ep(x2, lp["moe"], cfg, mesh=dcfg.mesh,
+                                          token_axes=tuple(dcfg.batch_axes),
+                                          model_axis=dcfg.ep_axis)
+        else:
+            y, aux = moe_mod.moe_apply(x2, lp["moe"], cfg)
+        return r.to(cdt) + y.to(xn.device).reshape(xn.shape), aux
 
     def _head(params):
         return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -231,13 +244,32 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
 
         train_loss = transformer_mesh_loss(cfg, dcfg, remat=remat, loss_chunk=loss_chunk)
 
+    # ------------------------------------------------------- placed params
+    placed_steps = []
+
+    def placed(params):
+        """The Megatron-parallel steps (``models/placed_serving.py``) when
+        ``params`` is a placed tree, else None."""
+        if placed_mesh(params) is None:
+            return None
+        if not placed_steps:
+            from .placed_serving import PlacedSteps
+
+            placed_steps.append(PlacedSteps(cfg, pol, plan, plan_full, dcfg, skip, device_,
+                                            _slab_cache))
+        return placed_steps[0]
+
     # ------------------------------------------------------------- prefill
     def prefill(params, batch, capacity: int | None = None):
         """Returns (last-token logits [B, Vp] f32, filled slab cache).
         ``batch["vision_embeds"]`` [B, n_vision, d], when present, precedes
-        the token embeddings; ``lengths`` then count the vision positions."""
+        the token embeddings; ``lengths`` then count the vision positions.
+        Placed params run Megatron-parallel (``placed_serving``); their
+        cache comes back split over the mesh."""
+        steps = placed(params)
+        if steps is not None:
+            return steps.prefill(params, batch, capacity)
         batch = {k: at_home(v, device_) for k, v in batch.items()}
-        params = home_params(params, device_)
         lengths = batch["lengths"].to(torch.int32)
         h = _embed_inputs(params, batch)  # [B, S, d]
         B, S, _ = h.shape
@@ -246,12 +278,13 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         cache = _slab_cache(B, cap, 0)
         cache["length"] = lengths.clone()
         for l in range(L):
-            lp = tree_map(lambda a: at_home(a, device_, l), params["layers"])
+            lp = _layer_params(params["layers"], l)
             xn = apply_norm(h, lp["norm1"], cfg.norm)
             q, k, v = attn.qkv_proj(lp["attn"], xn, cfg, positions=None)
             o = flash_attention(q, k, v, causal=True, bias_mask=valid)
             h, _ = _ffn_block(
-                lp, h, o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"].to(h.dtype)
+                lp, h, o.reshape(B, S, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"].to(h.dtype),
+                ep=True,
             )
             # K/V zero-padded to capacity, as jnp.pad does at
             # repro/models/transformer.py:192-196 (the slab is zeros beyond S)
@@ -328,6 +361,9 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
         the side-car over the full logical key row, and publishes
         ``length[slot] = total`` and (paged) the table row.  Non-final
         chunks return (None, cache) and leave ``length`` untouched."""
+        steps = placed(params)
+        if steps is not None:
+            return steps.prefill_chunk(params, batch, cache, final=final)
         toks = batch["tokens"]
         start, slot, total = int(batch["start"]), int(batch["slot"]), int(batch["total"])
         table_row = batch.get("table_row")
@@ -363,7 +399,8 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
                 q, Kl, Vl, causal=True, q_offset=start, bias_mask=(pos < start + n)[None]
             )
             h, _ = _ffn_block(
-                lp, h, o.reshape(1, n, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"].to(h.dtype)
+                lp, h, o.reshape(1, n, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"].to(h.dtype),
+                ep=True,
             )
             if not final:
                 continue
@@ -395,13 +432,16 @@ def build(cfg: ModelConfig, pol: PolicyConfig | None = None,
     # -------------------------------------------------------------- decode
     def decode_step(params, token, cache):
         """One token per sequence; the cache is updated in place and
-        returned with ``length + 1``."""
+        returned with ``length + 1``.  Placed params run Megatron-parallel
+        (``placed_serving``)."""
+        steps = placed(params)
+        if steps is not None:
+            return steps.decode_step(params, token, cache)
         length = at_home(cache["length"], device_)
         block_table = cache.get("block_table") if paged else None
-        params = home_params(params, device_)
         h = params["embed"][at_home(token, device_)][:, None, :].to(cdt)
         for l in range(L):
-            lp = tree_map(lambda a: at_home(a, device_, l), params["layers"])
+            lp = _layer_params(params["layers"], l)
             if l < skip:
                 lc, layer_plan = kvcache.layer_cache(cache["front"], l), plan_full
             else:
@@ -452,20 +492,23 @@ def _vocab_col_mask(vocab: int, Vp: int, device) -> torch.Tensor:
 LOGIT_CHUNK_BYTES = 1 << 30
 
 
-def _masked_logits(h: torch.Tensor, W: torch.Tensor, vocab: int, Vp: int) -> torch.Tensor:
-    """f32 logits ``h.f32 @ W.f32`` with the padded columns at −1e30.  An f32
-    head multiplies in one product; a bf16 one (bf16 params) is cast over
-    column chunks of at most LOGIT_CHUNK_BYTES in f32, each just before its
-    product, the last chunk ragged: a whole-matrix f32 copy of command-r's
-    tied [12288, 256000] head would be 12.6 GB a step."""
+def _logits(h: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """f32 logits ``h.f32 @ W.f32``.  An f32 head multiplies in one
+    product; a bf16 one (bf16 params) is cast over column chunks of at most
+    LOGIT_CHUNK_BYTES in f32, each just before its product, the last chunk
+    ragged: a whole-matrix f32 copy of command-r's tied [12288, 256000]
+    head would be 12.6 GB a step."""
     hf = h.to(torch.float32)
     if W.dtype == torch.float32:
-        logits = hf @ W
-    else:
-        n = max(1, LOGIT_CHUNK_BYTES // (4 * W.shape[0]))
-        logits = torch.cat([hf @ W[:, c:c + n].to(torch.float32)
-                            for c in range(0, W.shape[1], n)], dim=-1)
-    return logits + _vocab_col_mask(vocab, Vp, h.device)
+        return hf @ W
+    n = max(1, LOGIT_CHUNK_BYTES // (4 * W.shape[0]))
+    return torch.cat([hf @ W[:, c:c + n].to(torch.float32) for c in range(0, W.shape[1], n)],
+                     dim=-1)
+
+
+def _masked_logits(h: torch.Tensor, W: torch.Tensor, vocab: int, Vp: int) -> torch.Tensor:
+    """``_logits`` with the padded columns at −1e30."""
+    return _logits(h, W) + _vocab_col_mask(vocab, Vp, h.device)
 
 
 def _ce_chunk(hs, W, col_mask, ts, ms):

@@ -41,8 +41,15 @@ parallelism, axes named ``'data'`` slot data parallelism
 slot's blocks come from its home DP shard (``ShardedBlockAllocator``, one
 allocator and prefix trie per shard), prefill runs once unsharded and its
 K/V scatter into the owning shards, and the decode step runs the plan on
-every shard.  The engine's own code stays single-controller: it addresses
-blocks by global id, and the sharded pool leaves route each access.
+every shard.  Params placed on the same mesh
+(``core.placement.place_tree(params, launch.sharding.param_shardings(
+params, mesh, ("data",)))``) serve with their weights resident per shard
+instead: the insert's prefill runs on the slot's DP shard with its heads
+split over 'model' and writes each model shard's heads into its own pool
+part, and every (DP, TP) shard decodes from its own projections
+(``models/placed_serving.py``).  The engine's own code stays
+single-controller: it addresses blocks by global id, and the sharded pool
+leaves route each access.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from collections import Counter, OrderedDict
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.placement import Sharded
 from repro_torch.core.policy import DecodePlan, PolicyConfig
 from repro_torch.core.quantize import QuantizedKeys
 from repro_torch.kvcache.offload import HostOffloadTier
@@ -404,11 +412,14 @@ class Engine:
             )
         return self.bundle.prefill(params, batch, capacity=self.capacity)
 
-    def _prefill_one(self, params, tokens_1xS, length: int, extras=None):
+    def _prefill_one(self, params, tokens_1xS, length: int, extras=None, slot: int = 0):
         batch = {
             "tokens": tokens_1xS,
             "lengths": torch.tensor([length], dtype=torch.int32, device=self.device),
         }
+        if self.shard is not None:
+            # placed params prefill on the slot's home DP shard
+            batch["dp_shard"] = self.slot_shard(slot)
         if extras:
             batch.update(extras)
         logits, single = self.bundle.prefill(params, batch, capacity=self.capacity)
@@ -449,6 +460,14 @@ class Engine:
             for pool, slab in zip(_pool_leaves(cache[part]), _pool_leaves(single[part])):
                 L, _, pb = pool.shape[:3]
                 if L == 0 or first == nb:
+                    continue
+                if isinstance(slab, Sharded):
+                    # placed params: the prefill's K/V come split over 'model'
+                    # as the pool's heads; each piece goes to its own part
+                    for t in range(slab.grid[3]):
+                        piece = slab.piece((0, 0, 0, t, 0))
+                        blocks = piece[:, 0, : nb * pb].reshape(L, nb, pb, *piece.shape[3:])
+                        pool.write_heads(ids, t, blocks[:, first:])
                     continue
                 blocks = slab[:, 0, : nb * pb].reshape(L, nb, pb, *pool.shape[3:])
                 pool[:, ids] = blocks[:, first:].to(pool.dtype)
@@ -647,7 +666,7 @@ class Engine:
                 )
             blocks.append(bid)
         cache = self._drain_evictions(cache)
-        logits, single = self._prefill_one(params, tokens_1xS, length, extras)
+        logits, single = self._prefill_one(params, tokens_1xS, length, extras, slot)
         # monolithic prefill recomputes the whole prompt (hit blocks only
         # skip their writes); chunked admission turns hits into skipped work
         self.tokens_recomputed += length

@@ -9,7 +9,8 @@ CPU.
   bytes per device, against the port's placed fake pieces on the same mesh
   shapes: olmo-1b ``train_4k`` (tp and fsdp_pure), qwen3-moe ``train_4k``,
   olmo-1b, granite-moe, zamba2-7b and whisper-small ``decode_32k``,
-  command-r-plus and mamba2-370m ``long_500k``, all at full size (the
+  command-r-plus and mamba2-370m ``long_500k``, granite-moe and qwen3-moe
+  ``prefill_32k`` (the MoE prefill cells, expert-parallel), all at full size (the
   hybrid's stacked slabs and Mamba2 states, whisper's cross K/V).  Leaf by leaf the block a device computes with has the
   reference's shape and bytes, with the same dtype (no leaf differs).  The
   port stores a block the spec replicates once, on the first shard of its
@@ -21,6 +22,10 @@ CPU.
   reference's ``_finish_model_flops`` (its source, run here without
   importing ``repro.launch.dryrun``, which sets the 512-device flag) for
   every arch × shape on both production meshes.
+* The MoE prefill cells run the reference's expert-parallel MoE: a reduced
+  granite-moe ``prefill`` cell on a (2, 2) fake mesh calls
+  ``moe.moe_apply_ep`` once per layer, over the data shards' tokens, and
+  never the one-capacity ``moe_apply``.
 * The accountant: a view does not count twice, a freed tensor leaves, an
   in-place op allocates nothing, bytes go to the right device, FLOPs equal
   ``FlopCounterMode``'s.
@@ -73,7 +78,9 @@ PARITY_CELLS = [("olmo-1b", "train_4k", "tp"), ("olmo-1b", "train_4k", "fsdp_pur
                 ("qwen3-moe-235b-a22b", "train_4k", "tp"), ("olmo-1b", "decode_32k", "tp"),
                 ("granite-moe-1b-a400m", "decode_32k", "tp"),
                 ("command-r-plus-104b", "long_500k", "tp"), ("zamba2-7b", "decode_32k", "tp"),
-                ("whisper-small", "decode_32k", "tp"), ("mamba2-370m", "long_500k", "tp")]
+                ("whisper-small", "decode_32k", "tp"), ("mamba2-370m", "long_500k", "tp"),
+                ("granite-moe-1b-a400m", "prefill_32k", "tp"),
+                ("qwen3-moe-235b-a22b", "prefill_32k", "tp")]
 PARITY_MESHES = {"2x2x4": ((2, 2, 4), ("pod", "data", "model")),
                  "4x4": ((4, 4), ("data", "model"))}
 CLI = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
@@ -204,6 +211,32 @@ def test_model_flops_equal_reference():
                 dryrun._finish_model_flops(got, arch, shape, cell, mesh)
                 ref_fn(want, arch, shape, cell, mesh)
                 assert got == want, (arch, shape)
+
+
+def test_moe_prefill_cell_is_expert_parallel():
+    from repro_torch.models import moe
+
+    cfg = _small_cfg("granite-moe-1b-a400m")
+    calls = []
+    ep, plain = moe.moe_apply_ep, moe.moe_apply
+
+    def counted(x, p, cfg_, **kw):
+        calls.append((len(x) if isinstance(x, list) else 1, kw["token_axes"]))
+        return ep(x, p, cfg_, **kw)
+
+    def refused(*a, **k):
+        raise AssertionError("the one-capacity moe_apply ran in an EP prefill")
+
+    moe.moe_apply_ep, moe.moe_apply = counted, refused
+    try:
+        with FakeTensorMode():
+            cell = build_cell("granite-moe-1b-a400m", ShapeConfig("p", 64, 4, "prefill"),
+                              make_fake_mesh((2, 2), ("data", "model")), cfg=cfg,
+                              cost_depth=None)
+            cell.fn(*cell.args)
+    finally:
+        moe.moe_apply_ep, moe.moe_apply = ep, plain
+    assert calls == [(2, ("data",))] * cfg.n_layers
 
 
 def test_accountant_unit_cases():

@@ -7,15 +7,17 @@ records (one JSON object per line; ``--all --out`` writes such a file) and
 prints, for each (arch, shape, mesh) with records at depths 1 and 2, a
 markdown row extrapolated to the config's full depth the reference's way
 (``repro/launch/specs.py``: two depths give the per-layer terms):
-X(L) = X(1) + (L - 1)·(X(2) - X(1)) for the busiest device's argument
-bytes, FLOPs, bytes accessed and wire bytes by kind, and for a train
-step's temporaries (remat keeps one input per layer).  A serving step
-keeps nothing across layers: its temporaries peak within a layer, at the
-switch between two (both layers' gathered weights alive) or in the head,
-which depth 2 already shows, so its row takes depth 2's.  Both depths are
-built with ``skip_layers=0`` and one microbatch, so the rows describe that
-variant of the cell.  A record without a partner is printed as it is,
-its depth named.
+X(L) = X(a) + (L - a)·(X(b) - X(a)) / (b - a) for the busiest device's
+argument bytes, FLOPs, bytes accessed and wire bytes by kind, and for a
+train step's temporaries (remat keeps one input per layer).  The two
+depths a < b are the smallest pair whose records name the same busiest
+device (a device's per-layer terms extrapolate; two devices' do not).  A
+serving step keeps nothing across layers: its temporaries peak within a
+layer, at the switch between two (both layers' gathered weights alive) or
+in the head, which depth b already shows, so its row takes depth b's.
+Every depth is built with ``skip_layers=0`` and one microbatch, so the
+rows describe that variant of the cell.  A record without a partner is
+printed as it is, its depth named.
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ sys.path.insert(0, "src")
 
 from repro_torch.configs import get_config  # noqa: E402
 
-KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
 
 
 def figures(rec: dict) -> dict:
-    c = rec["collectives"]
+    c = dict(rec["collectives"])
+    c.setdefault("all-to-all", 0.0)  # records from before the prefill's K/V hand-off
     out = {"args": rec["argument_size_in_bytes"], "temp": rec["temp_size_in_bytes"],
            "flops": rec["flops"], "bytes": rec["bytes_accessed"], "other": c["other"],
            "trace_s": rec["trace_s"]}
@@ -53,17 +56,21 @@ def main(paths: list[str]) -> None:
                 recs.setdefault(key, {})[r["cost_depth"]] = r
     print("| arch | shape | mesh | depth | args GB | temp GB | args+temp GB of 80 | "
           "TFLOP | bytes accessed GB | all-reduce GB | all-gather GB | reduce-scatter GB "
-          "| other GB | trace s (d1, d2) |")
-    print("| --- " * 14 + "|")
+          "| all-to-all GB | other GB | trace s |")
+    print("| --- " * 15 + "|")
     for (arch, shape, mesh), by_depth in sorted(recs.items()):
-        if 1 in by_depth and 2 in by_depth:
-            f1, f2 = figures(by_depth[1]), figures(by_depth[2])
+        depths = sorted(d for d in by_depth if d is not None)
+        pairs = [(a, b) for i, a in enumerate(depths) for b in depths[i + 1:]
+                 if by_depth[a]["busiest_device"] == by_depth[b]["busiest_device"]]
+        if pairs:
+            a, b = pairs[0]
+            fa, fb = figures(by_depth[a]), figures(by_depth[b])
             L = full_depth(arch)
-            f = {k: f1[k] + (L - 1) * (f2[k] - f1[k]) for k in f1}
-            if by_depth[2]["kind"] != "train":
-                f["temp"] = f2["temp"]
-            depth = f"{L} (from 1, 2)"
-            secs = f"{f1['trace_s']}, {f2['trace_s']}"
+            f = {k: fa[k] + (L - a) * (fb[k] - fa[k]) / (b - a) for k in fa}
+            if by_depth[b]["kind"] != "train":
+                f["temp"] = fb["temp"]
+            depth = f"{L} (from {a}, {b})"
+            secs = f"{fa['trace_s']}, {fb['trace_s']}"
         else:
             d, r = next(iter(by_depth.items()))
             f, depth, secs = figures(r), f"{d or full_depth(arch)}", f"{r['trace_s']}"
@@ -71,7 +78,7 @@ def main(paths: list[str]) -> None:
         print(f"| {arch} | {shape} | {mesh} | {depth} | {gb(f['args'])} | {gb(f['temp'])} | "
               f"{gb(f['args'] + f['temp'])} | {f['flops'] / 1e12:.3f} | {gb(f['bytes'])} | "
               f"{gb(f['all-reduce'])} | {gb(f['all-gather'])} | {gb(f['reduce-scatter'])} | "
-              f"{gb(f['other'])} | {secs} |")
+              f"{gb(f['all-to-all'])} | {gb(f['other'])} | {secs} |")
 
 
 if __name__ == "__main__":
